@@ -1,0 +1,289 @@
+"""CEAZ compressor facade (PyTorch port): the error-bounded fused route.
+
+Same records and policy as the reference facade (``src/repro/core/
+ceaz.py``): ``CEAZ.compress`` dual-quantizes with native-rank Lorenzo
+prediction, codes chunks with the adaptive chi policy and returns a
+:class:`CEAZCompressed` whose fields are bit-identical to the
+reference's ``CEAZ(use_fused=True)`` output; ``decompress`` inverts it
+through the decode megakernel.
+
+The work runs on ``CEAZConfig.device`` — the card unless the caller
+asks for the CPU. Routes of the reference not yet ported raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from . import dualquant as dq
+from ..obs import metrics as om
+from ..obs import trace as ot
+from .codebook import DEFAULT_TAU0, DEFAULT_TAU1, AdaptiveCoder
+from .huffman import NUM_SYMBOLS, Codebook
+from .metrics import compression_ratio
+
+CHUNK_HEADER_BITS = 128
+BLOCK_COUNT_BITS = 32
+OUTLIER_BITS = 64          # 32-bit position + 32-bit delta
+
+value_range = dq.value_range       # re-export: the facade's bound scale
+
+
+@dataclasses.dataclass
+class CompressedChunk:
+    words: np.ndarray            # uint64 bitstream
+    block_nbits: np.ndarray      # int64 per block
+    n_values: int
+    eb: float
+    action: str                  # which codebook path was taken
+    chi: float
+    codebook_lengths: Optional[np.ndarray]   # shipped only when rebuilt
+    codebook_id: str
+    outlier_idx: np.ndarray      # chunk-local positions (int64)
+    outlier_delta: np.ndarray    # int32 deltas
+    center: int = 0              # value-direct mode: per-chunk centre code
+    # bank mode: which book of which codebook bank encoded this chunk
+    bank_ref: str = ""
+    bank_index: int = -1
+
+    def payload_bits(self) -> int:
+        return int(self.block_nbits.sum())
+
+    def total_bits(self) -> int:
+        bits = self.payload_bits()
+        bits += CHUNK_HEADER_BITS
+        bits += BLOCK_COUNT_BITS * len(self.block_nbits)
+        bits += OUTLIER_BITS * len(self.outlier_idx)
+        if self.codebook_lengths is not None:
+            bits += 5 * NUM_SYMBOLS
+        return bits
+
+
+@dataclasses.dataclass
+class CEAZCompressed:
+    shape: tuple
+    dtype: str
+    ndim: int                    # Lorenzo rank used
+    mode: str
+    chunks: List[CompressedChunk]
+    word_bits: int = 32
+    predictor: str = "lorenzo"   # 'lorenzo' | 'none' (value-direct)
+    # raw-literal channel: the rare points where no f32-rounded
+    # reconstruction level lies within eb; patched after reconstruction
+    literal_idx: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0, np.int64))
+    literal_val: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0, np.float32))
+
+    def total_bits(self) -> int:
+        return (sum(c.total_bits() for c in self.chunks)
+                + OUTLIER_BITS * len(self.literal_idx))
+
+    @property
+    def n_values(self) -> int:
+        return int(np.prod(self.shape))
+
+    def ratio(self) -> float:
+        return compression_ratio(self.n_values * self.word_bits,
+                                 self.total_bits())
+
+    def bitrate(self) -> float:
+        return self.total_bits() / max(self.n_values, 1)
+
+    def nbytes(self) -> int:
+        return (self.total_bits() + 7) // 8
+
+
+@dataclasses.dataclass
+class CEAZConfig:
+    """Compression policy for the :class:`CEAZ` facade.
+
+    ``device`` is where the per-value work runs: ``'cuda'`` (the
+    default; the facade raises when no CUDA device is present) or
+    ``'cpu'``, where every kernel op takes its plain PyTorch version.
+    ``kernel_impl`` picks the op implementations from the dispatch
+    registry (``kernels/dispatch.py``): ``'auto'`` (the kernels on the
+    card, plain PyTorch on the CPU), ``'cuda'`` or ``'torch'``.
+    """
+    mode: str = "rel"                 # 'abs' | 'rel' (ported routes)
+    eb: float = 1e-4                  # absolute or range-relative bound
+    chunk_bytes: int = 1 << 25        # paper Fig 11 optimum: 32 MB
+    block_size: int = 4096            # bitstream block (parallel decode unit)
+    tau0: float = DEFAULT_TAU0
+    tau1: float = DEFAULT_TAU1
+    exact_build: bool = False         # True => oracle Huffman
+    adaptive: bool = True             # False => always rebuild
+    predictor: str = "lorenzo"        # ported: 'lorenzo'
+    use_fused: bool = True            # ported: the fused route
+    kernel_impl: str = "auto"
+    decode_megakernel: str = "auto"   # ported: 'auto' | 'mega'
+    codebook: str = "exact"           # ported: 'exact' ('auto' w/o bank)
+    device: str = "cuda"
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP {item})")
+
+
+class CEAZ:
+    """The compressor facade: policy + routing.
+
+        comp = CEAZ(CEAZConfig(mode="rel", eb=1e-4))      # on the card
+        comp = CEAZ(mode="abs", eb=1e-3, device="cpu")    # plain torch
+    """
+
+    def __init__(self, config: CEAZConfig | None = None,
+                 offline_codebook: Codebook | None = None,
+                 bank=None, **kw):
+        if config is None:
+            config = CEAZConfig(**kw)
+        elif kw:
+            config = dataclasses.replace(config, **kw)
+        self.cfg = config
+        self.device = torch.device(config.device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "CEAZConfig(device='cuda') but no CUDA device is present; "
+                "pass device='cpu' to run the plain PyTorch versions")
+        if offline_codebook is None:
+            from .codebook import default_offline_codebook
+            offline_codebook = default_offline_codebook()
+        self.offline = offline_codebook
+        if bank is not None:
+            _not_ported("codebook bank mode", "Queue 1 item 5")
+
+    # -- helpers -------------------------------------------------------------
+    def _abs_eb(self, x: np.ndarray) -> float:
+        if self.cfg.mode == "abs":
+            return self.cfg.eb
+        return self.cfg.eb * value_range(x)
+
+    def _chunk_values(self, word_bits: int) -> int:
+        return max(self.cfg.chunk_bytes // (word_bits // 8),
+                   self.cfg.block_size)
+
+    def _coder(self) -> AdaptiveCoder:
+        return AdaptiveCoder(self.offline, self.cfg.tau0, self.cfg.tau1,
+                             self.cfg.exact_build)
+
+    def _check_route(self):
+        cfg = self.cfg
+        if not cfg.use_fused:
+            _not_ported("the staged route (use_fused=False)",
+                        "Queue 1 item 1")
+        if cfg.mode == "fixed_ratio":
+            _not_ported("mode='fixed_ratio'", "Queue 1 item 6")
+        if cfg.mode not in ("abs", "rel"):
+            raise ValueError(cfg.mode)
+        if cfg.predictor in ("none", "auto"):
+            _not_ported(f"predictor={cfg.predictor!r}", "Queue 1 item 5")
+        if cfg.predictor != "lorenzo":
+            raise ValueError(f"unknown predictor {cfg.predictor!r}")
+        if cfg.codebook == "bank":
+            _not_ported("codebook='bank'", "Queue 1 item 5")
+        if cfg.codebook not in ("exact", "auto"):
+            raise ValueError(
+                f"codebook must be 'exact', 'bank' or 'auto', got "
+                f"{cfg.codebook!r}")
+
+    # -- public API ------------------------------------------------------------
+    def compress(self, x: np.ndarray) -> CEAZCompressed:
+        """Compress one float32/float64 array under this facade's policy.
+
+        Raises:
+          TypeError: non-float dtype.
+          ValueError: unknown ``cfg.mode``, ``cfg.codebook`` or
+            ``cfg.kernel_impl``.
+          NotImplementedError: a route not ported yet.
+        """
+        x = np.asarray(x)
+        if x.dtype not in (np.float32, np.float64):
+            raise TypeError(f"CEAZ compresses float data, got {x.dtype}")
+        self._check_route()
+        word_bits = x.dtype.itemsize * 8
+        if x.size == 0:
+            return CEAZCompressed(shape=x.shape, dtype=str(x.dtype), ndim=1,
+                                  mode=self.cfg.mode, chunks=[],
+                                  word_bits=word_bits)
+        from ..runtime import fused
+        with ot.span("ceaz.compress", shape=list(x.shape),
+                     dtype=str(x.dtype), mode=self.cfg.mode):
+            c = fused.compress_error_bounded(
+                x, self._abs_eb(x), self.cfg.mode, self._coder(),
+                self._chunk_values(word_bits), self.cfg.block_size,
+                device=self.device, adaptive=self.cfg.adaptive,
+                exact_build=self.cfg.exact_build,
+                kernel_impl=self.cfg.kernel_impl)
+        om.add(om.CHUNKS, len(c.chunks))
+        om.add(om.RAW_BYTES, int(x.nbytes))
+        om.add(om.STORED_BYTES, c.nbytes())
+        return c
+
+    def compress_batch(self, shards, plan=None):
+        _not_ported("compress_batch (batch_compress)", "Queue 1 item 2")
+
+    # -- decode side -----------------------------------------------------------
+    def decompress(self, c: CEAZCompressed) -> np.ndarray:
+        """Decode one stream to an array of its original shape and dtype.
+
+        Raises:
+          ValueError: the stream's per-chunk block counts are
+            inconsistent with ``cfg.block_size``.
+        """
+        return self.decompress_batch([c])[0]
+
+    def decompress_batch(self, comps) -> List[np.ndarray]:
+        """Decode a sequence of streams; all eligible streams share ONE
+        batched `ceaz_chunk_dec` pass. Returns arrays in input order."""
+        comps = list(comps)
+        dmk = self.cfg.decode_megakernel
+        if dmk == "split":
+            _not_ported("decode_megakernel='split'", "Queue 1 item 3")
+        if dmk not in ("auto", "mega"):
+            raise ValueError(f"unknown decode_megakernel {dmk!r}; choose "
+                             "from ('auto', 'mega', 'split')")
+        if not self.cfg.use_fused:
+            _not_ported("the staged route (use_fused=False)",
+                        "Queue 1 item 1")
+        from ..runtime import fused_decode as FD
+        out: List[Optional[np.ndarray]] = [None] * len(comps)
+        with ot.span("ceaz.decompress_batch", n=len(comps)):
+            idx = []
+            for i, c in enumerate(comps):
+                if not c.chunks:                 # empty stream: zero values
+                    out[i] = np.zeros(c.shape, dtype=np.dtype(c.dtype))
+                elif FD.fused_decode_ok(c, self.offline):
+                    self._check_block_size(c)
+                    idx.append(i)
+                else:
+                    _not_ported(f"decoding {c.mode}/{c.predictor} streams",
+                                "Queue 1 items 5-6")
+            if idx:
+                dec = FD.decompress_batch(
+                    [comps[i] for i in idx], self.cfg.block_size,
+                    self.offline, device=self.device,
+                    kernel_impl=self.cfg.kernel_impl)
+                for i, a in zip(idx, dec):
+                    out[i] = a
+        for c, a in zip(comps, out):
+            om.add(om.DECODED_CHUNKS, len(c.chunks))
+            om.add(om.DECODED_BYTES, int(a.nbytes))
+        return out
+
+    def _check_block_size(self, c: CEAZCompressed):
+        """Decode needs the encoder's block_size: refuse loudly when the
+        per-chunk block counts are inconsistent with this facade's."""
+        bs = self.cfg.block_size
+        for i, ch in enumerate(c.chunks):
+            expect = max(1, -(-ch.n_values // bs))
+            if len(ch.block_nbits) != expect:
+                raise ValueError(
+                    f"decode block_size={bs} inconsistent with stream: "
+                    f"chunk {i} has {len(ch.block_nbits)} blocks for "
+                    f"{ch.n_values} values (expected {expect}); pass the "
+                    "block_size the stream was compressed with")

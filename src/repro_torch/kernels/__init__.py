@@ -1,0 +1,1 @@
+"""Kernel ops: plain PyTorch versions and hand-written CUDA kernels."""

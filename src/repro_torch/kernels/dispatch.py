@@ -1,0 +1,198 @@
+"""Backend dispatch for the port's kernel ops.
+
+Each op has two implementations with one calling convention and a
+bit-exact output contract:
+
+  * ``'torch'`` — the plain PyTorch version (any device; what a CPU
+    tensor always takes);
+  * ``'cuda'``  — the hand-written Hopper kernel behind a ctypes wrapper
+    (``kernels/_build.py``). It takes CUDA tensors only and raises on
+    anything else; it never falls back to the plain version.
+
+Callers resolve through the registry, keyed on ``(op, impl)``:
+
+    fn = dispatch.resolve("hufenc", cfg.kernel_impl, device)
+
+``'auto'`` resolves by the device the data lies on: ``'cuda'`` for a
+CUDA device, ``'torch'`` for the CPU. Implementations are registered as
+zero-arg loaders and imported on first resolve.
+
+Op calling conventions (tensors on one device):
+
+  dualquant(work, eb, ndim, n_out) -> (codes, outl, delta, q)
+      work f32 of rank ndim (1..3); codes/outl/delta flat, zero-padded
+      to n_out; q the flat prequantized field (n values)
+  hufenc(codes2, valid2, lengths_tbl, cwords_tbl, block_size, w32)
+      -> (words (C, w32) int32 holding u32 bits, block_nbits (C, nblocks))
+  ceaz_chunk_dec(words2, nbits2, counts, sym2, len2, cb_idx, odelta2,
+                 base, seg0, islor, block_size) -> q (C, NB*block_size)
+      the decode megakernel op; see kernels/megakernel/ops.py
+
+Launch accounting: every CUDA wrapper adds one to its kernel's count
+(:func:`count_launch`) where it launches, and nowhere else, so a run
+can show the main path went through the kernels. :func:`measure` feeds
+the ``ceaz_kernel_*`` metrics per host-level pass, as the reference's
+dispatch layer does.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from typing import Callable, Dict, Tuple
+
+import torch
+
+from ..obs import metrics as om
+from ..obs import trace as ot
+
+_LOADERS: Dict[Tuple[str, str], Callable[[], Callable]] = {}
+_RESOLVED: Dict[Tuple[str, str], Callable] = {}
+_LAUNCHES: Dict[str, int] = {}
+
+
+def register(op: str, impl: str, loader: Callable[[], Callable]) -> None:
+    """Register `loader` (zero-arg, returns the impl fn) under (op, impl)."""
+    _LOADERS[(op, impl)] = loader
+    _RESOLVED.pop((op, impl), None)
+
+
+def available(op: str) -> Tuple[str, ...]:
+    """Registered implementation names for `op` (excluding 'auto')."""
+    return tuple(sorted(i for (o, i) in _LOADERS if o == op))
+
+
+def resolve_name(impl: str, device) -> str:
+    """The concrete impl `impl` names for data on `device`."""
+    device = torch.device(device)
+    if impl == "auto":
+        return "cuda" if device.type == "cuda" else "torch"
+    if impl == "cuda" and device.type != "cuda":
+        raise ValueError(f"kernel_impl 'cuda' needs CUDA tensors, got "
+                         f"device {device}")
+    return impl
+
+
+def resolve(op: str, impl: str = "auto", device="cpu") -> Callable:
+    """The implementation of `op` selected by `impl` for `device`.
+
+    Anything not registered raises ValueError naming the valid choices.
+    """
+    key = (op, resolve_name(impl, device))
+    fn = _RESOLVED.get(key)
+    if fn is not None:
+        return fn
+    loader = _LOADERS.get(key)
+    if loader is None:
+        ops = sorted({o for (o, _) in _LOADERS})
+        if op not in ops:
+            raise ValueError(
+                f"unknown kernel op {op!r}; registered ops: {ops}")
+        raise ValueError(
+            f"unknown kernel_impl {impl!r} for op {op!r}; choose from "
+            f"{('auto',) + available(op)}")
+    fn = _RESOLVED[key] = loader()
+    return fn
+
+
+# -- launch counts -------------------------------------------------------------
+
+def count_launch(kernel: str) -> None:
+    """Called by a CUDA wrapper where it launches `kernel`."""
+    _LAUNCHES[kernel] = _LAUNCHES.get(kernel, 0) + 1
+
+
+def launches() -> Dict[str, int]:
+    """Launch counts per kernel since the last :func:`reset_launches`."""
+    return dict(_LAUNCHES)
+
+
+def reset_launches() -> None:
+    _LAUNCHES.clear()
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """A CUDA wrapper's guard: every tensor argument must be a contiguous
+    CUDA tensor."""
+    for t in tensors:
+        if not t.is_cuda:
+            raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, "
+                             f"got one on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def stream_handle() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+# -- observability -------------------------------------------------------------
+# Per host-level pass: the per-(op, impl) ceaz_kernel_calls_total counter
+# and a `kernel.<op>` span. Timing a device pass needs a sync, so it is
+# opt-in (CEAZ_KERNEL_TIMING=1 or set_timing(True)) and feeds
+# ceaz_kernel_pass_seconds.
+
+_TIMING = os.environ.get("CEAZ_KERNEL_TIMING", "") not in ("", "0")
+
+
+def set_timing(on: bool) -> None:
+    global _TIMING
+    _TIMING = bool(on)
+
+
+@contextlib.contextmanager
+def measure(op: str, impl: str, device):
+    """Account one host-level invocation of `op`."""
+    impl = resolve_name(impl, device)
+    om.add(om.KERNEL_CALLS, op=op, impl=impl)
+    if not _TIMING:
+        with ot.span("kernel." + op, impl=impl):
+            yield
+        return
+    t0 = time.perf_counter()
+    with ot.span("kernel." + op, impl=impl, timed=True):
+        yield
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+    om.observe(om.KERNEL_SECONDS, time.perf_counter() - t0,
+               op=op, impl=impl)
+
+
+# -- default implementations ---------------------------------------------------
+
+def _dq_torch() -> Callable:
+    from .dualquant import ops
+    return ops.dual_quantize_plain
+
+
+def _dq_cuda() -> Callable:
+    from .dualquant import ops
+    return ops.dual_quantize_cuda
+
+
+def _hufenc_torch() -> Callable:
+    from .hufenc import ops
+    return ops.encode_pack_plain
+
+
+def _hufenc_cuda() -> Callable:
+    from .hufenc import ops
+    return ops.encode_pack_cuda
+
+
+def _dec_torch() -> Callable:
+    from .megakernel import ops
+    return ops.ceaz_chunk_dec_plain
+
+
+def _dec_cuda() -> Callable:
+    from .megakernel import ops
+    return ops.ceaz_chunk_dec_cuda
+
+
+register("dualquant", "torch", _dq_torch)
+register("dualquant", "cuda", _dq_cuda)
+register("hufenc", "torch", _hufenc_torch)
+register("hufenc", "cuda", _hufenc_cuda)
+register("ceaz_chunk_dec", "torch", _dec_torch)
+register("ceaz_chunk_dec", "cuda", _dec_cuda)

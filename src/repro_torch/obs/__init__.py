@@ -1,0 +1,1 @@
+"""Copies of the reference's telemetry layer (same metric and span names)."""

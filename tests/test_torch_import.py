@@ -1,0 +1,48 @@
+"""The port stands alone: importing it loads neither JAX nor the
+reference package, and no module of it (or chip_smoke.py) imports them."""
+import ast
+import os
+import subprocess
+import sys
+
+from conftest import REPO, SRC
+
+PORT = os.path.join(SRC, "repro_torch")
+
+
+def _port_files():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PORT):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def test_import_leaves_jax_and_reference_out():
+    code = ("import sys, repro_torch, repro_torch.convert, "
+            "repro_torch.runtime.fused, repro_torch.runtime.fused_decode, "
+            "repro_torch.kernels.megakernel.ops, "
+            "repro_torch.kernels.dualquant.ops\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
+            "or m.startswith(('jax.', 'repro.'))]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_no_source_imports_jax_or_reference():
+    files = _port_files()
+    assert len(files) > 20
+    for path in files:
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                root = name.split(".")[0]
+                assert root not in ("jax", "jaxlib", "repro"), (path, name)
