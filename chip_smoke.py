@@ -4,19 +4,48 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, then
-drives the port's main path — ``CEAZ.compress`` -> ``CEAZ.decompress``
-on the fused abs/rel Lorenzo route — through the public facade:
+drives the port's routes — ``CEAZ.compress`` -> ``CEAZ.decompress`` —
+through the public facade, at rel eb 1e-4 unless said otherwise:
 
   phase A  CESM-like 2-D field, 1800x3600 f32 (25.9 MB, the size of the
-           paper's CESM-ATM fields), rel eb 1e-4, default 32 MB chunks
-           (one chunk): dq2d, gather-pack, word-tiled walk kernels;
-  phase B  HACC-like 1-D field, 2^23 f32 (32 MB), rel eb 1e-4,
-           chunk_bytes=2^19 (64 chunks of 2^17 values): dq1d,
-           gather-pack, decode-megakernel kernels, the Lorenzo chain
-           carried across all 64 rows.
+           paper's CESM-ATM fields), default 32 MB chunks (one chunk),
+           exact codebooks: dq2d, gather-pack, word-tiled walk kernels;
+  phase B  HACC-like 1-D field, 2^23 f32 (32 MB), chunk_bytes=2^19 (64
+           chunks of 2^17 values), exact codebooks: dq1d, gather-pack,
+           decode-megakernel kernels, the Lorenzo chain carried across
+           all 64 rows;
+  phase C  the HACC field with the default codebook bank, 64 chunks of
+           2^17 (the one-program regime of the bank encode): Lorenzo
+           quantize+histogram, bank select, gather-pack; decode
+           megakernel;
+  C.value  the NWChem-like field below, value-direct with the bank at
+           rel eb 1e-3 in the same 64 chunks of 2^17: the value
+           quantize and finalize (counted as the one-program kernel),
+           dq_center, select, pack; decode megakernel adding each
+           chunk's centre;
+  phase D  the HACC field with the bank at the default 32 MB chunk (one
+           2^23-value chunk, the tiled regime): the same kernels counted
+           as the tiled ones; word-tiled walk;
+  phase E  NWChem-like 1-D field, 2^23 f32, value-direct prediction
+           (predictor='none') at rel eb 1e-3 and the default chunk,
+           twice: with the bank
+           (value quantize, dq_center median, value finalize+histogram,
+           select, pack) and with exact codebooks (the same three
+           pass-1 kernels, then the exact route's pack); decode adds
+           each chunk's centre;
+  E.drift  the same field with the bank at rel eb 1e-4, where over half
+           its values escape: the bank pass runs, the host replay's
+           drift passes the facade's tolerance and the whole array is
+           re-encoded on the exact route (the fallback counter must
+           rise by one, every chunk must leave the bank);
+  phase F  the CESM field with the bank: dq2d, bank select, gather-pack,
+           word-tiled walk.
 
 Each phase is run with the kernels' launch counts set to 0 just before
-and read just after, and must launch every kernel of its path. Its
+and read just after, and must launch every kernel of its path. A count
+is one per launch: a quantize launch counts under the TPU kernel whose
+work it does at that row length (``ceaz_chunk_fused`` up to 2^17
+values, the tiled kernel past it). Its
 stream (every CompressedChunk field, the literals) and decoded bytes
 must equal the port's own CPU run of the same input bit for bit, and
 the reconstruction must hold the error bound. Every kernel is then
@@ -39,6 +68,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
+NUM_SYMBOLS = 1024
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
 REPLACES = {
     "dq1d": "src/repro/kernels/dualquant/kernel.py:101",
@@ -47,6 +77,14 @@ REPLACES = {
     "hufdec_tiles": "src/repro/kernels/megakernel/decode_kernel.py:246",
     "ceaz_chunk_dec_fused":
         "src/repro/kernels/megakernel/decode_kernel.py:146",
+    "ceaz_chunk_fused": "src/repro/kernels/megakernel/kernel.py:138",
+    "lorenzo_tiles": "src/repro/kernels/megakernel/kernel.py:254",
+    "value_quant_tiles": "src/repro/kernels/megakernel/kernel.py:290",
+    "value_finalize_tiles": "src/repro/kernels/megakernel/kernel.py:306",
+    "dq_center": "src/repro/kernels/dualquant/kernel.py:220",
+    # the select stage of ceaz_chunk_fused (its tiled regime runs it as
+    # jnp, megakernel/ref.py::select_bank)
+    "bank_select": "src/repro/kernels/megakernel/kernel.py:111",
 }
 SOURCES = {
     "dq1d": "src/repro_torch/csrc/dualquant.cu",
@@ -54,9 +92,32 @@ SOURCES = {
     "gather_pack_tiled": "src/repro_torch/csrc/hufenc.cu",
     "hufdec_tiles": "src/repro_torch/csrc/hufdec.cu",
     "ceaz_chunk_dec_fused": "src/repro_torch/csrc/decode_fused.cu",
+    "ceaz_chunk_fused": "src/repro_torch/csrc/bank.cu",
+    "lorenzo_tiles": "src/repro_torch/csrc/bank.cu",
+    "value_quant_tiles": "src/repro_torch/csrc/bank.cu",
+    "value_finalize_tiles": "src/repro_torch/csrc/bank.cu",
+    "dq_center": "src/repro_torch/csrc/center.cu",
+    "bank_select": "src/repro_torch/csrc/bank.cu",
 }
-PHASE_KERNELS = {"A": ("dq2d", "gather_pack_tiled", "hufdec_tiles"),
-                 "B": ("dq1d", "gather_pack_tiled", "ceaz_chunk_dec_fused")}
+_VALUE = ("value_quant_tiles", "dq_center", "value_finalize_tiles")
+PHASE_KERNELS = {
+    "A": ("dq2d", "gather_pack_tiled", "hufdec_tiles"),
+    "B": ("dq1d", "gather_pack_tiled", "ceaz_chunk_dec_fused"),
+    "C": ("ceaz_chunk_fused", "bank_select", "gather_pack_tiled",
+          "ceaz_chunk_dec_fused"),
+    "C.value": ("ceaz_chunk_fused", "dq_center", "bank_select",
+                "gather_pack_tiled", "ceaz_chunk_dec_fused"),
+    "D": ("lorenzo_tiles", "bank_select", "gather_pack_tiled",
+          "hufdec_tiles"),
+    "E.bank": _VALUE + ("bank_select", "gather_pack_tiled", "hufdec_tiles"),
+    "E.exact": _VALUE + ("gather_pack_tiled", "hufdec_tiles"),
+    "E.drift": _VALUE + ("bank_select", "gather_pack_tiled", "hufdec_tiles"),
+    "F": ("dq2d", "bank_select", "gather_pack_tiled", "hufdec_tiles"),
+}
+# phases whose bank pass must fall back to the exact route
+DRIFT_PHASES = ("E.drift",)
+CAPTURED_OPS = ("dualquant", "hufenc", "ceaz_chunk_dec", "ceaz_chunk",
+                "value_quant", "dq_center", "value_finalize", "bank_select")
 
 
 class CheckFailed(RuntimeError):
@@ -166,9 +227,11 @@ def run_phase(name, x, kw, offline, dispatch, CEAZ, CEAZConfig, captured):
     """Counted main-path run on the card + the CPU run it must equal."""
     import numpy as np
     from repro_torch.core.dualquant import value_range
+    from repro_torch.obs import metrics as om
     gpu = CEAZ(CEAZConfig(device="cuda", **kw), offline_codebook=offline)
     cpu = CEAZ(CEAZConfig(device="cpu", **kw), offline_codebook=offline)
     captured.clear()
+    fallbacks = om.counter(om.BANK_FALLBACKS).value()
     dispatch.reset_launches()
     c_gpu = gpu.compress(x)
     y_gpu = gpu.decompress(c_gpu)
@@ -178,6 +241,18 @@ def run_phase(name, x, kw, offline, dispatch, CEAZ, CEAZConfig, captured):
     for k in PHASE_KERNELS[name]:
         check(counts.get(k, 0) > 0,
               f"phase {name}: kernel {k} was not launched ({counts})")
+    fell_back = om.counter(om.BANK_FALLBACKS).value() - fallbacks
+    if name in DRIFT_PHASES:
+        check(fell_back == 1
+              and not any(ch.action == "bank" for ch in c_gpu.chunks),
+              f"phase {name}: the bank route did not fall back to exact "
+              f"codebooks ({fell_back} fallbacks)")
+    elif kw.get("codebook") == "bank":
+        check(fell_back == 0
+              and all(ch.action == "bank" for ch in c_gpu.chunks),
+              f"phase {name}: the bank route fell back to exact codebooks")
+    check(c_gpu.predictor == kw.get("predictor", "lorenzo"),
+          f"phase {name}: predictor {c_gpu.predictor}")
     inputs = dict(captured)
     t0 = time.perf_counter()
     c_cpu = cpu.compress(x)
@@ -196,6 +271,8 @@ def run_phase(name, x, kw, offline, dispatch, CEAZ, CEAZConfig, captured):
     print(f"phase {name} spans (ms, one traced round trip, kernel passes "
           f"synced): {span_breakdown(lambda: gpu.decompress(gpu.compress(x)), dispatch)}")
     print(f"phase {name}: shape={x.shape} chunks={len(c_gpu.chunks)} "
+          f"predictor={c_gpu.predictor} "
+          f"actions={sorted({ch.action for ch in c_gpu.chunks})} "
           f"ratio={c_gpu.ratio()} max_err={err} bound={bound} "
           f"literals={len(c_gpu.literal_idx)} launches={counts} "
           f"stream+bytes==cpu run: True (cpu run {cpu_s:.2f} s)")
@@ -204,7 +281,7 @@ def run_phase(name, x, kw, offline, dispatch, CEAZ, CEAZConfig, captured):
                                 compress_s=enc_s, decompress_s=dec_s)
 
 
-def kernel_rows(inputs_a, inputs_b):
+def kernel_rows(inputs):
     """Each kernel on its main-path inputs: bitwise vs plain, timed."""
     import torch
     from repro_torch.kernels.dualquant import ops as DQ
@@ -212,6 +289,7 @@ def kernel_rows(inputs_a, inputs_b):
     from repro_torch.kernels.hufenc import ops as HE
     from repro_torch.kernels.megakernel import ops as MK
     rows = {}
+    inputs_a, inputs_b = inputs["A"], inputs["B"]
 
     def row(name, cuda_fn, plain_fn, in_bytes, out_bytes, ops, extra=None):
         got = cuda_fn()
@@ -273,6 +351,67 @@ def kernel_rows(inputs_a, inputs_b):
             in_bytes=nbytes(*dec[:n_in]), out_bytes=4 * C * NB * bs,
             ops=ops_per_symbol * int(counts.sum()),
             extra=dict(cumsum_ms=cuda_ms(lambda: torch.cumsum(q_like, 1))))
+
+    # -- the bank encode (phases C, D, E) ---------------------------------
+    # prequantize is ~12 f32 operations a value; the Lorenzo kernel runs
+    # it twice (the value and its raw predecessor)
+    args_c = inputs["C"]["ceaz_chunk"][0]
+    work2, prev2, valid2, ebs, ln, cw, bs, w32, pred = args_c
+    C, cv = work2.shape
+    K = ln.shape[0]
+    per_row_out = 4 * (NUM_SYMBOLS + 4 + w32 + -(-cv // bs))
+    row("ceaz_chunk_fused", lambda: MK.ceaz_chunk_cuda(*args_c),
+        lambda: MK.ceaz_chunk_plain(*args_c),
+        in_bytes=nbytes(work2, prev2, valid2, ebs, ln, cw),
+        out_bytes=13 * C * cv + C * per_row_out,
+        ops=24 * C * cv + 2 * K * NUM_SYMBOLS * C,
+        extra=dict(phase="C"))
+    hists_c = MK.lorenzo_quant_cuda(work2, prev2, valid2, ebs)[4]
+    # the op's value branch in the same regime (phase C.value)
+    args_cv = inputs["C.value"]["ceaz_chunk"][0]
+    check(same_outputs(MK.ceaz_chunk_cuda(*args_cv),
+                       MK.ceaz_chunk_plain(*args_cv)),
+          "kernel ceaz_chunk_fused (value branch) disagrees with its plain "
+          "version")
+    rows["ceaz_chunk_fused"]["value_ms"] = cuda_ms(
+        lambda: MK.ceaz_chunk_cuda(*args_cv))
+    print(f"kernel ceaz_chunk_fused value branch (C.value): bitwise == "
+          f"plain: True  ms={rows['ceaz_chunk_fused']['value_ms']}")
+
+    work2, prev2, valid2, ebs = inputs["D"]["ceaz_chunk"][0][:4]
+    C, cv = work2.shape
+    row("lorenzo_tiles",
+        lambda: MK.lorenzo_quant_cuda(work2, prev2, valid2, ebs),
+        lambda: MK.lorenzo_quant_plain(work2, prev2, valid2, ebs),
+        in_bytes=nbytes(work2, prev2, valid2, ebs),
+        out_bytes=13 * C * cv + 4 * NUM_SYMBOLS * C, ops=24 * C * cv,
+        extra=dict(phase="D"))
+
+    row("bank_select", lambda: MK.bank_select_cuda(hists_c, ln, cw),
+        lambda: MK.bank_select_plain(hists_c, ln, cw),
+        in_bytes=nbytes(hists_c, ln, cw),
+        out_bytes=hists_c.shape[0] * (8 + 8 * NUM_SYMBOLS),
+        ops=2 * K * NUM_SYMBOLS * hists_c.shape[0], extra=dict(phase="C"))
+
+    work2, _, valid2, ebs = inputs["E.bank"]["ceaz_chunk"][0][:4]
+    C, cv = work2.shape
+    row("value_quant_tiles", lambda: MK.value_quant_cuda(work2, ebs),
+        lambda: MK.value_quant_plain(work2, ebs),
+        in_bytes=nbytes(work2, ebs), out_bytes=4 * C * cv, ops=12 * C * cv,
+        extra=dict(phase="E.bank"))
+    q2 = MK.value_quant_cuda(work2, ebs)
+    row("dq_center", lambda: DQ.dq_center_cuda(q2, valid2),
+        lambda: DQ.chunk_center_plain(q2, valid2),
+        in_bytes=nbytes(q2, valid2), out_bytes=4 * C, ops=4 * 8 * C * cv,
+        extra=dict(phase="E.bank",
+                   sort_ms=cuda_ms(lambda: torch.sort(q2, dim=1))))
+    centers = DQ.dq_center_cuda(q2, valid2)
+    row("value_finalize_tiles",
+        lambda: MK.value_finalize_cuda(q2, valid2, centers),
+        lambda: MK.value_finalize_plain(q2, valid2, centers),
+        in_bytes=nbytes(q2, valid2, centers),
+        out_bytes=13 * C * cv + 4 * NUM_SYMBOLS * C, ops=4 * C * cv,
+        extra=dict(phase="E.bank"))
     return rows
 
 
@@ -298,19 +437,62 @@ def nonfinite_check():
     print("dq1d/dq2d on NaN/+-Inf/+-3e9 inputs == plain (cpu): True")
 
 
+def center_corner_check():
+    """dq_center on rows with ties, no valid entry, a wrapping midpoint
+    and values near +-2^31, against the plain version on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.dualquant import ops as DQ
+    i32 = np.iinfo(np.int32)
+    rng = np.random.default_rng(1)
+    V = 70001
+    edge = rng.choice([i32.min, i32.min + 1, i32.max - 1, i32.max], V)
+    wrap = np.zeros(V, np.int64)
+    wrap[:2] = (-2_000_000_000, 2_000_000_000)
+    q2 = np.stack([rng.integers(-3, 4, V), wrap, edge, edge,
+                   rng.integers(-9, 9, V), np.full(V, 5)]).astype(np.int32)
+    valid2 = np.stack([np.ones(V, bool), np.arange(V) < 2, np.ones(V, bool),
+                       rng.random(V) < 0.5, np.zeros(V, bool),
+                       np.arange(V) < 4])
+    q, v = torch.from_numpy(q2), torch.from_numpy(valid2)
+    got = DQ.dq_center_cuda(q.cuda(), v.cuda()).cpu()
+    check(torch.equal(got, DQ.chunk_center_plain(q, v)),
+          "dq_center disagrees with plain on ties/empty/wrap/+-2^31 rows")
+    print(f"dq_center on tie/empty/wrap/+-2^31 rows == plain (cpu): True "
+          f"{got.tolist()}")
+
+
+PHASES = (
+    # name, field, facade options (rel eb 1e-4 unless given)
+    ("A", "cesm", {}),
+    ("B", "hacc", dict(chunk_bytes=1 << 19)),
+    ("C", "hacc", dict(chunk_bytes=1 << 19, codebook="bank")),
+    ("C.value", "nwchem", dict(eb=1e-3, chunk_bytes=1 << 19,
+                               predictor="none", codebook="bank")),
+    ("D", "hacc", dict(codebook="bank")),
+    # value-direct at rel 1e-3: at 1e-4 the whole field spans ~5000
+    # quantization bins, over half its values escape as outliers and the
+    # bank route (rightly) falls back to exact codebooks
+    ("E.bank", "nwchem", dict(eb=1e-3, predictor="none", codebook="bank")),
+    ("E.exact", "nwchem", dict(eb=1e-3, predictor="none")),
+    # ... and the drift valve at 1e-4 (the fallback must be taken)
+    ("E.drift", "nwchem", dict(predictor="none", codebook="bank")),
+    ("F", "cesm", dict(codebook="bank")),
+)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    import numpy as np
     from repro_torch.core import CEAZ, CEAZConfig, default_offline_codebook
     from repro_torch.data import fields as F
     from repro_torch.kernels import _build, dispatch
 
     card = card_line()
     print(f"card: {card}")
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     _build.library()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {'ran' if _build.build_seconds else 'reused a build'})")
@@ -319,7 +501,7 @@ def main():
             print("  ptxas:", line.strip())
 
     captured = {}
-    for op in ("dualquant", "hufenc", "ceaz_chunk_dec"):
+    for op in CAPTURED_OPS:
         fn = dispatch.resolve(op, "cuda", "cuda")
 
         def recorder(*a, _fn=fn, _op=op):
@@ -328,31 +510,39 @@ def main():
         dispatch.register(op, "cuda", lambda _r=recorder: _r)
 
     offline = default_offline_codebook()
-    x_a = F.cesm_proxy(size="medium")
-    x_b = F.hacc_proxy(size="medium")
-    check(x_a.shape == (1800, 3600) and x_b.shape == (1 << 23,),
-          "unexpected phase shapes")
-    counts_a, in_a, thr_a = run_phase(
-        "A", x_a, dict(mode="rel", eb=1e-4), offline, dispatch, CEAZ,
-        CEAZConfig, captured)
-    counts_b, in_b, thr_b = run_phase(
-        "B", x_b, dict(mode="rel", eb=1e-4, chunk_bytes=1 << 19), offline,
-        dispatch, CEAZ, CEAZConfig, captured)
-    for op in ("dualquant", "hufenc", "ceaz_chunk_dec"):
-        check(op in in_a and op in in_b, f"{op} inputs were not captured")
+    fields = {"cesm": F.cesm_proxy(size="medium"),
+              "hacc": F.hacc_proxy(size="medium"),
+              "nwchem": F.nwchem_proxy(size="medium")}
+    check(fields["cesm"].shape == (1800, 3600)
+          and fields["hacc"].shape == (1 << 23,)
+          and fields["nwchem"].shape == (1 << 23,), "unexpected phase shapes")
+    counts, inputs, thr = {}, {}, {}
+    for name, field, kw in PHASES:
+        counts[name], inputs[name], thr[name] = run_phase(
+            name, fields[field], {"mode": "rel", "eb": 1e-4, **kw}, offline,
+            dispatch, CEAZ, CEAZConfig, captured)
+    for op, phases in (("dualquant", "ABF"), ("hufenc", "ABF"),
+                       ("ceaz_chunk_dec", "ABCD"), ("ceaz_chunk", "CD"),
+                       ("bank_select", "F")):
+        for p in phases:
+            check(op in inputs[p], f"{op} inputs of phase {p} not captured")
+    check("ceaz_chunk" in inputs["C.value"]
+          and "ceaz_chunk" in inputs["E.bank"]
+          and "dq_center" in inputs["E.exact"], "phase E inputs not captured")
 
-    rows = kernel_rows(in_a, in_b)
+    rows = kernel_rows(inputs)
     nonfinite_check()
+    center_corner_check()
     for name, r in rows.items():
-        r["launches"] = counts_a.get(name, 0) + counts_b.get(name, 0)
-    for name, thr in (("A", thr_a), ("B", thr_b)):
+        r["launches"] = sum(c.get(name, 0) for c in counts.values())
+    for name, t in thr.items():
         print(f"throughput phase {name} [{card}]: "
-              f"compress {thr['compress_GBps']} GB/s "
-              f"({thr['compress_s']} s), decompress "
-              f"{thr['decompress_GBps']} GB/s ({thr['decompress_s']} s) "
+              f"compress {t['compress_GBps']} GB/s "
+              f"({t['compress_s']} s), decompress "
+              f"{t['decompress_GBps']} GB/s ({t['decompress_s']} s) "
               f"of f32 input")
-    print(json.dumps({"throughput": {"A": thr_a, "B": thr_b},
-                      "card": card}))
+    print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"throughput": thr, "card": card}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,11 @@ the reference:
         ref_ceaz.CompressedChunk(**f) for f in fields["chunks"]]})
 
 Codebooks convert the same way (``lengths``, ``codes``, ``max_len``);
-their ``id`` is a hash of the lengths, so it survives the trip.
+their ``id`` is a hash of the lengths, so it survives the trip. A
+record's bank fields (``center``, ``bank_ref``, ``bank_index``) travel
+with the other chunk fields; the bank itself converts with
+:func:`bank_from_reference` and keeps its content-hash id, so a
+converted bank resolves the ``bank_ref`` of reference records.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from typing import Any, Dict
 import numpy as np
 
 from .core.ceaz import CEAZCompressed, CompressedChunk
+from .core.codebook import CodebookBank
 from .core.huffman import Codebook
 
 
@@ -71,3 +76,11 @@ def to_reference_fields(obj) -> Dict[str, Any]:
                     max_len=obj.max_len)
     raise TypeError(f"cannot convert {type(obj).__name__}: not a port "
                     "codebook or compressed record")
+
+
+def bank_from_reference(bank) -> CodebookBank:
+    """A reference CodebookBank as the port's (its ``lengths``,
+    ``version`` and ``meta`` read as plain values); the id, a hash of
+    version and lengths, is the same on both sides."""
+    return CodebookBank(lengths=np.array(bank.lengths, np.uint8),
+                        version=int(bank.version), meta=dict(bank.meta))

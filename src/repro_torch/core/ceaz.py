@@ -1,8 +1,11 @@
 """CEAZ compressor facade (PyTorch port): the error-bounded fused route.
 
 Same records and policy as the reference facade (``src/repro/core/
-ceaz.py``): ``CEAZ.compress`` dual-quantizes with native-rank Lorenzo
-prediction, codes chunks with the adaptive chi policy and returns a
+ceaz.py``): ``CEAZ.compress`` dual-quantizes with native-rank Lorenzo or
+value-direct prediction (``predictor='lorenzo'|'none'|'auto'``), codes
+chunks with the adaptive chi policy or, with ``codebook='bank'``, with
+per-chunk books selected on the device from an offline CodebookBank
+(falling back to the exact route on drift), and returns a
 :class:`CEAZCompressed` whose fields are bit-identical to the
 reference's ``CEAZ(use_fused=True)`` output; ``decompress`` inverts it
 through the decode megakernel.
@@ -22,7 +25,8 @@ import torch
 from . import dualquant as dq
 from ..obs import metrics as om
 from ..obs import trace as ot
-from .codebook import DEFAULT_TAU0, DEFAULT_TAU1, AdaptiveCoder
+from .codebook import (DEFAULT_BANK_DRIFT_TOL, DEFAULT_TAU0, DEFAULT_TAU1,
+                       AdaptiveCoder, BankCoder, CodebookBank)
 from .huffman import NUM_SYMBOLS, Codebook
 from .metrics import compression_ratio
 
@@ -117,11 +121,17 @@ class CEAZConfig:
     tau1: float = DEFAULT_TAU1
     exact_build: bool = False         # True => oracle Huffman
     adaptive: bool = True             # False => always rebuild
-    predictor: str = "lorenzo"        # ported: 'lorenzo'
+    predictor: str = "lorenzo"        # 'lorenzo' | 'none' | 'auto'
     use_fused: bool = True            # ported: the fused route
     kernel_impl: str = "auto"
     decode_megakernel: str = "auto"   # ported: 'auto' | 'mega'
-    codebook: str = "exact"           # ported: 'exact' ('auto' w/o bank)
+    # 'exact' builds/keeps codebooks by the chi policy; 'bank' selects
+    # each chunk's book from an offline CodebookBank on the device;
+    # 'auto' means 'bank' iff a bank was passed to the facade
+    codebook: str = "exact"
+    # bank mode's safety valve: when the aggregate achieved/ideal bits
+    # drift past this bound the array is recompressed on the exact route
+    bank_drift_tol: float = DEFAULT_BANK_DRIFT_TOL
     device: str = "cuda"
 
 
@@ -135,11 +145,12 @@ class CEAZ:
 
         comp = CEAZ(CEAZConfig(mode="rel", eb=1e-4))      # on the card
         comp = CEAZ(mode="abs", eb=1e-3, device="cpu")    # plain torch
+        comp = CEAZ(codebook="bank")                      # default bank
     """
 
     def __init__(self, config: CEAZConfig | None = None,
                  offline_codebook: Codebook | None = None,
-                 bank=None, **kw):
+                 bank: CodebookBank | None = None, **kw):
         if config is None:
             config = CEAZConfig(**kw)
         elif kw:
@@ -154,8 +165,13 @@ class CEAZ:
             from .codebook import default_offline_codebook
             offline_codebook = default_offline_codebook()
         self.offline = offline_codebook
-        if bank is not None:
-            _not_ported("codebook bank mode", "Queue 1 item 5")
+        if bank is None and config.codebook == "bank":
+            from .codebook import default_codebook_bank
+            bank = default_codebook_bank()
+        self.bank = bank
+        if self.bank is not None:
+            from .codebook import register_bank
+            register_bank(self.bank)   # decode-side bank_ref resolution
 
     # -- helpers -------------------------------------------------------------
     def _abs_eb(self, x: np.ndarray) -> float:
@@ -180,16 +196,35 @@ class CEAZ:
             _not_ported("mode='fixed_ratio'", "Queue 1 item 6")
         if cfg.mode not in ("abs", "rel"):
             raise ValueError(cfg.mode)
-        if cfg.predictor in ("none", "auto"):
-            _not_ported(f"predictor={cfg.predictor!r}", "Queue 1 item 5")
-        if cfg.predictor != "lorenzo":
+        if cfg.predictor not in ("lorenzo", "none", "auto"):
             raise ValueError(f"unknown predictor {cfg.predictor!r}")
-        if cfg.codebook == "bank":
-            _not_ported("codebook='bank'", "Queue 1 item 5")
-        if cfg.codebook not in ("exact", "auto"):
-            raise ValueError(
-                f"codebook must be 'exact', 'bank' or 'auto', got "
-                f"{cfg.codebook!r}")
+        self._bank_mode()              # raises on an unknown codebook
+
+    def _bank_mode(self) -> bool:
+        """Resolve cfg.codebook: 'bank' always, 'auto' iff a bank was
+        handed to the facade, 'exact' never."""
+        cb = self.cfg.codebook
+        if cb == "bank":
+            return True
+        if cb == "auto":
+            return self.bank is not None
+        if cb == "exact":
+            return False
+        raise ValueError(
+            f"codebook must be 'exact', 'bank' or 'auto', got {cb!r}")
+
+    def _pick_predictor(self, x: np.ndarray, eb: float) -> str:
+        """'auto': the cheaper of Lorenzo and value-direct on the first
+        2^16 values (entropy of the codes plus 64 bits per outlier)."""
+        if self.cfg.predictor != "auto":
+            return self.cfg.predictor
+        from .huffman import entropy_bits as H
+        sample = x.reshape(-1)[:1 << 16]
+        c_l, o_l, _ = dq.np_dual_quantize(sample, eb, 1)
+        c_v, o_v, _, _ = dq.np_value_quantize(sample, eb)
+        cost_l = H(np.bincount(c_l, minlength=1024)) + 64 * o_l.mean()
+        cost_v = H(np.bincount(c_v, minlength=1024)) + 64 * o_v.mean()
+        return "lorenzo" if cost_l <= cost_v else "none"
 
     # -- public API ------------------------------------------------------------
     def compress(self, x: np.ndarray) -> CEAZCompressed:
@@ -207,22 +242,55 @@ class CEAZ:
         self._check_route()
         word_bits = x.dtype.itemsize * 8
         if x.size == 0:
-            return CEAZCompressed(shape=x.shape, dtype=str(x.dtype), ndim=1,
-                                  mode=self.cfg.mode, chunks=[],
-                                  word_bits=word_bits)
-        from ..runtime import fused
+            return CEAZCompressed(
+                shape=x.shape, dtype=str(x.dtype), ndim=1,
+                mode=self.cfg.mode, chunks=[], word_bits=word_bits,
+                predictor="none" if self.cfg.predictor == "none"
+                else "lorenzo")
         with ot.span("ceaz.compress", shape=list(x.shape),
                      dtype=str(x.dtype), mode=self.cfg.mode):
-            c = fused.compress_error_bounded(
-                x, self._abs_eb(x), self.cfg.mode, self._coder(),
-                self._chunk_values(word_bits), self.cfg.block_size,
-                device=self.device, adaptive=self.cfg.adaptive,
-                exact_build=self.cfg.exact_build,
-                kernel_impl=self.cfg.kernel_impl)
+            if not self._bank_mode():
+                return self._note_compressed(
+                    x, self._compress_routed(x, self._coder()))
+            coder = BankCoder(self.bank)
+            c = self._compress_routed(x, coder)
+            om.set_gauge(om.BANK_DRIFT, coder.drift())
+            if coder.drift() > self.cfg.bank_drift_tol:
+                # out-of-distribution input: the whole array goes the
+                # exact two-pass route (the drift was replayed on the
+                # host from the histograms the bank pass produced)
+                om.add(om.BANK_FALLBACKS)
+                with ot.span("ceaz.bank_exact_fallback",
+                             drift=coder.drift()):
+                    return self._note_compressed(
+                        x, self._compress_routed(x, self._coder()))
+            return self._note_compressed(x, c)
+
+    @staticmethod
+    def _note_compressed(x: np.ndarray, c: CEAZCompressed) -> CEAZCompressed:
+        """Every finished encode bumps the chunk/byte counters here."""
         om.add(om.CHUNKS, len(c.chunks))
         om.add(om.RAW_BYTES, int(x.nbytes))
         om.add(om.STORED_BYTES, c.nbytes())
         return c
+
+    def _compress_routed(self, x: np.ndarray, coder) -> CEAZCompressed:
+        """Predictor routing for one array, under a given coder: the
+        single-pass bank route for a BankCoder, the exact route else."""
+        from ..runtime import fused
+        eb = self._abs_eb(x)
+        pred = self._pick_predictor(x, eb)
+        chunk_values = self._chunk_values(x.dtype.itemsize * 8)
+        if isinstance(coder, BankCoder):
+            return fused.compress_error_bounded_bank(
+                x, eb, self.cfg.mode, coder, chunk_values,
+                self.cfg.block_size, device=self.device,
+                kernel_impl=self.cfg.kernel_impl, predictor=pred)
+        return fused.compress_error_bounded(
+            x, eb, self.cfg.mode, coder, chunk_values, self.cfg.block_size,
+            device=self.device, adaptive=self.cfg.adaptive,
+            exact_build=self.cfg.exact_build,
+            kernel_impl=self.cfg.kernel_impl, predictor=pred)
 
     def compress_batch(self, shards, plan=None):
         _not_ported("compress_batch (batch_compress)", "Queue 1 item 2")
@@ -262,12 +330,12 @@ class CEAZ:
                     idx.append(i)
                 else:
                     _not_ported(f"decoding {c.mode}/{c.predictor} streams",
-                                "Queue 1 items 5-6")
+                                "Queue 1 item 6")
             if idx:
                 dec = FD.decompress_batch(
                     [comps[i] for i in idx], self.cfg.block_size,
                     self.offline, device=self.device,
-                    kernel_impl=self.cfg.kernel_impl)
+                    kernel_impl=self.cfg.kernel_impl, bank=self.bank)
                 for i, a in zip(idx, dec):
                     out[i] = a
         for c, a in zip(comps, out):

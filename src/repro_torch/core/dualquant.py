@@ -16,8 +16,9 @@ rules carry that across frameworks:
     the same residue as the reference's wrapped int32 chain.
 
 The numpy half (``value_range``, ``np_dual_quantize``, ``np_dequantize``,
-``np_value_quantize``) is a copy of the reference's host twins; the
-offline codebook build and the literal fallbacks use it.
+``np_value_quantize``, ``np_value_dequantize``) is a copy of the
+reference's host twins; the offline codebook build and the facade's
+predictor probe use it.
 """
 from __future__ import annotations
 
@@ -51,11 +52,14 @@ def f32_scalar(v: float, device) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32, device=device)
 
 
-def prequantize(x: torch.Tensor, eb: float) -> torch.Tensor:
+def prequantize(x: torch.Tensor, eb) -> torch.Tensor:
     """q = round(x / (2*eb)) as int32, with the f32 bound-tightening
-    nudge (see the reference ``core/dualquant.py::prequantize``)."""
+    nudge (see the reference ``core/dualquant.py::prequantize``). `eb`
+    is a float or a float32 tensor that broadcasts against x (one bound
+    per chunk row)."""
     xf = x.to(torch.float32)
-    eb32 = f32_scalar(eb, xf.device)
+    eb32 = (eb.to(torch.float32) if isinstance(eb, torch.Tensor)
+            else f32_scalar(eb, xf.device))
     two_eb = eb32 * 2.0
     q = torch.round(xf / two_eb)
     q = torch.clamp(q, -2.0e9, 2.0e9)
@@ -131,6 +135,37 @@ def inverse_lorenzo(delta: torch.Tensor, ndim: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Value-direct quantization (predictor='none'): each value is coded
+# against its chunk's centre code instead of a Lorenzo prediction
+# ---------------------------------------------------------------------------
+
+def value_postquantize(q: torch.Tensor, center
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """-> (codes int32, outlier bool, delta int32) of q against `center`
+    (an int, or an int tensor that broadcasts: (C, 1) for chunk rows).
+    delta = q - center wraps mod 2^32 as the reference's int32 does."""
+    center = torch.as_tensor(center, device=q.device).to(torch.int64)
+    return postquantize(q, center)
+
+
+def value_quantize(x, eb: float, kernel_impl: str = "auto", device="cuda"):
+    """Torch twin of the reference's device ``value_quantize``: the
+    f32 cast of x as ONE chunk row through the runtime's value-direct
+    pass (value quantize, `dq_center`, value finalize). Runs on the card
+    unless `device='cpu'`; raises when no card is present.
+
+    -> (codes int32, outlier bool, delta int32, center int) as numpy."""
+    from ..runtime import fused  # local import: fused imports this module
+    flat = torch.from_numpy(np.ascontiguousarray(
+        np.asarray(x).reshape(-1), dtype=np.float32)).to(
+            fused.target_device(device))
+    _, codes2, outl2, delta2, _, centers, _ = fused._value_pass(
+        flat, eb, 1, flat.numel(), kernel_impl)
+    return (codes2[0].cpu().numpy(), outl2[0].cpu().numpy(),
+            delta2[0].cpu().numpy(), int(centers[0]))
+
+
+# ---------------------------------------------------------------------------
 # Host-side (numpy) twins, copied from the reference
 # ---------------------------------------------------------------------------
 
@@ -154,6 +189,12 @@ def np_value_quantize(x: np.ndarray, eb: float):
     outlier = (code < 1) | (code >= NUM_SYMBOLS)
     codes = np.where(outlier, OUTLIER_CODE, code).astype(np.uint16)
     return codes, outlier, delta, center
+
+
+def np_value_dequantize(delta: np.ndarray, center: int, eb: float,
+                        dtype=np.float32) -> np.ndarray:
+    q = delta.astype(np.int64) + center
+    return (q.astype(np.float64) * (2.0 * eb)).astype(dtype)
 
 
 def np_dual_quantize(x: np.ndarray, eb: float, ndim: int):

@@ -19,41 +19,24 @@
 // the adjacent threads' own loads), so there is no shared-memory staging
 // and no halo bookkeeping; stores are coalesced.
 //
-// Rounding must match the reference's compiled f32 ops step by step
-// (core/dualquant.py:53-61): q = rint(x / 2eb) with a correctly rounded
-// divide, clip to +-2e9, err = x - q*2eb rounded once (XLA contracts the
-// mul-sub into an FMA), the +-1 nudge in f32, then the int cast with
-// NaN sent to 0 (XLA's conversion). The build passes -fmad=false and the
-// _rn intrinsics pin every other rounding.
+// Rounding goes through quant.cuh's prequant, shared with every other
+// quantizing kernel of the port.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "quant.cuh"
+
 namespace {
 
-constexpr int RADIUS = 512;
-constexpr int NUM_SYMBOLS = 1024;
-
-__device__ __forceinline__ int32_t prequant(float x, float eb, float two_eb) {
-  float q = rintf(__fdiv_rn(x, two_eb));
-  if (!isnan(q)) q = fminf(fmaxf(q, -2.0e9f), 2.0e9f);
-  // x - q*2eb with ONE rounding: the reference's XLA build contracts
-  // this mul-sub into an FMA, so the nudge below must see the FMA's err
-  float err = __fmaf_rn(-q, two_eb, x);
-  q = __fadd_rn(q, err > eb ? 1.0f : 0.0f);
-  q = __fsub_rn(q, err < -eb ? 1.0f : 0.0f);
-  if (isnan(q)) return 0;
-  return static_cast<int32_t>(q);  // integral and within +-(2e9 + 1)
-}
+using ceaz::prequant;
 
 __device__ __forceinline__ void postquant(int64_t i, int32_t q, uint32_t pred,
                                           int32_t* codes, uint8_t* outl,
                                           int32_t* delta, int32_t* qout) {
-  int32_t d = static_cast<int32_t>(static_cast<uint32_t>(q) - pred);
-  int64_t code = static_cast<int64_t>(d) + RADIUS;
-  bool out = code < 1 || code >= NUM_SYMBOLS;
-  codes[i] = out ? 0 : static_cast<int32_t>(code);
-  outl[i] = out ? 1 : 0;
-  delta[i] = d;
+  ceaz::Post p = ceaz::postquant(q, static_cast<int32_t>(pred));
+  codes[i] = p.code;
+  outl[i] = p.outlier ? 1 : 0;
+  delta[i] = p.delta;
   qout[i] = q;
 }
 

@@ -27,6 +27,15 @@ Op calling conventions (tensors on one device):
   ceaz_chunk_dec(words2, nbits2, counts, sym2, len2, cb_idx, odelta2,
                  base, seg0, islor, block_size) -> q (C, NB*block_size)
       the decode megakernel op; see kernels/megakernel/ops.py
+  ceaz_chunk(work2, prev2, valid2, ebs, bank_lengths, bank_cwords,
+             block_size, w32, predictor) -> (q2, codes2, outl2, delta2,
+             centers, hists, sel, totals, words, block_nbits)
+      the single-pass bank encode op; its steps are ops of their own:
+  value_quant(work2, ebs) -> q2
+  value_finalize(q2, valid2, centers) -> (q2, codes2, outl2, delta2, hists)
+  bank_select(hists, bank_lengths, bank_cwords)
+      -> (sel, totals, lengths_sel, cwords_sel)
+  dq_center(q2, valid2) -> centers (C,) int32 (kernels/dualquant/ops.py)
 
 Launch accounting: every CUDA wrapper adds one to its kernel's count
 (:func:`count_launch`) where it launches, and nowhere else, so a run
@@ -73,8 +82,9 @@ def resolve_name(impl: str, device) -> str:
     return impl
 
 
-def resolve(op: str, impl: str = "auto", device="cpu") -> Callable:
-    """The implementation of `op` selected by `impl` for `device`.
+def resolve(op: str, impl: str, device) -> Callable:
+    """The implementation of `op` selected by `impl` for `device` (no
+    default device: the data's device decides).
 
     Anything not registered raises ValueError naming the valid choices.
     """
@@ -160,39 +170,30 @@ def measure(op: str, impl: str, device):
 
 # -- default implementations ---------------------------------------------------
 
-def _dq_torch() -> Callable:
-    from .dualquant import ops
-    return ops.dual_quantize_plain
+def _loader(module: str, attr: str) -> Callable[[], Callable]:
+    """A zero-arg loader of `attr` from the kernels subpackage `module`."""
+    def load() -> Callable:
+        import importlib
+        return getattr(importlib.import_module(f"{__package__}.{module}"),
+                       attr)
+    return load
 
 
-def _dq_cuda() -> Callable:
-    from .dualquant import ops
-    return ops.dual_quantize_cuda
-
-
-def _hufenc_torch() -> Callable:
-    from .hufenc import ops
-    return ops.encode_pack_plain
-
-
-def _hufenc_cuda() -> Callable:
-    from .hufenc import ops
-    return ops.encode_pack_cuda
-
-
-def _dec_torch() -> Callable:
-    from .megakernel import ops
-    return ops.ceaz_chunk_dec_plain
-
-
-def _dec_cuda() -> Callable:
-    from .megakernel import ops
-    return ops.ceaz_chunk_dec_cuda
-
-
-register("dualquant", "torch", _dq_torch)
-register("dualquant", "cuda", _dq_cuda)
-register("hufenc", "torch", _hufenc_torch)
-register("hufenc", "cuda", _hufenc_cuda)
-register("ceaz_chunk_dec", "torch", _dec_torch)
-register("ceaz_chunk_dec", "cuda", _dec_cuda)
+for _op, _module, _plain, _cuda in (
+        ("dualquant", "dualquant.ops", "dual_quantize_plain",
+         "dual_quantize_cuda"),
+        ("hufenc", "hufenc.ops", "encode_pack_plain", "encode_pack_cuda"),
+        ("ceaz_chunk_dec", "megakernel.ops", "ceaz_chunk_dec_plain",
+         "ceaz_chunk_dec_cuda"),
+        ("ceaz_chunk", "megakernel.ops", "ceaz_chunk_plain",
+         "ceaz_chunk_cuda"),
+        ("value_quant", "megakernel.ops", "value_quant_plain",
+         "value_quant_cuda"),
+        ("value_finalize", "megakernel.ops", "value_finalize_plain",
+         "value_finalize_cuda"),
+        ("bank_select", "megakernel.ops", "bank_select_plain",
+         "bank_select_cuda"),
+        ("dq_center", "dualquant.ops", "chunk_center_plain",
+         "dq_center_cuda")):
+    register(_op, "torch", _loader(_module, _plain))
+    register(_op, "cuda", _loader(_module, _cuda))

@@ -12,6 +12,18 @@ Two implementations, one contract (see kernels/dispatch.py):
 Outputs: codes (int32), outlier flags (bool) and delta (int32) flat and
 zero-padded to `n_out` (the chunked pass-1 layout), plus q, the flat
 prequantized field (int32).
+
+The `dq_center` op (value-direct centring) lives here too:
+
+    dq_center(q2, valid2) -> centers (C,) int32
+
+the count-aware median of each row's valid entries, ``lo + (hi-lo)//2``
+of the two middle order statistics in int32 with wrap, 0 for a row with
+no valid entry (the reference's ``dualquant/ops.py::chunk_center``).
+
+  * :func:`chunk_center_plain` — the sort-based plain version;
+  * :func:`dq_center_cuda`     — the radix-select kernel of
+    csrc/center.cu, for rows of any length.
 """
 from __future__ import annotations
 
@@ -27,6 +39,8 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _DQ1D_ARGS = [_P, _I64, _I64, ctypes.c_float, _P, _P, _P, _P, _P]
 _DQ2D_ARGS = [_P, _I64, _I64, _I64, ctypes.c_float, _P, _P, _P, _P, _P]
+_CENTER_ARGS = [_P, _P, _I64, _I64, _P, _P, _P, _P, _P]
+_INT32_MAX = 2**31 - 1
 
 
 def _pad(a: torch.Tensor, n_out: int) -> torch.Tensor:
@@ -72,3 +86,58 @@ def dual_quantize_cuda(work: torch.Tensor, eb: float, ndim: int,
         rc = fn(work.data_ptr(), rows, cols, n_out, float(eb), *outs)
         _build.check(rc, "dq2d")
     return codes, outl, delta, q
+
+
+def _wrap32(v: torch.Tensor) -> torch.Tensor:
+    """int64 -> the int32 with the same residue mod 2^32."""
+    return v.to(torch.int32)
+
+
+def chunk_center_plain(q2: torch.Tensor, valid2: torch.Tensor
+                       ) -> torch.Tensor:
+    """Plain PyTorch version (any device): sort each row with invalid
+    entries sent to the top, index the two middle order statistics of
+    the valid prefix."""
+    C, V = q2.shape
+    if V == 0:
+        return torch.zeros(C, dtype=torch.int32, device=q2.device)
+    qm = torch.where(valid2, q2.to(torch.int32),
+                     torch.full((), _INT32_MAX, dtype=torch.int32,
+                                device=q2.device))
+    s = torch.sort(qm, dim=1).values.to(torch.int64)
+    m = valid2.sum(dim=1)
+    lo_i = torch.clamp(m - 1, min=0) // 2
+    hi_i = torch.clamp(m // 2, max=V - 1)
+    lo = torch.gather(s, 1, lo_i[:, None])[:, 0]
+    hi = torch.gather(s, 1, hi_i[:, None])[:, 0]
+    # (hi - lo) wraps to int32 before the floor division, as in the
+    # reference's int32 arithmetic; the sum wraps again
+    half = torch.div(_wrap32(hi - lo).to(torch.int64), 2,
+                     rounding_mode="floor")
+    center = _wrap32(lo + half)
+    return torch.where(m > 0, center, torch.zeros_like(center))
+
+
+def dq_center_cuda(q2: torch.Tensor, valid2: torch.Tensor) -> torch.Tensor:
+    """csrc/center.cu: four 8-bit radix passes select both middle ranks
+    of every row at once."""
+    dispatch.require_cuda("dq_center", q2, valid2)
+    if q2.dtype != torch.int32 or valid2.dtype != torch.bool \
+            or q2.ndim != 2 or valid2.shape != q2.shape:
+        raise ValueError("dq_center: q2 (C, V) int32 and valid2 (C, V) bool "
+                         "expected")
+    C, V = q2.shape
+    dev = q2.device
+    centers = torch.zeros(C, dtype=torch.int32, device=dev)
+    if C == 0 or V == 0:
+        return centers
+    counts = torch.empty((C, 2, 256), dtype=torch.int32, device=dev)
+    state = torch.empty((C, 4), dtype=torch.int32, device=dev)
+    m = torch.empty(C, dtype=torch.int32, device=dev)
+    dispatch.count_launch("dq_center")
+    rc = _build.function("ceaz_dq_center", _CENTER_ARGS)(
+        q2.data_ptr(), valid2.data_ptr(), C, V, counts.data_ptr(),
+        state.data_ptr(), m.data_ptr(), centers.data_ptr(),
+        dispatch.stream_handle())
+    _build.check(rc, "dq_center")
+    return centers

@@ -1,4 +1,43 @@
-"""The `ceaz_chunk_dec` op: the decode megakernel (decode half only).
+"""The megakernel ops: `ceaz_chunk` (bank encode) and `ceaz_chunk_dec`.
+
+Encode (the reference's ``src/repro/kernels/megakernel/ops.py:81``, with
+``ref.py:100`` as its contract):
+
+    ceaz_chunk(work2, prev2, valid2, ebs, bank_lengths, bank_cwords,
+               block_size, w32, predictor)
+      -> (q2, codes2, outl2, delta2, centers, hists, sel, totals, words,
+          block_nbits)
+
+work2 (C, cv) f32 chunk rows, prev2 (C, 1) f32 the RAW value before
+each row (the Lorenzo halo; 0 for a stream head), valid2 (C, cv) bool
+prefix masks, ebs (C,) f32, bank tables (K, 1024) int32 (codewords as
+int32 holding u32 bits). q2/codes2/delta2 (C, cv) int32 and outl2 bool
+are zero past the valid prefix; centers (C,) int32 (0 under Lorenzo);
+hists (C, 1024) int32; sel the first-occurrence argmin_k of
+hist . lengths_k and totals its payload bits, (C,) int32; words (C, w32)
+int32 holding u32 bits and block_nbits (C, nblocks) the packed payload.
+The reference's `cands` argument sizes its candidate window; the port's
+pack places every symbol itself and has none.
+
+The op is composed from four steps, each with a plain version
+(``*_plain``, any device) and a CUDA wrapper (``*_cuda``, csrc/bank.cu,
+csrc/center.cu and PR 11's hufenc.cu):
+
+  * quantize + histogram — :func:`lorenzo_quant_cuda` (Lorenzo from the
+    one-value raw halo), or :func:`value_quant_cuda` ->
+    ``dq_center`` (kernels/dualquant) -> :func:`value_finalize_cuda`
+    (value-direct);
+  * :func:`bank_select_cuda` — argmin and the gathered book rows;
+  * the `hufenc` gather-pack on the selected rows.
+
+The reference switches at ``FUSE_ROW_LIMIT`` values per row from one
+fused program per chunk (``kernel.py::ceaz_chunk_fused``) to word-tiled
+kernels (``lorenzo_tiles``, ``value_quant_tiles``,
+``value_finalize_tiles``). The port's kernels serve both regimes; each
+quantize launch counts under the TPU kernel whose work it does at that
+row length, so a run shows which regime it took.
+
+Decode:
 
     ceaz_chunk_dec(words2, nbits2, counts, sym_flat, len_flat, cb_idx,
                    odelta2, base, seg0, islor, block_size)
@@ -30,17 +69,245 @@ import ctypes
 
 import torch
 
+from ...core import dualquant as core_dq
 from .. import _build
 from .. import dispatch
+from ..dualquant import ops as dq_ops
 from ..hufdec import ops as hufdec
+from ..hufenc import ops as hufenc
 
 RADIUS = 512
+NUM_SYMBOLS = 1024
+FUSE_ROW_LIMIT = 1 << 17          # the reference's _FUSE_ROW_LIMIT
 DEC_FUSE_LIMIT = 1 << 17
+_MAX_ROWS = 65535                 # gridDim.y of the row-major kernels
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _ROWS_ARGS = [_P, _I64, _I64, _P, _P, _P, _P, _P, _I64, _P, _P, _I64, _I64,
               _P, _P, _P, _P]
 _ADD_ARGS = [_P, _P, _P, _P, _I64, _I64, _I64, _P, _P]
+_LOR_ARGS = [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P, _P]
+_VQ_ARGS = [_P, _P, _I64, _I64, _P, _P]
+_VF_ARGS = [_P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P, _P]
+_SEL_ARGS = [_P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P]
+
+
+# ---------------------------------------------------------------------------
+# Encode: plain versions
+# ---------------------------------------------------------------------------
+
+def _row_hists(codes2: torch.Tensor, valid2: torch.Tensor) -> torch.Tensor:
+    """(C, 1024) int32 histograms of each row's valid codes."""
+    C = codes2.shape[0]
+    rows = torch.arange(C, device=codes2.device)[:, None] * NUM_SYMBOLS
+    keys = torch.where(valid2, rows + codes2.to(torch.int64),
+                       C * NUM_SYMBOLS)              # padding: a spare bin
+    hists = torch.bincount(keys.reshape(-1), minlength=C * NUM_SYMBOLS + 1)
+    return hists[:C * NUM_SYMBOLS].reshape(C, NUM_SYMBOLS).to(torch.int32)
+
+
+def _masked_post(q2, codes, outl, delta, valid2):
+    """The reference's _postquant masking: zero past the valid prefix."""
+    zero = torch.zeros((), dtype=torch.int32, device=q2.device)
+    codes = torch.where(valid2, codes, zero)
+    return (torch.where(valid2, q2, zero), codes, outl & valid2,
+            torch.where(valid2, delta, zero), _row_hists(codes, valid2))
+
+
+def lorenzo_quant_plain(work2, prev2, valid2, ebs):
+    """-> (q2, codes2, outl2, delta2, hists): 1-D Lorenzo rows from the
+    one-value raw halo prev2."""
+    xr = torch.cat([prev2.reshape(-1, 1).to(torch.float32),
+                    work2.to(torch.float32)], dim=1)
+    qr = core_dq.prequantize(xr, ebs.reshape(-1, 1))
+    q2 = qr[:, 1:]
+    codes, outl, delta = core_dq.postquantize(q2, qr[:, :-1].to(torch.int64))
+    return _masked_post(q2, codes, outl, delta, valid2)
+
+
+def value_quant_plain(work2, ebs):
+    """-> q2 (C, cv) int32, every entry prequantized (no mask)."""
+    return core_dq.prequantize(work2, ebs.reshape(-1, 1))
+
+
+def value_finalize_plain(q2, valid2, centers):
+    """-> (q2 masked, codes2, outl2, delta2, hists) against each row's
+    centre code."""
+    codes, outl, delta = core_dq.value_postquantize(q2, centers[:, None])
+    return _masked_post(q2.to(torch.int32), codes, outl, delta, valid2)
+
+
+def bank_select_plain(hists, bank_lengths, bank_cwords):
+    """-> (sel, totals, lengths_sel, cwords_sel): the first-occurrence
+    argmin of the int32 costs hist . lengths_k and the selected rows."""
+    costs = (hists.to(torch.int64)[:, None, :]
+             * bank_lengths.to(torch.int64)[None, :, :]).sum(-1)
+    costs = costs.to(torch.int32)           # the reference's int32 sums
+    sel = torch.argmin(costs, dim=1)
+    totals = torch.gather(costs, 1, sel[:, None])[:, 0]
+    return (sel.to(torch.int32), totals, bank_lengths[sel].contiguous(),
+            bank_cwords[sel].contiguous())
+
+
+# ---------------------------------------------------------------------------
+# Encode: CUDA wrappers (csrc/bank.cu)
+# ---------------------------------------------------------------------------
+
+def _regime(cv: int, tiled_name: str) -> str:
+    """The TPU kernel a quantize launch stands in for at row length cv."""
+    return "ceaz_chunk_fused" if cv <= FUSE_ROW_LIMIT else tiled_name
+
+
+def _check_rows(name: str, t: torch.Tensor, dtype) -> None:
+    if t.dtype != dtype or t.ndim != 2:
+        raise ValueError(f"{name}: (C, cv) {dtype} rows expected, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+    if t.shape[0] > _MAX_ROWS:
+        raise ValueError(f"{name}: at most {_MAX_ROWS} rows per launch")
+
+
+def _per_row(name: str, t: torch.Tensor, C: int, dtype) -> torch.Tensor:
+    if t.dtype != dtype or t.numel() != C:
+        raise ValueError(f"{name}: one {dtype} value per row expected")
+    return t.reshape(C).contiguous()
+
+
+def lorenzo_quant_cuda(work2, prev2, valid2, ebs):
+    dispatch.require_cuda("lorenzo_quant", work2, valid2)
+    _check_rows("lorenzo_quant", work2, torch.float32)
+    C, cv = work2.shape
+    if valid2.shape != (C, cv) or valid2.dtype != torch.bool:
+        raise ValueError("lorenzo_quant: valid2 (C, cv) bool expected")
+    prev = _per_row("lorenzo_quant prev2", prev2, C, torch.float32)
+    eb = _per_row("lorenzo_quant ebs", ebs, C, torch.float32)
+    dispatch.require_cuda("lorenzo_quant", prev, eb)
+    dev = work2.device
+    q2, codes2, delta2 = (torch.empty((C, cv), dtype=torch.int32, device=dev)
+                          for _ in range(3))
+    outl2 = torch.empty((C, cv), dtype=torch.bool, device=dev)
+    hists = torch.zeros((C, NUM_SYMBOLS), dtype=torch.int32, device=dev)
+    name = _regime(cv, "lorenzo_tiles")
+    dispatch.count_launch(name)
+    rc = _build.function("ceaz_bank_lorenzo", _LOR_ARGS)(
+        work2.data_ptr(), prev.data_ptr(), valid2.data_ptr(), eb.data_ptr(),
+        C, cv, q2.data_ptr(), codes2.data_ptr(), outl2.data_ptr(),
+        delta2.data_ptr(), hists.data_ptr(), dispatch.stream_handle())
+    _build.check(rc, name)
+    return q2, codes2, outl2, delta2, hists
+
+
+def value_quant_cuda(work2, ebs):
+    dispatch.require_cuda("value_quant", work2)
+    _check_rows("value_quant", work2, torch.float32)
+    C, cv = work2.shape
+    eb = _per_row("value_quant ebs", ebs, C, torch.float32)
+    dispatch.require_cuda("value_quant", eb)
+    q2 = torch.empty((C, cv), dtype=torch.int32, device=work2.device)
+    name = _regime(cv, "value_quant_tiles")
+    dispatch.count_launch(name)
+    rc = _build.function("ceaz_bank_value_quant", _VQ_ARGS)(
+        work2.data_ptr(), eb.data_ptr(), C, cv, q2.data_ptr(),
+        dispatch.stream_handle())
+    _build.check(rc, name)
+    return q2
+
+
+def value_finalize_cuda(q2, valid2, centers):
+    dispatch.require_cuda("value_finalize", q2, valid2)
+    _check_rows("value_finalize", q2, torch.int32)
+    C, cv = q2.shape
+    if valid2.shape != (C, cv) or valid2.dtype != torch.bool:
+        raise ValueError("value_finalize: valid2 (C, cv) bool expected")
+    ctr = _per_row("value_finalize centers", centers, C, torch.int32)
+    dispatch.require_cuda("value_finalize", ctr)
+    dev = q2.device
+    qm, codes2, delta2 = (torch.empty((C, cv), dtype=torch.int32, device=dev)
+                          for _ in range(3))
+    outl2 = torch.empty((C, cv), dtype=torch.bool, device=dev)
+    hists = torch.zeros((C, NUM_SYMBOLS), dtype=torch.int32, device=dev)
+    name = _regime(cv, "value_finalize_tiles")
+    dispatch.count_launch(name)
+    rc = _build.function("ceaz_bank_value_finalize", _VF_ARGS)(
+        q2.data_ptr(), valid2.data_ptr(), ctr.data_ptr(), C, cv,
+        qm.data_ptr(), codes2.data_ptr(), outl2.data_ptr(), delta2.data_ptr(),
+        hists.data_ptr(), dispatch.stream_handle())
+    _build.check(rc, name)
+    return qm, codes2, outl2, delta2, hists
+
+
+def bank_select_cuda(hists, bank_lengths, bank_cwords):
+    dispatch.require_cuda("bank_select", hists, bank_lengths, bank_cwords)
+    K = bank_lengths.shape[0]
+    for name, t in (("hists", hists), ("bank_lengths", bank_lengths),
+                    ("bank_cwords", bank_cwords)):
+        if t.dtype != torch.int32 or t.ndim != 2 \
+                or t.shape[1] != NUM_SYMBOLS:
+            raise ValueError(f"bank_select: {name} (*, {NUM_SYMBOLS}) int32 "
+                             "expected")
+    if bank_cwords.shape[0] != K or K == 0:
+        raise ValueError("bank_select: bank tables (K, 1024), K >= 1")
+    C = hists.shape[0]
+    dev = hists.device
+    sel = torch.empty(C, dtype=torch.int32, device=dev)
+    totals = torch.empty(C, dtype=torch.int32, device=dev)
+    ln_sel = torch.empty((C, NUM_SYMBOLS), dtype=torch.int32, device=dev)
+    cw_sel = torch.empty((C, NUM_SYMBOLS), dtype=torch.int32, device=dev)
+    dispatch.count_launch("bank_select")
+    rc = _build.function("ceaz_bank_select", _SEL_ARGS)(
+        hists.data_ptr(), bank_lengths.data_ptr(), bank_cwords.data_ptr(), C,
+        K, sel.data_ptr(), totals.data_ptr(), ln_sel.data_ptr(),
+        cw_sel.data_ptr(), dispatch.stream_handle())
+    _build.check(rc, "bank_select")
+    return sel, totals, ln_sel, cw_sel
+
+
+# ---------------------------------------------------------------------------
+# Encode: the composed op
+# ---------------------------------------------------------------------------
+
+def _ceaz_chunk(steps, work2, prev2, valid2, ebs, bank_lengths, bank_cwords,
+                block_size: int, w32: int, predictor: str):
+    lorenzo, vquant, center, vfinal, select, pack = steps
+    C = work2.shape[0]
+    if predictor == "lorenzo":
+        q2, codes2, outl2, delta2, hists = lorenzo(work2, prev2, valid2, ebs)
+        centers = torch.zeros(C, dtype=torch.int32, device=work2.device)
+    elif predictor == "value":
+        q2 = vquant(work2, ebs)
+        centers = center(q2, valid2)
+        q2, codes2, outl2, delta2, hists = vfinal(q2, valid2, centers)
+    else:
+        raise ValueError(f"ceaz_chunk: predictor must be 'lorenzo' or "
+                         f"'value', got {predictor!r}")
+    sel, totals, ln_sel, cw_sel = select(hists, bank_lengths, bank_cwords)
+    words, block_nbits = pack(codes2, valid2, ln_sel, cw_sel, block_size, w32)
+    return (q2, codes2, outl2, delta2, centers, hists, sel, totals, words,
+            block_nbits)
+
+
+def ceaz_chunk_plain(work2, prev2, valid2, ebs, bank_lengths, bank_cwords,
+                     block_size: int, w32: int, predictor: str = "lorenzo"):
+    """Plain PyTorch version of the op (any device)."""
+    return _ceaz_chunk(
+        (lorenzo_quant_plain, value_quant_plain, dq_ops.chunk_center_plain,
+         value_finalize_plain, bank_select_plain, hufenc.encode_pack_plain),
+        work2, prev2, valid2, ebs, bank_lengths, bank_cwords, block_size,
+        w32, predictor)
+
+
+def ceaz_chunk_cuda(work2, prev2, valid2, ebs, bank_lengths, bank_cwords,
+                    block_size: int, w32: int, predictor: str = "lorenzo"):
+    """The op on the card: csrc/bank.cu (+ center.cu), then hufenc.cu."""
+    return _ceaz_chunk(
+        (lorenzo_quant_cuda, value_quant_cuda, dq_ops.dq_center_cuda,
+         value_finalize_cuda, bank_select_cuda, hufenc.encode_pack_cuda),
+        work2, prev2, valid2, ebs, bank_lengths, bank_cwords, block_size,
+        w32, predictor)
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
 
 
 def patch_and_inverse(codes2, counts, odelta2, base, seg0, islor):

@@ -1,7 +1,8 @@
-"""Fused CEAZ encode: the exact two-pass abs/rel Lorenzo route.
+"""Fused CEAZ encode: the exact two-pass route and the single-pass bank
+route, abs/rel, Lorenzo or value-direct prediction.
 
-Port of the reference's ``runtime/fused.py::compress_error_bounded``
-(Lorenzo predictor) on torch tensors:
+Port of the reference's ``runtime/fused.py::compress_error_bounded`` and
+``compress_error_bounded_bank`` on torch tensors. The exact route:
 
   pass 1  — the `dualquant` op quantizes the WHOLE array (native-rank
             global Lorenzo) into the chunked layout and yields the
@@ -17,6 +18,18 @@ Bit-exactness contract: for the same input the result is bit-identical
 to the reference's ``CEAZ(use_fused=True)`` in every CEAZCompressed
 field (tests/test_torch_ceaz.py). The payload is packed in u32 words
 (int32 storage) and folded into the u64 wire words on the host.
+
+Value-direct prediction (``predictor='none'``) replaces the Lorenzo
+pass 1 with three ops over the chunk rows: `value_quant`, the
+`dq_center` median of each row and `value_finalize` against it; the
+integer field the literal check replays is q itself.
+
+The bank route (:func:`compress_error_bounded_bank`) picks each chunk's
+codebook from an offline CodebookBank on the device: quantize ->
+histogram -> select -> pack with no host step between, then the host
+replays the selection from the histograms (asserting it picked the
+same book) and re-packs only when a chunk outgrew the provisioned
+payload.
 
 Stats branches, as the reference: on a CPU device the summaries come
 from one host snapshot (numpy bincount / flatnonzero at memory speed);
@@ -34,14 +47,25 @@ import numpy as np
 import torch
 
 from ..core import dualquant as core_dq
-from ..core.codebook import AdaptiveCoder, AdaptiveDecision
+from ..core.codebook import AdaptiveCoder, AdaptiveDecision, BankCoder
 from ..core.huffman import DEFAULT_MAX_LEN, NUM_SYMBOLS, Codebook
 from ..kernels import dispatch
+from ..obs import metrics as om
 from ..obs import trace as ot
 
 # The wire format assumes codes never exceed 16 bits.
 MAX_CODE_BITS = DEFAULT_MAX_LEN
 _EPS32 = float(np.finfo(np.float32).eps)
+
+
+def target_device(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device must be present."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} but no CUDA device is present; pass "
+            "device='cpu' to run the plain PyTorch versions")
+    return dev
 
 
 def chunk_layout(n: int, chunk_values: int) -> Tuple[int, int]:
@@ -97,31 +121,34 @@ def _extract_sparse(mask: torch.Tensor, values: torch.Tensor):
     return idx, values[idx]
 
 
-def _device_stats(codes2, valid2, q, work_flat, eb: float):
-    """Card path: per-chunk histograms + literal candidates as device ops.
+def _chunk_hists(codes2, valid2) -> torch.Tensor:
+    """Per-chunk histograms of the valid codes as one device bincount."""
+    n_chunks = codes2.shape[0]
+    rows = torch.arange(n_chunks, device=codes2.device)[:, None] * NUM_SYMBOLS
+    # padding lands in one extra bin past the last chunk's
+    keys = torch.where(valid2, rows + codes2.to(torch.int64),
+                       n_chunks * NUM_SYMBOLS)
+    hists = torch.bincount(keys.reshape(-1),
+                           minlength=n_chunks * NUM_SYMBOLS + 1)
+    return hists[:n_chunks * NUM_SYMBOLS].reshape(n_chunks, NUM_SYMBOLS)
+
+
+def _literal_candidates(q, work_flat, eb: float):
+    """Card path: literal candidates as device ops.
 
     The decompressor reconstructs through a float64 multiply; here only
     the float32 formula runs, so a conservative CANDIDATE set (few-ulp
     guard band) is collected with the exact integer q at each candidate
     — the host replays the float64 formula on just those.
     """
-    n_chunks = codes2.shape[0]
-    dev = codes2.device
-    rows = torch.arange(n_chunks, device=dev)[:, None] * NUM_SYMBOLS
-    # padding lands in one extra bin past the last chunk's
-    keys = torch.where(valid2, rows + codes2.to(torch.int64),
-                       n_chunks * NUM_SYMBOLS)
-    hists = torch.bincount(keys.reshape(-1),
-                           minlength=n_chunks * NUM_SYMBOLS + 1)
-    hists = hists[:n_chunks * NUM_SYMBOLS].reshape(n_chunks, NUM_SYMBOLS)
+    dev = q.device
     eb32 = core_dq.f32_scalar(eb, dev)
     rec = q.to(torch.float32) * (eb32 * 2.0)
     margin = (core_dq.f32_scalar(16.0 * _EPS32, dev)
               * (rec.abs() + work_flat.abs())
               + core_dq.f32_scalar(1e-38, dev))
     cand = (rec - work_flat).abs() > (eb32 - margin)
-    lit_idx, lit_q = _extract_sparse(cand, q)
-    return hists, lit_idx, lit_q
+    return _extract_sparse(cand, q)
 
 
 @dataclasses.dataclass
@@ -141,9 +168,11 @@ class _Pass1:
     # device-stats branch: literal candidates
     lit_idx: Optional[torch.Tensor] = None
     lit_q: Optional[torch.Tensor] = None
-    # host-stats branch: snapshots
-    codes_host: Optional[np.ndarray] = None
+    # host-stats branch: snapshot of q
     q_host: Optional[np.ndarray] = None
+    # value-direct (predictor='none'): per-chunk centre codes
+    predictor: str = "lorenzo"
+    centers: Optional[np.ndarray] = None
 
 
 def _host_hists(codes_host: np.ndarray, n: int) -> np.ndarray:
@@ -155,24 +184,94 @@ def _host_hists(codes_host: np.ndarray, n: int) -> np.ndarray:
         .reshape(nc, NUM_SYMBOLS)
 
 
+def _finish_pass1(codes2, outl2, delta2, valid2, q, work_flat, eb: float,
+                  chunk_values: int, stats_on_device: bool, hists=None,
+                  predictor: str = "lorenzo", centers=None) -> _Pass1:
+    """The summaries of either stats branch around one pass 1."""
+    n = q.numel()
+    if hists is not None:
+        hists_np = hists.cpu().numpy()
+    elif stats_on_device:
+        hists_np = _chunk_hists(codes2, valid2).cpu().numpy()
+    else:
+        hists_np = _host_hists(codes2.cpu().numpy(), n)
+    p1 = _Pass1(codes2, outl2, delta2, valid2, q, hists_np.astype(np.int64),
+                n, codes2.shape[0], chunk_values, stats_on_device,
+                predictor=predictor,
+                centers=(None if centers is None
+                         else centers.cpu().numpy().astype(np.int64)))
+    if stats_on_device:
+        p1.lit_idx, p1.lit_q = _literal_candidates(q, work_flat, eb)
+    else:
+        p1.q_host = q.cpu().numpy()
+    return p1
+
+
 def _run_pass1(work: torch.Tensor, eb: float, ndim: int, chunk_values: int,
                stats_on_device: Optional[bool], kernel_impl: str) -> _Pass1:
     if stats_on_device is None:
         stats_on_device = work.device.type != "cpu"
-    n = work.numel()
-    n_chunks, _ = chunk_layout(n, chunk_values)
+    n_chunks, _ = chunk_layout(work.numel(), chunk_values)
     codes2, outl2, delta2, valid2, q = _quantize_pass(
         work, eb, ndim, n_chunks, chunk_values, kernel_impl)
-    if stats_on_device:
-        hists, lit_idx, lit_q = _device_stats(codes2, valid2, q,
-                                              work.reshape(-1), eb)
-        return _Pass1(codes2, outl2, delta2, valid2, q,
-                      hists.cpu().numpy(), n, n_chunks, chunk_values, True,
-                      lit_idx=lit_idx, lit_q=lit_q)
-    codes_host = codes2.cpu().numpy()
-    return _Pass1(codes2, outl2, delta2, valid2, q,
-                  _host_hists(codes_host, n), n, n_chunks, chunk_values,
-                  False, codes_host=codes_host, q_host=q.cpu().numpy())
+    return _finish_pass1(codes2, outl2, delta2, valid2, q, work.reshape(-1),
+                         eb, chunk_values, stats_on_device)
+
+
+def _chunk_rows(flat: torch.Tensor, n_chunks: int, chunk_values: int):
+    """A flat f32 stream as zero-padded (n_chunks, chunk_values) rows and
+    their prefix-valid mask."""
+    n = flat.numel()
+    n_out = n_chunks * chunk_values
+    work2 = torch.nn.functional.pad(flat, (0, n_out - n)) \
+        .reshape(n_chunks, chunk_values)
+    valid2 = (torch.arange(n_out, device=flat.device) < n) \
+        .reshape(n_chunks, chunk_values)
+    return work2, valid2
+
+
+def _ebs(eb: float, n_chunks: int, device) -> torch.Tensor:
+    """One f32 bound per chunk row (the reference traces eb as f32)."""
+    return core_dq.f32_scalar(eb, device).expand(n_chunks).contiguous()
+
+
+def _value_pass(flat: torch.Tensor, eb: float, n_chunks: int,
+                chunk_values: int, kernel_impl: str):
+    """Value-direct pass 1 over chunk rows: quantize, centre each row on
+    its median, code against the centre. -> (q2, codes2, outl2, delta2,
+    valid2, centers, hists)."""
+    dev = flat.device
+    work2, valid2 = _chunk_rows(flat, n_chunks, chunk_values)
+    ebs = _ebs(eb, n_chunks, dev)
+    vquant, center, vfinal = (
+        dispatch.resolve(op, kernel_impl, dev)
+        for op in ("value_quant", "dq_center", "value_finalize"))
+    with dispatch.measure("value_quant", kernel_impl, dev):
+        q2 = vquant(work2, ebs)
+    with dispatch.measure("dq_center", kernel_impl, dev):
+        centers = center(q2, valid2)
+    with dispatch.measure("value_finalize", kernel_impl, dev):
+        q2, codes2, outl2, delta2, hists = vfinal(q2, valid2, centers)
+    return q2, codes2, outl2, delta2, valid2, centers, hists
+
+
+def _run_value_pass1(work: torch.Tensor, eb: float, chunk_values: int,
+                     stats_on_device: Optional[bool] = None,
+                     kernel_impl: str = "auto") -> _Pass1:
+    """Value-direct twin of :func:`_run_pass1`: the same _Pass1 contract
+    with per-chunk centre codes instead of Lorenzo prediction. The
+    integer field the literal check replays is q itself (the
+    reconstruction is q * 2eb, no prefix sum)."""
+    if stats_on_device is None:
+        stats_on_device = work.device.type != "cpu"
+    flat = work.reshape(-1)
+    n = flat.numel()
+    n_chunks, _ = chunk_layout(n, chunk_values)
+    q2, codes2, outl2, delta2, valid2, centers, hists = _value_pass(
+        flat, eb, n_chunks, chunk_values, kernel_impl)
+    return _finish_pass1(codes2, outl2, delta2, valid2, q2.reshape(-1)[:n],
+                         flat, eb, chunk_values, stats_on_device,
+                         hists=hists, predictor="none", centers=centers)
 
 
 # ---------------------------------------------------------------------------
@@ -279,7 +378,9 @@ def _assemble_chunks(p1: _Pass1, words_np, nbits_np, totals, outliers,
             codebook_lengths=(decision.codebook.lengths.copy()
                               if decision.stored_codebook else None),
             codebook_id=decision.codebook.id,
-            outlier_idx=oi, outlier_delta=od))
+            outlier_idx=oi, outlier_delta=od,
+            center=(int(p1.centers[i]) if p1.centers is not None else 0),
+            bank_ref=decision.bank_ref, bank_index=decision.bank_index))
     return chunks
 
 
@@ -297,32 +398,53 @@ def _policy(hists: np.ndarray, coder: AdaptiveCoder, adaptive: bool,
 
 
 # ---------------------------------------------------------------------------
-# Entry point
+# Entry points
 # ---------------------------------------------------------------------------
+
+def _work(x: np.ndarray, predictor: str, device):
+    """(work f32 tensor on device, ndim): the flat stream for
+    value-direct, the native-rank field (rank <= 3) for Lorenzo. Float64
+    input quantizes through its f32 cast; the literal channel restores
+    the float64 bound."""
+    if predictor == "none":
+        ndim, shape = 1, (-1,)
+    elif predictor == "lorenzo":
+        ndim = min(x.ndim, 3)
+        shape = x.shape if x.ndim <= 3 else (-1,) + x.shape[-2:]
+    else:
+        raise ValueError(f"unknown predictor {predictor!r}")
+    work = torch.from_numpy(np.ascontiguousarray(
+        x.reshape(shape), dtype=np.float32)).to(device)
+    return work, ndim
+
 
 def compress_error_bounded(x: np.ndarray, eb: float, mode: str,
                            coder: AdaptiveCoder, chunk_values: int,
-                           block_size: int, device="cpu",
+                           block_size: int, device="cuda",
                            adaptive: bool = True, exact_build: bool = False,
                            stats_on_device: Optional[bool] = None,
-                           kernel_impl: str = "auto"):
-    """Fused abs/rel Lorenzo compression of a float32/float64 array.
+                           kernel_impl: str = "auto",
+                           predictor: str = "lorenzo"):
+    """Fused abs/rel compression of a float32/float64 array on `device`
+    (the card unless the caller asks for the CPU).
 
-    The array is quantized ONCE on `device` (native-rank Lorenzo, the
-    f32 pass for float64 input too — the float64 bound is restored by
-    the literal channel) and the code stream is cut into chunks for the
-    adaptive coder. Returns a CEAZCompressed.
+    Lorenzo: the array is quantized ONCE (native-rank Lorenzo) and the
+    code stream is cut into chunks for the adaptive coder; value-direct
+    (``predictor='none'``) codes each value against its chunk's median
+    code. Returns a CEAZCompressed.
     """
     from ..core.ceaz import CEAZCompressed
+    dev = target_device(device)
     # capping at the stream length keeps chunk boundaries identical and
     # avoids padding the pipeline up to a chunk nothing fills
     chunk_values = max(1, min(chunk_values, int(x.size)))
-    ndim = min(x.ndim, 3)
-    work_shape = x.shape if x.ndim <= 3 else (-1,) + x.shape[-2:]
-    work = torch.from_numpy(np.ascontiguousarray(
-        x.reshape(work_shape), dtype=np.float32)).to(device)
-    p1 = _run_pass1(work, eb, ndim, chunk_values, stats_on_device,
-                    kernel_impl)
+    work, ndim = _work(x, predictor, dev)
+    if predictor == "none":
+        p1 = _run_value_pass1(work, eb, chunk_values, stats_on_device,
+                              kernel_impl)
+    else:
+        p1 = _run_pass1(work, eb, ndim, chunk_values, stats_on_device,
+                        kernel_impl)
     decisions = _policy(p1.hists, coder, adaptive, exact_build)
     with ot.span("fused.encode_pass2", n_chunks=p1.n_chunks):
         words_np, nbits_np, totals = _encode_rows(
@@ -335,5 +457,172 @@ def compress_error_bounded(x: np.ndarray, eb: float, mode: str,
     return CEAZCompressed(shape=x.shape, dtype=str(x.dtype), ndim=ndim,
                           mode=mode, chunks=chunks,
                           word_bits=x.dtype.itemsize * 8,
-                          predictor="lorenzo",
+                          predictor=predictor,
+                          literal_idx=lit_idx, literal_val=lit_val)
+
+
+# ---------------------------------------------------------------------------
+# Single-pass bank mode (codebook='bank'): quantize -> histogram -> select
+# -> pack on the device, no host step between
+# ---------------------------------------------------------------------------
+
+# The provisioned pack grain: the single pass cannot size its output
+# from the data without the host sync it exists to delete, so it packs
+# into BANK_PROVISION_BITS bits/value and the host re-packs (pack only:
+# the codes stay on the device) in the rare case a chunk's exact payload
+# (hist . lengths, known from the one transfer) exceeds it.
+BANK_PROVISION_BITS = 8
+
+
+def _bank_w32(bits_per_value: int, chunk_values: int) -> int:
+    """u32 provisioning for bits_per_value, trimmed like words_capacity
+    so the valid prefix cuts to whole u64 words."""
+    need = 2 * ((chunk_values * int(bits_per_value) + 63) // 64 + 1)
+    return min(need, words_capacity(chunk_values))
+
+
+def _bank_fits(totals: np.ndarray, w32: int) -> bool:
+    """Whether every chunk's exact payload fits the provisioned pack."""
+    return 2 * ((int(totals.max()) + 63) // 64 + 1) <= w32
+
+
+@dataclasses.dataclass
+class _BankPass:
+    """What the single device pass leaves: device tensors throughout."""
+    hists: torch.Tensor
+    sel: torch.Tensor
+    totals: torch.Tensor
+    words: torch.Tensor
+    block_nbits: torch.Tensor
+    codes2: torch.Tensor
+    outl2: torch.Tensor
+    delta2: torch.Tensor
+    valid2: torch.Tensor
+    q: torch.Tensor
+    centers: Optional[torch.Tensor]
+
+
+def _mega_pass(work, eb: float, predictor: str, n_chunks: int,
+               chunk_values: int, block_size: int, w32: int, bank_lengths,
+               bank_cwords, kernel_impl: str) -> _BankPass:
+    """The `ceaz_chunk` op over the chunk rows: 1-D Lorenzo and
+    value-direct, the shapes whose Lorenzo halo is one raw value (the
+    reference's ``_mega_pass_fn``)."""
+    dev = work.device
+    flat = work.reshape(-1)
+    n = flat.numel()
+    work2, valid2 = _chunk_rows(flat, n_chunks, chunk_values)
+    prev2 = torch.zeros((n_chunks, 1), dtype=torch.float32, device=dev)
+    if predictor == "lorenzo" and n_chunks > 1:
+        # row i's halo: the RAW predecessor of its first value (row 0
+        # gets the stream head's zero-pad)
+        heads = torch.arange(1, n_chunks, device=dev) * chunk_values - 1
+        prev2[1:, 0] = flat[heads]
+    op = dispatch.resolve("ceaz_chunk", kernel_impl, dev)
+    with dispatch.measure("ceaz_chunk", kernel_impl, dev):
+        (q2, codes2, outl2, delta2, centers, hists, sel, totals, words,
+         block_nbits) = op(work2, prev2, valid2, _ebs(eb, n_chunks, dev),
+                           bank_lengths, bank_cwords, block_size, w32,
+                           "value" if predictor == "none" else "lorenzo")
+    return _BankPass(hists, sel, totals, words, block_nbits, codes2, outl2,
+                     delta2, valid2, q2.reshape(-1)[:n],
+                     centers if predictor == "none" else None)
+
+
+def _bank_pass(work, eb: float, ndim: int, n_chunks: int, chunk_values: int,
+               block_size: int, w32: int, bank_lengths, bank_cwords,
+               kernel_impl: str) -> _BankPass:
+    """Higher-rank Lorenzo (the reference's ``_bank_pass_fn``): the
+    native-rank `dualquant` pass, per-chunk histograms by bincount, then
+    the `bank_select` and `hufenc` ops."""
+    dev = work.device
+    codes2, outl2, delta2, valid2, q = _quantize_pass(
+        work, eb, ndim, n_chunks, chunk_values, kernel_impl)
+    hists = _chunk_hists(codes2, valid2).to(torch.int32)
+    select = dispatch.resolve("bank_select", kernel_impl, dev)
+    with dispatch.measure("bank_select", kernel_impl, dev):
+        sel, totals, ln_sel, cw_sel = select(hists, bank_lengths,
+                                             bank_cwords)
+    pack = dispatch.resolve("hufenc", kernel_impl, dev)
+    with dispatch.measure("hufenc", kernel_impl, dev):
+        words, block_nbits = pack(codes2, valid2, ln_sel, cw_sel,
+                                  block_size, w32)
+    return _BankPass(hists, sel, totals, words, block_nbits, codes2, outl2,
+                     delta2, valid2, q, None)
+
+
+def compress_error_bounded_bank(x: np.ndarray, eb: float, mode: str,
+                                coder: BankCoder, chunk_values: int,
+                                block_size: int, device="cuda",
+                                stats_on_device: Optional[bool] = None,
+                                kernel_impl: str = "auto",
+                                predictor: str = "lorenzo"):
+    """Single-pass fused compression against an offline codebook bank.
+
+    Each chunk's book comes from the coder's CodebookBank, selected on
+    the device by the exact integer argmin of hist . lengths_k, so the
+    whole encode — quantize, histogram, select, pack — runs before the
+    one transfer. The host then replays the selection (``coder.step``)
+    for the per-chunk decisions and the drift statistic the facade's
+    fallback reads; the replay must land on the device's book
+    (asserted). When a chunk's exact payload exceeds the
+    BANK_PROVISION_BITS provisioning, only the pack re-runs at full
+    capacity.
+    """
+    from ..core.ceaz import CEAZCompressed
+    dev = target_device(device)
+    bank = coder.bank
+    if stats_on_device is None:
+        stats_on_device = dev.type != "cpu"
+    n = int(x.size)
+    chunk_values = max(1, min(chunk_values, n))
+    n_chunks, _ = chunk_layout(n, chunk_values)
+    work, ndim = _work(x, predictor, dev)
+    w32 = _bank_w32(min(int(bank.lengths.max()), BANK_PROVISION_BITS),
+                    chunk_values)
+    w32_full = _bank_w32(int(bank.lengths.max()), chunk_values)
+    bank_lengths = torch.from_numpy(bank.lengths.astype(np.int32)).to(dev)
+    bank_cwords = torch.from_numpy(
+        bank.code_table().astype(np.uint32).view(np.int32)).to(dev)
+    # the `ceaz_chunk` op covers the shapes whose Lorenzo halo is one
+    # raw value — 1-D streams and value-direct; higher-rank Lorenzo
+    # composes the stage ops (same outputs either way)
+    if predictor == "none" or ndim == 1:
+        bp = _mega_pass(work, eb, predictor, n_chunks, chunk_values,
+                        block_size, w32, bank_lengths, bank_cwords,
+                        kernel_impl)
+    else:
+        bp = _bank_pass(work, eb, ndim, n_chunks, chunk_values, block_size,
+                        w32, bank_lengths, bank_cwords, kernel_impl)
+    # --- host assembly from the one transfer ---
+    hists_np = bp.hists.cpu().numpy().astype(np.int64)
+    sel_np = bp.sel.cpu().numpy()
+    totals_np = bp.totals.cpu().numpy().astype(np.int64)
+    decisions = [coder.step(h) for h in hists_np]
+    for i, d in enumerate(decisions):
+        # the host replay of the selection statistic must land on the
+        # same bank row the device argmin picked (integer-exact)
+        assert d.bank_index == int(sel_np[i])
+    words, block_nbits = bp.words, bp.block_nbits
+    if w32 < w32_full and not _bank_fits(totals_np, w32):
+        om.add(om.BANK_REPACKS)
+        lengths_np, cwords_np = _codebook_tables(decisions)
+        pack = dispatch.resolve("hufenc", kernel_impl, dev)
+        with ot.span("fused.bank_overflow_repack"), \
+                dispatch.measure("hufenc", kernel_impl, dev):
+            words, block_nbits = pack(
+                bp.codes2, bp.valid2, torch.from_numpy(lengths_np).to(dev),
+                torch.from_numpy(cwords_np).to(dev), block_size, w32_full)
+    p1 = _finish_pass1(bp.codes2, bp.outl2, bp.delta2, bp.valid2, bp.q,
+                       work.reshape(-1), eb, chunk_values, stats_on_device,
+                       hists=bp.hists, predictor=predictor,
+                       centers=bp.centers)
+    chunks = _assemble_chunks(
+        p1, words.cpu().numpy().view(np.uint32), block_nbits.cpu().numpy(),
+        totals_np, _outliers(p1), eb, decisions, block_size)
+    lit_idx, lit_val = _literals(p1, x.reshape(-1), eb)
+    return CEAZCompressed(shape=x.shape, dtype=str(x.dtype), ndim=ndim,
+                          mode=mode, chunks=chunks,
+                          word_bits=x.dtype.itemsize * 8,
+                          predictor=predictor,
                           literal_idx=lit_idx, literal_val=lit_val)

@@ -6,11 +6,14 @@ group are staged on the host into padded rows and decoded by ONE call of
 the `ceaz_chunk_dec` op — table walk, outlier patch and inverse
 dual-quant; 1-D streams carry their Lorenzo chain across chunk rows in
 the op, higher-rank fields take the multi-axis cumsum afterwards
-(:func:`_nd_cumsum`). The host then replays the staged float64 scale
+(:func:`_nd_cumsum`), and value-direct rows add their chunk's centre
+(``base``) with no prefix sum. Bank chunks resolve their book from the
+CodebookBank they name. The host then replays the staged float64 scale
 multiply and patches the literals.
 
 Bit-exactness contract: the decoded bytes equal the reference's for
-every stream the encoder produces (float32/float64, Lorenzo, abs/rel).
+every stream the encoder produces (float32/float64, Lorenzo or
+value-direct, abs/rel, exact or bank codebooks).
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 from ..core import dualquant as core_dq
 from ..core.huffman import DEFAULT_MAX_LEN, Codebook, replay_codebooks
 from ..kernels import dispatch
+from .fused import target_device
 
 MAX_CODE_BITS = DEFAULT_MAX_LEN
 _TBL = 1 << MAX_CODE_BITS
@@ -50,9 +54,10 @@ def _bucket_words(n: int) -> int:
 
 
 def fused_decode_ok(c, offline: Codebook) -> bool:
-    """Streams this route decodes: float32/float64 Lorenzo abs/rel
-    streams with chunks, codebooks at the standard length limit."""
-    return (getattr(c, "predictor", "lorenzo") == "lorenzo"
+    """Streams this route decodes: float32/float64 Lorenzo or
+    value-direct abs/rel streams with chunks, codebooks at the standard
+    length limit."""
+    return (getattr(c, "predictor", "lorenzo") in ("lorenzo", "none")
             and np.dtype(c.dtype) in (np.float32, np.float64)
             and c.mode in ("abs", "rel")
             and len(c.chunks) > 0
@@ -72,24 +77,29 @@ class _ChunkBatch:
         self.books: List[Codebook] = []
         self.spans: List[Tuple[int, int]] = []     # comp -> row range
         # per-row megakernel metadata: outlier deltas (ascending position
-        # order), Lorenzo-row flag, carry-segment head row
+        # order), value-direct centre base, Lorenzo-row flag,
+        # carry-segment head row
         self.odelta: List[np.ndarray] = []
+        self.base: List[int] = []
         self.islor: List[int] = []
         self.seg0: List[int] = []
 
-    def add_comp(self, c, offline: Codebook):
+    def add_comp(self, c, offline: Codebook, bank=None):
         row0 = len(self.counts)
+        value = getattr(c, "predictor", "lorenzo") == "none"
         # one flat Lorenzo chain across the comp's rows only when the
         # work shape IS flat; higher-rank fields decode per-row deltas
         # and run the multi-axis cumsum in decompress_one_mega
-        chained = len(c.shape) == 1
+        chained = not value and len(c.shape) == 1
         for j, (ch, book) in enumerate(
-                zip(c.chunks, replay_codebooks(c.chunks, offline))):
+                zip(c.chunks, replay_codebooks(c.chunks, offline,
+                                               bank=bank))):
             self.words.append(_u64_to_u32(ch.words))
             self.nbits.append(np.asarray(ch.block_nbits, np.int64))
             self.counts.append(int(ch.n_values))
             self.books.append(book)
             self.odelta.append(ch.outlier_delta)
+            self.base.append(int(ch.center) if value else 0)
             self.islor.append(1 if chained else 0)
             self.seg0.append(row0 if chained else row0 + j)
         self.spans.append((row0, len(self.counts)))
@@ -143,6 +153,7 @@ class _ChunkBatch:
         seg0 = np.arange(c_cap, dtype=np.int32)    # padding: own segment
         seg0[:C] = self.seg0
         base = np.zeros(c_cap, np.int32)           # value-direct centres
+        base[:C] = np.asarray(self.base, np.int64).astype(np.int32)
         dev = self.device
         t = lambda a: torch.from_numpy(a).to(dev)
         fn = dispatch.resolve("ceaz_chunk_dec", self.kernel_impl, dev)
@@ -177,12 +188,15 @@ def _nd_cumsum(delta2: torch.Tensor, ndim: int, n: int, work_shape
 
 def decompress_one_mega(q_rows: torch.Tensor, c) -> np.ndarray:
     """Host finish for one array, given its reconstructed q rows (1-D
-    chains already summed in the op; higher-rank rows arrive as deltas
-    and take the multi-axis cumsum here)."""
+    chains already summed and value-direct centres added in the op;
+    higher-rank rows arrive as deltas and take the multi-axis cumsum
+    here)."""
     cv = int(c.chunks[0].n_values)
     n = int(c.n_values)
     rows = q_rows[:, :cv]
-    if len(c.shape) == 1:
+    if getattr(c, "predictor", "lorenzo") == "none" or len(c.shape) == 1:
+        # the rows are final q: value-direct centres added, or the flat
+        # Lorenzo chain carried across the chunk boundaries, in the op
         q = rows.reshape(-1)[:n]
     else:
         q = _nd_cumsum(rows, c.ndim, n, _work_shape(c))
@@ -190,14 +204,17 @@ def decompress_one_mega(q_rows: torch.Tensor, c) -> np.ndarray:
 
 
 def decompress_batch(comps: Sequence, block_size: int, offline: Codebook,
-                     device="cpu", kernel_impl: str = "auto"
+                     device="cuda", kernel_impl: str = "auto", bank=None
                      ) -> List[np.ndarray]:
-    """Fused decode of a group of CEAZCompressed streams: ONE
-    `ceaz_chunk_dec` pass over every chunk of the group. Callers filter
-    with :func:`fused_decode_ok` first (the facade does)."""
-    batch = _ChunkBatch(block_size, device, kernel_impl)
+    """Fused decode of a group of CEAZCompressed streams on `device`
+    (the card unless the caller asks for the CPU): ONE `ceaz_chunk_dec`
+    pass over every chunk of the group. Bank chunks resolve their book
+    from `bank` when its id matches, else from the bank registry.
+    Callers filter with :func:`fused_decode_ok` first (the facade
+    does)."""
+    batch = _ChunkBatch(block_size, target_device(device), kernel_impl)
     for c in comps:
-        batch.add_comp(c, offline)
+        batch.add_comp(c, offline, bank=bank)
     if not batch.counts:
         return []
     q_all = batch.run_mega()

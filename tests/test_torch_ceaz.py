@@ -183,9 +183,9 @@ def test_facade_runs_on_the_card_unless_asked_for_cpu():
 @pytest.mark.parametrize("kw,item", [
     (dict(use_fused=False), "Queue 1 item 1"),
     (dict(mode="fixed_ratio"), "Queue 1 item 6"),
-    (dict(predictor="none"), "Queue 1 item 5"),
-    (dict(predictor="auto"), "Queue 1 item 5"),
-    (dict(codebook="bank"), "Queue 1 item 5"),
+    (dict(use_fused=False, predictor="none"), "Queue 1 item 1"),
+    (dict(mode="fixed_ratio", predictor="auto"), "Queue 1 item 6"),
+    (dict(mode="fixed_ratio", codebook="bank"), "Queue 1 item 6"),
 ])
 def test_unported_routes_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -198,8 +198,9 @@ def test_unported_decode_and_batch_routes_raise():
         _port(decode_megakernel="split").decompress(c)
     with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         _port().compress_batch([np.ones(8, np.float32)] * 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        TC.CEAZ(device="cpu", offline_codebook=PORT_OFF, bank=object())
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        TC.CEAZ(device="cpu", offline_codebook=PORT_OFF, codebook="bank",
+                mode="fixed_ratio").compress(np.ones(64, np.float32))
     with pytest.raises(TypeError):
         _port().compress(np.ones(8, np.int32))
 

@@ -136,3 +136,124 @@ def test_round_trip_on_card_matches_cpu(dev, name, kw):
     yg, yc = gpu.decompress(cg), cpu.decompress(cc)
     assert yg.tobytes() == yc.tobytes()
     assert all(v > 0 for v in dispatch.launches().values())
+
+
+# ---------------------------------------------------------------------------
+# Bank encode and value-direct kernels (csrc/bank.cu, csrc/center.cu)
+# ---------------------------------------------------------------------------
+
+def _center_rows(seed, V):
+    i32 = np.iinfo(np.int32)
+    rng = np.random.default_rng(seed)
+    edge = rng.choice([i32.min, i32.min + 1, i32.max - 1, i32.max], V)
+    wrap = np.zeros(V, np.int64)
+    wrap[:2] = (-2_000_000_000, 2_000_000_000)
+    rows = [rng.integers(-5, 6, V), rng.integers(-1000, 1000, V),
+            rng.integers(-1000, 1000, V), wrap, edge, edge,
+            rng.integers(i32.min, i32.max, V, endpoint=True), np.full(V, 7)]
+    masks = [np.ones(V, bool), np.arange(V) < V - 1097, np.zeros(V, bool),
+             np.arange(V) < 2, np.ones(V, bool), rng.random(V) < 0.5,
+             np.arange(V) < 1, np.arange(V) < 2]
+    return (np.stack(rows).astype(np.int64).astype(np.int32),
+            np.stack(masks))
+
+
+@pytest.mark.parametrize("V", [4096, 70001, (1 << 20) + 3])
+def test_dq_center_kernel_matches_plain(dev, V):
+    q2, valid2 = (torch.from_numpy(a).to(dev) for a in _center_rows(3, V))
+    got = DQ.dq_center_cuda(q2, valid2)
+    _eq(got, DQ.chunk_center_plain(q2, valid2))
+    _eq(got, DQ.chunk_center_plain(q2.cpu(), valid2.cpu()))
+
+
+def _bank_rows(dev, C, cv, n_valid, seed):
+    rng = np.random.default_rng(seed)
+    flat = np.cumsum(rng.standard_normal(C * cv)).astype(np.float32)
+    flat[::977] = np.nan
+    flat[3::1601] = np.inf
+    flat[5::2003] = -3e9
+    flat[n_valid:] = 0.0
+    valid = (np.arange(C * cv) < n_valid).reshape(C, cv)
+    prev = np.zeros(C, np.float32)
+    prev[1:] = flat[np.arange(1, C) * cv - 1]
+    ebs = np.linspace(0.01, 0.3, C).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return t(flat.reshape(C, cv)), t(prev[:, None]), t(valid), t(ebs)
+
+
+def _bank_tables(dev):
+    from repro_torch.core.codebook import default_codebook_bank
+    bank = default_codebook_bank()
+    return (torch.from_numpy(bank.lengths.astype(np.int32)).to(dev),
+            torch.from_numpy(bank.code_table().astype(np.uint32)
+                             .view(np.int32)).to(dev))
+
+
+@pytest.mark.parametrize("C,cv,n_valid", [(3, 4096, 2 * 4096 + 1500),
+                                          (2, (1 << 17) + 4097, 200001)])
+def test_bank_quant_kernels_match_plain(dev, C, cv, n_valid):
+    work2, prev2, valid2, ebs = _bank_rows(dev, C, cv, n_valid, 4)
+    got = MK.lorenzo_quant_cuda(work2, prev2, valid2, ebs)
+    _eq(got, MK.lorenzo_quant_plain(work2, prev2, valid2, ebs))
+    _eq(got, MK.lorenzo_quant_plain(*(a.cpu() for a in
+                                      (work2, prev2, valid2, ebs))))
+    q2 = MK.value_quant_cuda(work2, ebs)
+    _eq(q2, MK.value_quant_plain(work2, ebs))
+    centers = DQ.dq_center_cuda(q2, valid2)
+    got = MK.value_finalize_cuda(q2, valid2, centers)
+    _eq(got, MK.value_finalize_plain(q2, valid2, centers))
+
+
+def test_bank_select_kernel_matches_plain_with_ties(dev):
+    ln, cw = _bank_tables(dev)
+    ln = torch.cat([ln[:2], ln[1:2], ln[:1]])          # books 1, 2 and 0, 3 tie
+    cw = torch.cat([cw[:2], cw[1:2], cw[:1]])
+    rng = np.random.default_rng(5)
+    hists = rng.integers(0, 1 << 12, (9, 1024)).astype(np.int32)
+    hists[0] = 0
+    hists = torch.from_numpy(hists).to(dev)
+    got = MK.bank_select_cuda(hists, ln.contiguous(), cw.contiguous())
+    _eq(got, MK.bank_select_plain(hists, ln, cw))
+    assert set(got[0].cpu().tolist()) <= {0, 1}
+
+
+@pytest.mark.parametrize("predictor", ["lorenzo", "value"])
+@pytest.mark.parametrize("C,cv,n_valid", [(3, 4096, 2 * 4096 + 1500),
+                                          (1, (1 << 17) + 4097, 140000)])
+def test_ceaz_chunk_op_matches_plain(dev, predictor, C, cv, n_valid):
+    work2, prev2, valid2, ebs = _bank_rows(dev, C, cv, n_valid, 6)
+    ln, cw = _bank_tables(dev)
+    for bits in (8, 16):
+        w32 = 2 * ((cv * bits + 63) // 64 + 1)
+        args = (work2, prev2, valid2, ebs, ln, cw, 1024, w32, predictor)
+        _eq(MK.ceaz_chunk_cuda(*args), MK.ceaz_chunk_plain(*args))
+
+
+@pytest.mark.parametrize("predictor,kw", [
+    ("lorenzo", dict(mode="rel", eb=1e-4, chunk_bytes=1 << 16)),
+    ("none", dict(mode="abs", eb=1e-3)),
+    ("auto", dict(mode="rel", eb=1e-3, chunk_bytes=1 << 16)),
+])
+def test_bank_round_trip_on_card_matches_cpu(dev, predictor, kw):
+    off = default_offline_codebook()
+    for name in ("hacc", "cesm"):
+        x = getattr(F, name + "_proxy")(size="small")
+        dispatch.reset_launches()
+        gpu = CEAZ(CEAZConfig(device="cuda", codebook="bank",
+                              predictor=predictor, **kw),
+                   offline_codebook=off)
+        cpu = CEAZ(CEAZConfig(device="cpu", codebook="bank",
+                              predictor=predictor, **kw),
+                   offline_codebook=off)
+        cg, cc = gpu.compress(x), cpu.compress(x)
+        assert cg.predictor == cc.predictor
+        for a, b in zip(cg.chunks, cc.chunks):
+            assert np.array_equal(a.words, b.words)
+            assert np.array_equal(a.block_nbits, b.block_nbits)
+            assert np.array_equal(a.outlier_idx, b.outlier_idx)
+            assert np.array_equal(a.outlier_delta, b.outlier_delta)
+            assert (a.codebook_id, a.bank_index, a.center) \
+                == (b.codebook_id, b.bank_index, b.center)
+        assert np.array_equal(cg.literal_idx, cc.literal_idx)
+        assert gpu.decompress(cg).tobytes() == cpu.decompress(cc).tobytes()
+        assert all(v > 0 for v in dispatch.launches().values())
