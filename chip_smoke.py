@@ -39,7 +39,23 @@ through the public facade, at rel eb 1e-4 unless said otherwise:
            re-encoded on the exact route (the fallback counter must
            rise by one, every chunk must leave the bank);
   phase F  the CESM field with the bank: dq2d, bank select, gather-pack,
-           word-tiled walk.
+           word-tiled walk;
+  phase G  the HACC field in fixed-ratio mode (target ratio 10,
+           chunk_bytes=2^19: 64 chunks of 2^17, speculation 'auto'),
+           exact codebooks: each speculation window quantized by one
+           Lorenzo quantize+histogram launch (the one-program kernel),
+           gather-pack, decode megakernel with each chunk its own chain;
+           the achieved ratio must be within 15% of the target and every
+           value within its chunk's bound;
+  G.off    the same with speculation 'off' (the sequential loop: dq1d per
+           chunk); its stream must equal phase G's;
+  G.bank   phase G with the codebook bank: each window one bank-encode
+           launch (quantize, select, pack), no second pass;
+  phase S  the streams of phases A, B, E.exact and G decoded again with
+           decode_megakernel='split' (S.A, S.B, S.E, S.G): the split
+           route's walk kernel (hufdec), then the outlier scatter and the
+           inverse as torch ops; neither decode megakernel kernel may
+           launch, and the bytes must equal the megakernel route's.
 
 Each phase is run with the kernels' launch counts set to 0 just before
 and read just after, and must launch every kernel of its path. A count
@@ -85,6 +101,7 @@ REPLACES = {
     # the select stage of ceaz_chunk_fused (its tiled regime runs it as
     # jnp, megakernel/ref.py::select_bank)
     "bank_select": "src/repro/kernels/megakernel/kernel.py:111",
+    "hufdec": "src/repro/kernels/hufdec/kernel.py:85",
 }
 SOURCES = {
     "dq1d": "src/repro_torch/csrc/dualquant.cu",
@@ -98,6 +115,7 @@ SOURCES = {
     "value_finalize_tiles": "src/repro_torch/csrc/bank.cu",
     "dq_center": "src/repro_torch/csrc/center.cu",
     "bank_select": "src/repro_torch/csrc/bank.cu",
+    "hufdec": "src/repro_torch/csrc/hufdec.cu",
 }
 _VALUE = ("value_quant_tiles", "dq_center", "value_finalize_tiles")
 PHASE_KERNELS = {
@@ -113,11 +131,21 @@ PHASE_KERNELS = {
     "E.exact": _VALUE + ("gather_pack_tiled", "hufdec_tiles"),
     "E.drift": _VALUE + ("bank_select", "gather_pack_tiled", "hufdec_tiles"),
     "F": ("dq2d", "bank_select", "gather_pack_tiled", "hufdec_tiles"),
+    "G": ("ceaz_chunk_fused", "gather_pack_tiled", "ceaz_chunk_dec_fused"),
+    "G.off": ("dq1d", "gather_pack_tiled", "ceaz_chunk_dec_fused"),
+    "G.bank": ("ceaz_chunk_fused", "bank_select", "gather_pack_tiled",
+               "ceaz_chunk_dec_fused"),
 }
+# the split decodes: stream of phase -> its S phase; the walk kernel must
+# launch and neither decode megakernel kernel may
+SPLIT_PHASES = {"A": "S.A", "B": "S.B", "E.exact": "S.E", "G": "S.G"}
+SPLIT_FORBIDDEN = ("ceaz_chunk_dec_fused", "hufdec_tiles")
+FIXED_RATIO_ENVELOPE = 0.15      # the reference's tests/test_full_grid.py
 # phases whose bank pass must fall back to the exact route
 DRIFT_PHASES = ("E.drift",)
 CAPTURED_OPS = ("dualquant", "hufenc", "ceaz_chunk_dec", "ceaz_chunk",
-                "value_quant", "dq_center", "value_finalize", "bank_select")
+                "value_quant", "dq_center", "value_finalize", "bank_select",
+                "lorenzo_quant", "hufdec")
 
 
 class CheckFailed(RuntimeError):
@@ -232,12 +260,14 @@ def run_phase(name, x, kw, offline, dispatch, CEAZ, CEAZConfig, captured):
     cpu = CEAZ(CEAZConfig(device="cpu", **kw), offline_codebook=offline)
     captured.clear()
     fallbacks = om.counter(om.BANK_FALLBACKS).value()
+    before = om.snapshot()
     dispatch.reset_launches()
     c_gpu = gpu.compress(x)
     y_gpu = gpu.decompress(c_gpu)
     import torch
     torch.cuda.synchronize()
     counts = dispatch.launches()
+    spec = om.diff(om.snapshot(), before)
     for k in PHASE_KERNELS[name]:
         check(counts.get(k, 0) > 0,
               f"phase {name}: kernel {k} was not launched ({counts})")
@@ -261,10 +291,29 @@ def run_phase(name, x, kw, offline, dispatch, CEAZ, CEAZConfig, captured):
     assert_same_stream(c_gpu, c_cpu, f"phase {name}")
     check(y_gpu.tobytes() == y_cpu.tobytes(),
           f"phase {name}: decoded bytes differ from the CPU run")
-    bound = kw["eb"] * value_range(x)
-    err = float(np.abs(y_gpu.astype(np.float64)
-                       - x.astype(np.float64)).max())
-    check(err <= bound, f"phase {name}: max error {err} > bound {bound}")
+    errs = np.abs(y_gpu.reshape(-1).astype(np.float64)
+                  - x.reshape(-1).astype(np.float64))
+    err = float(errs.max())
+    if kw["mode"] == "fixed_ratio":
+        # each chunk has its own bound; the ratio tracks the target
+        bound = np.repeat([ch.eb for ch in c_gpu.chunks],
+                          [ch.n_values for ch in c_gpu.chunks])
+        check(bool(np.all(errs <= bound)),
+              f"phase {name}: a value exceeds its chunk's bound")
+        bound = f"per chunk {min(bound)}..{max(bound)}"
+        target = kw["target_ratio"]
+        check(abs(c_gpu.ratio() / target - 1) <= FIXED_RATIO_ENVELOPE,
+              f"phase {name}: ratio {c_gpu.ratio()} is not within "
+              f"{FIXED_RATIO_ENVELOPE:.0%} of the target {target}")
+        if kw.get("speculation", "auto") != "off":
+            print(f"phase {name}: speculation hits="
+                  f"{spec.get(om.SPEC_HITS, 0)} misses="
+                  f"{spec.get(om.SPEC_MISSES, 0)} final window="
+                  f"{om.snapshot().get(om.SPEC_WINDOW)}")
+    else:
+        bound = kw["eb"] * value_range(x)
+        check(err <= bound, f"phase {name}: max error {err} > bound "
+              f"{bound}")
     enc_s = host_s(lambda: gpu.compress(x))
     dec_s = host_s(lambda: gpu.decompress(c_gpu))
     gb = x.nbytes / 1e9
@@ -278,7 +327,36 @@ def run_phase(name, x, kw, offline, dispatch, CEAZ, CEAZConfig, captured):
           f"stream+bytes==cpu run: True (cpu run {cpu_s:.2f} s)")
     return counts, inputs, dict(compress_GBps=gb / enc_s,
                                 decompress_GBps=gb / dec_s,
-                                compress_s=enc_s, decompress_s=dec_s)
+                                compress_s=enc_s, decompress_s=dec_s), \
+        (c_gpu, y_gpu)
+
+
+def run_split_phase(name, c, y_mega, kw, offline, dispatch, CEAZ, CEAZConfig,
+                    captured):
+    """Counted split-route decode on the card of a stream the megakernel
+    route decoded to `y_mega` (which equals the CPU run's bytes)."""
+    import torch
+    split = CEAZ(CEAZConfig(device="cuda", decode_megakernel="split", **kw),
+                 offline_codebook=offline)
+    captured.clear()
+    dispatch.reset_launches()
+    y = split.decompress(c)
+    torch.cuda.synchronize()
+    counts = dispatch.launches()
+    check(counts.get("hufdec", 0) > 0,
+          f"phase {name}: kernel hufdec was not launched ({counts})")
+    for k in SPLIT_FORBIDDEN:
+        check(counts.get(k, 0) == 0,
+              f"phase {name}: the split route launched {k} ({counts})")
+    check(y.tobytes() == y_mega.tobytes(),
+          f"phase {name}: split-route bytes differ from the megakernel "
+          "route's")
+    dec_s = host_s(lambda: split.decompress(c))
+    print(f"phase {name}: chunks={len(c.chunks)} launches={counts} "
+          f"bytes==megakernel route==cpu run: True decompress "
+          f"{y.nbytes / 1e9 / dec_s} GB/s ({dec_s} s)")
+    return counts, dict(captured), dict(decompress_GBps=y.nbytes / 1e9
+                                        / dec_s, decompress_s=dec_s)
 
 
 def kernel_rows(inputs):
@@ -393,6 +471,32 @@ def kernel_rows(inputs):
         out_bytes=hists_c.shape[0] * (8 + 8 * NUM_SYMBOLS),
         ops=2 * K * NUM_SYMBOLS * hists_c.shape[0], extra=dict(phase="C"))
 
+    # -- the split route's walk (phase S), at every stream's shapes ---------
+    for phase in SPLIT_PHASES.values():
+        args = inputs[phase]["hufdec"][0]
+        words2, nbits2, counts = args[:3]
+        bs = args[6]
+        row_bits = nbits2.to(torch.int64).sum(1)
+        n_values = int(counts.to(torch.int64).sum())
+        if "hufdec" in rows:          # one table row (S.A); the others
+            got = HD.hufdec_cuda(*args)   # are held and timed beside it
+            check(same_outputs(got, HD.hufdec_plain(*args)),
+                  f"kernel hufdec disagrees with its plain version at "
+                  f"{phase}'s shapes")
+            rows["hufdec"]["streams"][phase] = dict(
+                shape=list(words2.shape) + [nbits2.shape[1], bs],
+                ms=cuda_ms(lambda: HD.hufdec_cuda(*args)),
+                plain_ms=(cuda_ms(lambda: HD.hufdec_plain(*args), reps=3,
+                                  warmup=1) if phase == "S.B" else None))
+            print(f"kernel hufdec at {phase}: bitwise == plain: True "
+                  f"{rows['hufdec']['streams'][phase]}")
+            continue
+        row("hufdec", lambda: HD.hufdec_cuda(*args),
+            lambda: HD.hufdec_plain(*args),
+            in_bytes=4 * int(((row_bits + 31) // 32).sum()) + nbytes(nbits2),
+            out_bytes=4 * n_values, ops=12 * n_values,
+            extra=dict(phase=phase, streams={}))
+
     work2, _, valid2, ebs = inputs["E.bank"]["ceaz_chunk"][0][:4]
     C, cv = work2.shape
     row("value_quant_tiles", lambda: MK.value_quant_cuda(work2, ebs),
@@ -413,6 +517,31 @@ def kernel_rows(inputs):
         out_bytes=13 * C * cv + 4 * NUM_SYMBOLS * C, ops=4 * C * cv,
         extra=dict(phase="E.bank"))
     return rows
+
+
+def window_checks(inputs, rows):
+    """The fixed-ratio phases' launches at their own shapes and per-row
+    bounds, held bitwise against the plain versions: a window's Lorenzo
+    quantize (G) and bank encode (G.bank), and a sequential chunk's dq1d
+    (G.off)."""
+    from repro_torch.kernels.dualquant import ops as DQ
+    from repro_torch.kernels.megakernel import ops as MK
+    lq = inputs["G"]["lorenzo_quant"][0]
+    bank = inputs["G.bank"]["ceaz_chunk"][0]
+    dq = inputs["G.off"]["dualquant"][0]
+    for what, args, cuda_fn, plain_fn, row, key in (
+            ("window Lorenzo quantize (G)", lq, MK.lorenzo_quant_cuda,
+             MK.lorenzo_quant_plain, "ceaz_chunk_fused", "window_ms"),
+            ("window bank encode (G.bank)", bank, MK.ceaz_chunk_cuda,
+             MK.ceaz_chunk_plain, "ceaz_chunk_fused", "bank_window_ms"),
+            ("sequential chunk (G.off)", dq, DQ.dual_quantize_cuda,
+             DQ.dual_quantize_plain, "dq1d", "chunk_ms")):
+        check(same_outputs(cuda_fn(*args), plain_fn(*args)),
+              f"kernel {row} disagrees with its plain version at the "
+              f"{what} shapes")
+        rows[row][key] = cuda_ms(lambda: cuda_fn(*args))
+        print(f"kernel {row} at the {what} shapes {tuple(args[0].shape)}: "
+              f"bitwise == plain: True  ms={rows[row][key]}")
 
 
 def nonfinite_check():
@@ -478,6 +607,13 @@ PHASES = (
     # ... and the drift valve at 1e-4 (the fallback must be taken)
     ("E.drift", "nwchem", dict(predictor="none", codebook="bank")),
     ("F", "cesm", dict(codebook="bank")),
+    # fixed-ratio mode on the HACC field in 64 chunks of 2^17
+    ("G", "hacc", dict(mode="fixed_ratio", target_ratio=10.0,
+                       chunk_bytes=1 << 19)),
+    ("G.off", "hacc", dict(mode="fixed_ratio", target_ratio=10.0,
+                           chunk_bytes=1 << 19, speculation="off")),
+    ("G.bank", "hacc", dict(mode="fixed_ratio", target_ratio=10.0,
+                            chunk_bytes=1 << 19, codebook="bank")),
 )
 
 
@@ -516,11 +652,19 @@ def main():
     check(fields["cesm"].shape == (1800, 3600)
           and fields["hacc"].shape == (1 << 23,)
           and fields["nwchem"].shape == (1 << 23,), "unexpected phase shapes")
-    counts, inputs, thr = {}, {}, {}
+    counts, inputs, thr, streams, kws = {}, {}, {}, {}, {}
     for name, field, kw in PHASES:
-        counts[name], inputs[name], thr[name] = run_phase(
-            name, fields[field], {"mode": "rel", "eb": 1e-4, **kw}, offline,
-            dispatch, CEAZ, CEAZConfig, captured)
+        kws[name] = {"mode": "rel", "eb": 1e-4, **kw}
+        counts[name], inputs[name], thr[name], streams[name] = run_phase(
+            name, fields[field], kws[name], offline, dispatch, CEAZ,
+            CEAZConfig, captured)
+    assert_same_stream(streams["G.off"][0], streams["G"][0],
+                       "phase G vs G.off")
+    print("phase G stream == speculation 'off' stream on the card: True")
+    for src, name in SPLIT_PHASES.items():
+        counts[name], inputs[name], thr[name] = run_split_phase(
+            name, *streams[src], kws[src], offline, dispatch, CEAZ,
+            CEAZConfig, captured)
     for op, phases in (("dualquant", "ABF"), ("hufenc", "ABF"),
                        ("ceaz_chunk_dec", "ABCD"), ("ceaz_chunk", "CD"),
                        ("bank_select", "F")):
@@ -529,16 +673,21 @@ def main():
     check("ceaz_chunk" in inputs["C.value"]
           and "ceaz_chunk" in inputs["E.bank"]
           and "dq_center" in inputs["E.exact"], "phase E inputs not captured")
+    check("lorenzo_quant" in inputs["G"] and "dualquant" in inputs["G.off"]
+          and "ceaz_chunk" in inputs["G.bank"]
+          and all("hufdec" in inputs[p] for p in SPLIT_PHASES.values()),
+          "phase G/S inputs not captured")
 
     rows = kernel_rows(inputs)
+    window_checks(inputs, rows)
     nonfinite_check()
     center_corner_check()
     for name, r in rows.items():
         r["launches"] = sum(c.get(name, 0) for c in counts.values())
     for name, t in thr.items():
-        print(f"throughput phase {name} [{card}]: "
-              f"compress {t['compress_GBps']} GB/s "
-              f"({t['compress_s']} s), decompress "
+        enc = (f"compress {t['compress_GBps']} GB/s ({t['compress_s']} s), "
+               if "compress_s" in t else "")
+        print(f"throughput phase {name} [{card}]: {enc}decompress "
               f"{t['decompress_GBps']} GB/s ({t['decompress_s']} s) "
               f"of f32 input")
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")

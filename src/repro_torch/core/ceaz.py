@@ -1,14 +1,20 @@
-"""CEAZ compressor facade (PyTorch port): the error-bounded fused route.
+"""CEAZ compressor facade (PyTorch port): the fused routes.
 
 Same records and policy as the reference facade (``src/repro/core/
-ceaz.py``): ``CEAZ.compress`` dual-quantizes with native-rank Lorenzo or
-value-direct prediction (``predictor='lorenzo'|'none'|'auto'``), codes
-chunks with the adaptive chi policy or, with ``codebook='bank'``, with
-per-chunk books selected on the device from an offline CodebookBank
-(falling back to the exact route on drift), and returns a
-:class:`CEAZCompressed` whose fields are bit-identical to the
-reference's ``CEAZ(use_fused=True)`` output; ``decompress`` inverts it
-through the decode megakernel.
+ceaz.py``). Error-bounded modes (``mode='abs'|'rel'``):
+``CEAZ.compress`` dual-quantizes with native-rank Lorenzo or
+value-direct prediction (``predictor='lorenzo'|'none'|'auto'``).
+Fixed-ratio mode (``mode='fixed_ratio'``) treats the array as a 1-D
+stream of chunks whose bound adapts per chunk so the payload tracks
+``target_ratio``; it ignores ``predictor`` (Lorenzo) and speculates the
+bound chain in windows (``speculation``). Chunks are coded with the
+adaptive chi policy or, with ``codebook='bank'``, with per-chunk books
+selected on the device from an offline CodebookBank (falling back to
+the exact route on drift). The :class:`CEAZCompressed` returned is
+bit-identical to the reference's ``CEAZ(use_fused=True)`` output;
+``decompress`` inverts it through the decode megakernel or, with
+``decode_megakernel='split'``, through the `hufdec` walk and plain
+torch inverse passes.
 
 The work runs on ``CEAZConfig.device`` — the card unless the caller
 asks for the CPU. Routes of the reference not yet ported raise
@@ -29,6 +35,8 @@ from .codebook import (DEFAULT_BANK_DRIFT_TOL, DEFAULT_TAU0, DEFAULT_TAU1,
                        AdaptiveCoder, BankCoder, CodebookBank)
 from .huffman import NUM_SYMBOLS, Codebook
 from .metrics import compression_ratio
+from .ratecontrol import (FixedRatioController, bitrate_from_ratio,
+                          calibrate_eb_for_bitrate)
 
 CHUNK_HEADER_BITS = 128
 BLOCK_COUNT_BITS = 32
@@ -113,8 +121,9 @@ class CEAZConfig:
     registry (``kernels/dispatch.py``): ``'auto'`` (the kernels on the
     card, plain PyTorch on the CPU), ``'cuda'`` or ``'torch'``.
     """
-    mode: str = "rel"                 # 'abs' | 'rel' (ported routes)
+    mode: str = "rel"                 # 'abs' | 'rel' | 'fixed_ratio'
     eb: float = 1e-4                  # absolute or range-relative bound
+    target_ratio: float = 10.0        # fixed-ratio mode
     chunk_bytes: int = 1 << 25        # paper Fig 11 optimum: 32 MB
     block_size: int = 4096            # bitstream block (parallel decode unit)
     tau0: float = DEFAULT_TAU0
@@ -123,8 +132,14 @@ class CEAZConfig:
     adaptive: bool = True             # False => always rebuild
     predictor: str = "lorenzo"        # 'lorenzo' | 'none' | 'auto'
     use_fused: bool = True            # ported: the fused route
+    # fixed-ratio speculation window: 'auto' (8, then adapted per
+    # window), an int >= 1, or 'off' (the sequential loop); the stream
+    # never depends on it
+    speculation: int | str = "auto"
     kernel_impl: str = "auto"
-    decode_megakernel: str = "auto"   # ported: 'auto' | 'mega'
+    # 'auto'/'mega': the decode megakernel; 'split': the `hufdec` walk,
+    # then the outlier scatter and inverse as plain torch ops
+    decode_megakernel: str = "auto"
     # 'exact' builds/keeps codebooks by the chi policy; 'bank' selects
     # each chunk's book from an offline CodebookBank on the device;
     # 'auto' means 'bank' iff a bank was passed to the facade
@@ -192,9 +207,7 @@ class CEAZ:
         if not cfg.use_fused:
             _not_ported("the staged route (use_fused=False)",
                         "Queue 1 item 1")
-        if cfg.mode == "fixed_ratio":
-            _not_ported("mode='fixed_ratio'", "Queue 1 item 6")
-        if cfg.mode not in ("abs", "rel"):
+        if cfg.mode not in ("abs", "rel", "fixed_ratio"):
             raise ValueError(cfg.mode)
         if cfg.predictor not in ("lorenzo", "none", "auto"):
             raise ValueError(f"unknown predictor {cfg.predictor!r}")
@@ -275,9 +288,12 @@ class CEAZ:
         return c
 
     def _compress_routed(self, x: np.ndarray, coder) -> CEAZCompressed:
-        """Predictor routing for one array, under a given coder: the
-        single-pass bank route for a BankCoder, the exact route else."""
+        """Mode and predictor routing for one array, under a given coder:
+        the single-pass bank route for a BankCoder, the exact route
+        else."""
         from ..runtime import fused
+        if self.cfg.mode == "fixed_ratio":
+            return self._compress_fixed_ratio(x, coder)
         eb = self._abs_eb(x)
         pred = self._pick_predictor(x, eb)
         chunk_values = self._chunk_values(x.dtype.itemsize * 8)
@@ -291,6 +307,22 @@ class CEAZ:
             device=self.device, adaptive=self.cfg.adaptive,
             exact_build=self.cfg.exact_build,
             kernel_impl=self.cfg.kernel_impl, predictor=pred)
+
+    def _compress_fixed_ratio(self, x: np.ndarray, coder) -> CEAZCompressed:
+        """The bound chain starts from the rate law calibrated on the
+        first chunk; the runtime steps the controller per chunk."""
+        from ..runtime import fused
+        word_bits = x.dtype.itemsize * 8
+        flat = x.reshape(-1)
+        target_b = bitrate_from_ratio(self.cfg.target_ratio, word_bits)
+        cv = self._chunk_values(word_bits)
+        eb = calibrate_eb_for_bitrate(flat[:min(len(flat), cv)], target_b, 1)
+        ctrl = FixedRatioController(target_bitrate=target_b, eb=eb)
+        return fused.compress_fixed_ratio(
+            x, ctrl, coder, cv, self.cfg.block_size, device=self.device,
+            adaptive=self.cfg.adaptive, exact_build=self.cfg.exact_build,
+            kernel_impl=self.cfg.kernel_impl,
+            speculation=self.cfg.speculation)
 
     def compress_batch(self, shards, plan=None):
         _not_ported("compress_batch (batch_compress)", "Queue 1 item 2")
@@ -307,12 +339,12 @@ class CEAZ:
 
     def decompress_batch(self, comps) -> List[np.ndarray]:
         """Decode a sequence of streams; all eligible streams share ONE
-        batched `ceaz_chunk_dec` pass. Returns arrays in input order."""
+        batched pass: the `ceaz_chunk_dec` op, or with
+        ``decode_megakernel='split'`` the `hufdec` walk. Returns arrays
+        in input order."""
         comps = list(comps)
         dmk = self.cfg.decode_megakernel
-        if dmk == "split":
-            _not_ported("decode_megakernel='split'", "Queue 1 item 3")
-        if dmk not in ("auto", "mega"):
+        if dmk not in ("auto", "mega", "split"):
             raise ValueError(f"unknown decode_megakernel {dmk!r}; choose "
                              "from ('auto', 'mega', 'split')")
         if not self.cfg.use_fused:
@@ -329,13 +361,16 @@ class CEAZ:
                     self._check_block_size(c)
                     idx.append(i)
                 else:
-                    _not_ported(f"decoding {c.mode}/{c.predictor} streams",
-                                "Queue 1 item 6")
+                    # the reference decodes these on its staged route
+                    _not_ported(f"decoding {c.mode}/{c.predictor} "
+                                f"{c.dtype} streams (the staged decoder)",
+                                "Queue 1 item 1")
             if idx:
                 dec = FD.decompress_batch(
                     [comps[i] for i in idx], self.cfg.block_size,
                     self.offline, device=self.device,
-                    kernel_impl=self.cfg.kernel_impl, bank=self.bank)
+                    kernel_impl=self.cfg.kernel_impl, bank=self.bank,
+                    megakernel=dmk != "split")
                 for i, a in zip(idx, dec):
                     out[i] = a
         for c, a in zip(comps, out):

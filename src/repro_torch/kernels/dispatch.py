@@ -27,10 +27,15 @@ Op calling conventions (tensors on one device):
   ceaz_chunk_dec(words2, nbits2, counts, sym2, len2, cb_idx, odelta2,
                  base, seg0, islor, block_size) -> q (C, NB*block_size)
       the decode megakernel op; see kernels/megakernel/ops.py
+  hufdec(words2, nbits2, counts, sym_flat, len_flat, cb_idx, block_size)
+      -> codes (C, NB*block_size) int32
+      the split decode route's table walk; see kernels/hufdec/ops.py
   ceaz_chunk(work2, prev2, valid2, ebs, bank_lengths, bank_cwords,
              block_size, w32, predictor) -> (q2, codes2, outl2, delta2,
              centers, hists, sel, totals, words, block_nbits)
       the single-pass bank encode op; its steps are ops of their own:
+  lorenzo_quant(work2, prev2, valid2, ebs)
+      -> (q2, codes2, outl2, delta2, hists)
   value_quant(work2, ebs) -> q2
   value_finalize(q2, valid2, centers) -> (q2, codes2, outl2, delta2, hists)
   bank_select(hists, bank_lengths, bank_cwords)
@@ -185,8 +190,11 @@ for _op, _module, _plain, _cuda in (
         ("hufenc", "hufenc.ops", "encode_pack_plain", "encode_pack_cuda"),
         ("ceaz_chunk_dec", "megakernel.ops", "ceaz_chunk_dec_plain",
          "ceaz_chunk_dec_cuda"),
+        ("hufdec", "hufdec.ops", "hufdec_plain", "hufdec_cuda"),
         ("ceaz_chunk", "megakernel.ops", "ceaz_chunk_plain",
          "ceaz_chunk_cuda"),
+        ("lorenzo_quant", "megakernel.ops", "lorenzo_quant_plain",
+         "lorenzo_quant_cuda"),
         ("value_quant", "megakernel.ops", "value_quant_plain",
          "value_quant_cuda"),
         ("value_finalize", "megakernel.ops", "value_finalize_plain",

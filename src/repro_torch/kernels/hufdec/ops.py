@@ -1,7 +1,10 @@
-"""The block-parallel canonical-Huffman table walk.
+"""The block-parallel canonical-Huffman table walks.
 
-    hufdec_tiles(words2, nbits2, counts, sym_flat, len_flat, cb_idx,
-                 block_size) -> codes (C, NB*block_size) int32
+Two ops share one lane arithmetic (``walk.cuh`` on the card):
+
+    hufdec(words2, nbits2, counts, sym_flat, len_flat, cb_idx,
+           block_size) -> codes (C, NB*block_size) int32
+    hufdec_tiles(...same arguments...) -> codes (C, NB*block_size) int32
 
 words2 (C, W) int32 holding the u32 wire words (u64 words split
 MSB-first), nbits2 (C, NB) per-block bit counts, counts (C,) valid
@@ -9,19 +12,27 @@ symbols per row, sym/len_flat (K*2^16,) stacked decode tables selected
 per row by cb_idx (C,). Symbol s of block b lands at b*block_size + s;
 positions past a row's count are 0.
 
-Every lane (one per (chunk, block)) walks inside a word WINDOW: lanes
-are grouped in tiles of ``tile_blocks`` blocks, and a tile's window of
-``win`` words starts where its first block's bits start (clamped into
-the zero-padded row), exactly as the reference's word-tiled TPU kernel
-(``src/repro/kernels/megakernel/decode_kernel.py::hufdec_tiles``)
-places them. With one tile per row and ``win = W`` this is the decode
-megakernel's walk. On valid streams the window never binds; on
-corrupted bits it makes the port decode the same values as the TPU
-kernels.
+`hufdec` is the split decode route's walk (the reference's
+``src/repro/kernels/hufdec``): every lane (one per (chunk, block))
+starts at the exclusive int32 cumsum of its row's block bit counts and
+walks inside the whole row. `hufdec_tiles` walks inside a word WINDOW:
+lanes are grouped in tiles of ``tile_blocks`` blocks, and a tile's
+window of ``win`` words starts where its first block's bits start
+(clamped into the zero-padded row), exactly as the reference's
+word-tiled TPU kernel (``src/repro/kernels/megakernel/decode_kernel.py::
+hufdec_tiles``) places them. With one tile per row and ``win = W`` the
+windowed walk is the unwindowed one, and the decode megakernel's walk.
+On valid streams no window binds. On corrupted bits the cursor is
+clamped into the window and words past the row read as zero, so a lane
+never reads outside its row and stops after min(count, block_size)
+steps.
 
   * :func:`walk_plain` — lock-step plain PyTorch over all lanes (u32
     words in int64, as CPU ``torch.uint32`` has no shifts);
-  * :func:`hufdec_tiles_cuda` — csrc/hufdec.cu, one thread per lane.
+    :func:`hufdec_plain` and :func:`hufdec_tiles_plain` are its two
+    layouts;
+  * :func:`hufdec_cuda` and :func:`hufdec_tiles_cuda` — csrc/hufdec.cu,
+    one thread per lane.
 """
 from __future__ import annotations
 
@@ -40,6 +51,8 @@ _M32 = 0xFFFFFFFF
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _WALK_ARGS = [_P, _I64, _I64, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _P]
+_HUFDEC_ARGS = [_P, _I64, _I64, _P, _P, _P, _P, _I64, _I64, _P, _P]
+_MAX_ROWS = 65535                 # gridDim.y of the walk kernels
 
 
 def tile_geometry(block_size: int) -> Tuple[int, int]:
@@ -113,6 +126,21 @@ def walk_plain(words2: torch.Tensor, nbits2: torch.Tensor,
     return out.reshape(C, NB * block_size)
 
 
+def _check_rows(name: str, words2: torch.Tensor) -> None:
+    """The walk peeks two words, so a row holds at least two."""
+    if words2.ndim != 2 or words2.shape[1] < 2:
+        raise ValueError(f"{name}: words2 (C, W) with W >= 2 expected, got "
+                         f"{tuple(words2.shape)}")
+
+
+def hufdec_plain(words2, nbits2, counts, sym_flat, len_flat, cb_idx,
+                 block_size: int) -> torch.Tensor:
+    """The split route's walk: one window per row, the whole row."""
+    _check_rows("hufdec", words2)
+    return walk_plain(words2, nbits2, counts, sym_flat, len_flat, cb_idx,
+                      block_size, nbits2.shape[1], words2.shape[1])
+
+
 def hufdec_tiles_plain(words2, nbits2, counts, sym_flat, len_flat, cb_idx,
                        block_size: int) -> torch.Tensor:
     tb, win = tile_geometry(block_size)
@@ -148,4 +176,32 @@ def hufdec_tiles_cuda(words2, nbits2, counts, sym_flat, len_flat, cb_idx,
         counts.data_ptr(), table.data_ptr(), cb_idx.data_ptr(), NB,
         block_size, win, out.data_ptr(), dispatch.stream_handle())
     _build.check(rc, "hufdec_tiles")
+    return out
+
+
+def hufdec_cuda(words2, nbits2, counts, sym_flat, len_flat, cb_idx,
+                block_size: int) -> torch.Tensor:
+    """csrc/hufdec.cu ``ceaz_hufdec``: one thread per (chunk, block)
+    lane over the whole row; the lanes' first cursors are scanned in the
+    kernel."""
+    dispatch.require_cuda("hufdec", words2, nbits2, counts, sym_flat,
+                          len_flat, cb_idx)
+    _check_rows("hufdec", words2)
+    C, W = words2.shape
+    NB = nbits2.shape[1]
+    if words2.dtype != torch.int32:
+        raise ValueError("hufdec: words2 must be int32 u32 bits")
+    if C > _MAX_ROWS:
+        raise ValueError(f"hufdec: at most {_MAX_ROWS} rows per launch")
+    i32 = lambda t: t.to(torch.int32).contiguous()
+    nbits2, counts, cb_idx = map(i32, (nbits2, counts, cb_idx))
+    table = packed_table(sym_flat, len_flat)
+    out = torch.empty((C, NB * block_size), dtype=torch.int32,
+                      device=words2.device)
+    dispatch.count_launch("hufdec")
+    rc = _build.function("ceaz_hufdec", _HUFDEC_ARGS)(
+        words2.data_ptr(), C, W, nbits2.data_ptr(), counts.data_ptr(),
+        table.data_ptr(), cb_idx.data_ptr(), NB, block_size, out.data_ptr(),
+        dispatch.stream_handle())
+    _build.check(rc, "hufdec")
     return out

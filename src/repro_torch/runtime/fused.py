@@ -1,8 +1,10 @@
 """Fused CEAZ encode: the exact two-pass route and the single-pass bank
-route, abs/rel, Lorenzo or value-direct prediction.
+route, abs/rel, Lorenzo or value-direct prediction, and fixed-ratio
+mode on either coder.
 
-Port of the reference's ``runtime/fused.py::compress_error_bounded`` and
-``compress_error_bounded_bank`` on torch tensors. The exact route:
+Port of the reference's ``runtime/fused.py::compress_error_bounded``,
+``compress_error_bounded_bank`` and ``compress_fixed_ratio`` on torch
+tensors. The exact route:
 
   pass 1  — the `dualquant` op quantizes the WHOLE array (native-rank
             global Lorenzo) into the chunked layout and yields the
@@ -30,6 +32,14 @@ histogram -> select -> pack with no host step between, then the host
 replays the selection from the histograms (asserting it picked the
 same book) and re-packs only when a chunk outgrew the provisioned
 payload.
+
+Fixed-ratio mode (:func:`compress_fixed_ratio`) treats the array as a
+1-D stream of chunks whose bound follows the rate controller. Windows
+of full chunks are quantized in one launch at forecast bounds (each row
+an independent stream with a zero halo: the `lorenzo_quant` step, or
+the whole `ceaz_chunk` op for the bank coder), the exact feedback chain
+is replayed on the host from the histograms, and a mispredicted chunk
+is requantized alone, so the stream equals the sequential loop's.
 
 Stats branches, as the reference: on a CPU device the summaries come
 from one host snapshot (numpy bincount / flatnonzero at memory speed);
@@ -133,8 +143,10 @@ def _chunk_hists(codes2, valid2) -> torch.Tensor:
     return hists[:n_chunks * NUM_SYMBOLS].reshape(n_chunks, NUM_SYMBOLS)
 
 
-def _literal_candidates(q, work_flat, eb: float):
-    """Card path: literal candidates as device ops.
+def _literal_candidates(q, work, eb32):
+    """Card path: literal candidates as device ops, -> (flat positions,
+    q there). q and work share a shape; eb32 is the f32 bound, one
+    scalar or one per row ((rows, 1) against (rows, cv) fields).
 
     The decompressor reconstructs through a float64 multiply; here only
     the float32 formula runs, so a conservative CANDIDATE set (few-ulp
@@ -142,13 +154,12 @@ def _literal_candidates(q, work_flat, eb: float):
     — the host replays the float64 formula on just those.
     """
     dev = q.device
-    eb32 = core_dq.f32_scalar(eb, dev)
     rec = q.to(torch.float32) * (eb32 * 2.0)
     margin = (core_dq.f32_scalar(16.0 * _EPS32, dev)
-              * (rec.abs() + work_flat.abs())
+              * (rec.abs() + work.abs())
               + core_dq.f32_scalar(1e-38, dev))
-    cand = (rec - work_flat).abs() > (eb32 - margin)
-    return _extract_sparse(cand, q)
+    cand = (rec - work).abs() > (eb32 - margin)
+    return _extract_sparse(cand.reshape(-1), q.reshape(-1))
 
 
 @dataclasses.dataclass
@@ -184,26 +195,31 @@ def _host_hists(codes_host: np.ndarray, n: int) -> np.ndarray:
         .reshape(nc, NUM_SYMBOLS)
 
 
-def _finish_pass1(codes2, outl2, delta2, valid2, q, work_flat, eb: float,
+def _finish_pass1(codes2, outl2, delta2, valid2, q, work, eb,
                   chunk_values: int, stats_on_device: bool, hists=None,
                   predictor: str = "lorenzo", centers=None) -> _Pass1:
-    """The summaries of either stats branch around one pass 1."""
+    """The summaries of either stats branch around one pass 1.
+
+    q and work are the flat stream, or (rows, cv) chunk rows with `eb` a
+    (rows, 1) f32 tensor of per-row bounds (a fixed-ratio window);
+    `hists`, when the pass produced them, is a tensor or an array."""
     n = q.numel()
-    if hists is not None:
-        hists_np = hists.cpu().numpy()
-    elif stats_on_device:
-        hists_np = _chunk_hists(codes2, valid2).cpu().numpy()
-    else:
-        hists_np = _host_hists(codes2.cpu().numpy(), n)
-    p1 = _Pass1(codes2, outl2, delta2, valid2, q, hists_np.astype(np.int64),
+    if hists is None:
+        hists = (_chunk_hists(codes2, valid2) if stats_on_device
+                 else _host_hists(codes2.cpu().numpy(), n))
+    if isinstance(hists, torch.Tensor):
+        hists = hists.cpu().numpy()
+    p1 = _Pass1(codes2, outl2, delta2, valid2, q, hists.astype(np.int64),
                 n, codes2.shape[0], chunk_values, stats_on_device,
                 predictor=predictor,
                 centers=(None if centers is None
                          else centers.cpu().numpy().astype(np.int64)))
     if stats_on_device:
-        p1.lit_idx, p1.lit_q = _literal_candidates(q, work_flat, eb)
+        eb32 = (eb if isinstance(eb, torch.Tensor)
+                else core_dq.f32_scalar(eb, q.device))
+        p1.lit_idx, p1.lit_q = _literal_candidates(q, work, eb32)
     else:
-        p1.q_host = q.cpu().numpy()
+        p1.q_host = q.reshape(-1).cpu().numpy()
     return p1
 
 
@@ -230,9 +246,10 @@ def _chunk_rows(flat: torch.Tensor, n_chunks: int, chunk_values: int):
     return work2, valid2
 
 
-def _ebs(eb: float, n_chunks: int, device) -> torch.Tensor:
-    """One f32 bound per chunk row (the reference traces eb as f32)."""
-    return core_dq.f32_scalar(eb, device).expand(n_chunks).contiguous()
+def _row_ebs(ebs, device) -> torch.Tensor:
+    """One f32 bound per chunk row from python floats, each rounded once
+    (the reference traces eb as f32: ``jnp.asarray(ebs, jnp.float32)``)."""
+    return torch.tensor(ebs, dtype=torch.float32, device=device)
 
 
 def _value_pass(flat: torch.Tensor, eb: float, n_chunks: int,
@@ -242,7 +259,7 @@ def _value_pass(flat: torch.Tensor, eb: float, n_chunks: int,
     valid2, centers, hists)."""
     dev = flat.device
     work2, valid2 = _chunk_rows(flat, n_chunks, chunk_values)
-    ebs = _ebs(eb, n_chunks, dev)
+    ebs = _row_ebs([eb] * n_chunks, dev)
     vquant, center, vfinal = (
         dispatch.resolve(op, kernel_impl, dev)
         for op in ("value_quant", "dq_center", "value_finalize"))
@@ -278,12 +295,13 @@ def _run_value_pass1(work: torch.Tensor, eb: float, chunk_values: int,
 # Host side and pass 2
 # ---------------------------------------------------------------------------
 
-def _literals(p1: _Pass1, x_flat: np.ndarray, eb: float
+def _literals(p1: _Pass1, x_flat: np.ndarray, eb
               ) -> Tuple[np.ndarray, np.ndarray]:
     """Exact literal set (identical to the staged float64 check): the
     reconstruction is rounded through the ORIGINAL dtype and compared
     with the caller's original values — densely on the host snapshot,
-    or on the device's candidates only."""
+    or on the device's candidates only. `eb` is the float64 bound, or a
+    list of one bound per chunk row."""
     out_dtype = x_flat.dtype
     if p1.stats_on_device:
         idx = p1.lit_idx.cpu().numpy().astype(np.int64)
@@ -293,6 +311,9 @@ def _literals(p1: _Pass1, x_flat: np.ndarray, eb: float
         idx = None
         q = p1.q_host.astype(np.int64)
         x_c = x_flat
+    if isinstance(eb, (list, np.ndarray)):
+        pos = np.arange(len(q)) if idx is None else idx
+        eb = np.asarray(eb, np.float64)[pos // p1.chunk_values]
     rec = (q.astype(np.float64) * (2.0 * eb)).astype(out_dtype)
     viol = np.flatnonzero(
         np.abs(rec.astype(np.float64) - x_c.astype(np.float64)) > eb)
@@ -361,9 +382,11 @@ def _u32_to_u64(u32: np.ndarray) -> np.ndarray:
 
 
 def _assemble_chunks(p1: _Pass1, words_np, nbits_np, totals, outliers,
-                     eb: float, decisions, block_size: int) -> List:
-    """Host CompressedChunk records from the batched transfers."""
+                     eb, decisions, block_size: int) -> List:
+    """Host CompressedChunk records from the batched transfers; `eb` is
+    the bound of every chunk, or a list of one bound per chunk."""
     from ..core.ceaz import CompressedChunk
+    ebs = eb if isinstance(eb, list) else [eb] * len(decisions)
     chunks = []
     for i, decision in enumerate(decisions):
         n_i = _chunk_len(p1, i)
@@ -373,7 +396,7 @@ def _assemble_chunks(p1: _Pass1, words_np, nbits_np, totals, outliers,
         oi, od = outliers[i]
         chunks.append(CompressedChunk(
             words=words, block_nbits=nbits_np[i, :nblocks].astype(np.int64),
-            n_values=n_i, eb=eb,
+            n_values=n_i, eb=ebs[i],
             action=decision.action, chi=decision.chi,
             codebook_lengths=(decision.codebook.lengths.copy()
                               if decision.stored_codebook else None),
@@ -386,10 +409,11 @@ def _assemble_chunks(p1: _Pass1, words_np, nbits_np, totals, outliers,
 
 def _policy(hists: np.ndarray, coder: AdaptiveCoder, adaptive: bool,
             exact_build: bool):
-    """Host chi policy over the per-chunk histogram summaries."""
+    """Host chi policy over the per-chunk histogram summaries (a bank
+    coder always steps: it selects, it never rebuilds)."""
     decisions = []
     for freqs in hists.astype(np.int64):
-        if adaptive:
+        if isinstance(coder, BankCoder) or adaptive:
             decisions.append(coder.step(freqs))
         else:
             cb = Codebook.from_freqs(freqs, exact=exact_build)
@@ -487,13 +511,16 @@ def _bank_fits(totals: np.ndarray, w32: int) -> bool:
 
 
 @dataclasses.dataclass
-class _BankPass:
-    """What the single device pass leaves: device tensors throughout."""
+class _RowsPass:
+    """What one device pass over chunk rows leaves: device tensors
+    throughout. q is flat for a whole array, (rows, cv) for a
+    fixed-ratio window; the pack fields (sel .. block_nbits) are None
+    when the pass did not pack."""
     hists: torch.Tensor
-    sel: torch.Tensor
-    totals: torch.Tensor
-    words: torch.Tensor
-    block_nbits: torch.Tensor
+    sel: Optional[torch.Tensor]
+    totals: Optional[torch.Tensor]
+    words: Optional[torch.Tensor]
+    block_nbits: Optional[torch.Tensor]
     codes2: torch.Tensor
     outl2: torch.Tensor
     delta2: torch.Tensor
@@ -504,7 +531,7 @@ class _BankPass:
 
 def _mega_pass(work, eb: float, predictor: str, n_chunks: int,
                chunk_values: int, block_size: int, w32: int, bank_lengths,
-               bank_cwords, kernel_impl: str) -> _BankPass:
+               bank_cwords, kernel_impl: str) -> _RowsPass:
     """The `ceaz_chunk` op over the chunk rows: 1-D Lorenzo and
     value-direct, the shapes whose Lorenzo halo is one raw value (the
     reference's ``_mega_pass_fn``)."""
@@ -521,17 +548,18 @@ def _mega_pass(work, eb: float, predictor: str, n_chunks: int,
     op = dispatch.resolve("ceaz_chunk", kernel_impl, dev)
     with dispatch.measure("ceaz_chunk", kernel_impl, dev):
         (q2, codes2, outl2, delta2, centers, hists, sel, totals, words,
-         block_nbits) = op(work2, prev2, valid2, _ebs(eb, n_chunks, dev),
+         block_nbits) = op(work2, prev2, valid2,
+                           _row_ebs([eb] * n_chunks, dev),
                            bank_lengths, bank_cwords, block_size, w32,
                            "value" if predictor == "none" else "lorenzo")
-    return _BankPass(hists, sel, totals, words, block_nbits, codes2, outl2,
+    return _RowsPass(hists, sel, totals, words, block_nbits, codes2, outl2,
                      delta2, valid2, q2.reshape(-1)[:n],
                      centers if predictor == "none" else None)
 
 
 def _bank_pass(work, eb: float, ndim: int, n_chunks: int, chunk_values: int,
                block_size: int, w32: int, bank_lengths, bank_cwords,
-               kernel_impl: str) -> _BankPass:
+               kernel_impl: str) -> _RowsPass:
     """Higher-rank Lorenzo (the reference's ``_bank_pass_fn``): the
     native-rank `dualquant` pass, per-chunk histograms by bincount, then
     the `bank_select` and `hufenc` ops."""
@@ -547,7 +575,7 @@ def _bank_pass(work, eb: float, ndim: int, n_chunks: int, chunk_values: int,
     with dispatch.measure("hufenc", kernel_impl, dev):
         words, block_nbits = pack(codes2, valid2, ln_sel, cw_sel,
                                   block_size, w32)
-    return _BankPass(hists, sel, totals, words, block_nbits, codes2, outl2,
+    return _RowsPass(hists, sel, totals, words, block_nbits, codes2, outl2,
                      delta2, valid2, q, None)
 
 
@@ -626,3 +654,245 @@ def compress_error_bounded_bank(x: np.ndarray, eb: float, mode: str,
                           word_bits=x.dtype.itemsize * 8,
                           predictor=predictor,
                           literal_idx=lit_idx, literal_val=lit_val)
+
+
+# ---------------------------------------------------------------------------
+# Fixed-ratio mode: the eb feedback loop, speculated in windows
+# ---------------------------------------------------------------------------
+
+def _spec_window(speculation) -> int:
+    """Resolve the speculation knob: 'off' -> 1 (the sequential loop),
+    'auto' -> 8 (then adapted per window, see `_next_window`), an int
+    >= 1 -> that fixed window size."""
+    if speculation == "off":
+        return 1
+    if speculation == "auto":
+        return 8
+    if isinstance(speculation, int) and not isinstance(speculation, bool) \
+            and speculation >= 1:
+        return int(speculation)
+    raise ValueError(
+        f"speculation must be 'off', 'auto' or an int >= 1, "
+        f"got {speculation!r}")
+
+
+# adaptive depth bounds ('auto' only): the floor keeps speculation from
+# degrading into the sequential loop, the cap bounds how much
+# speculative quantization one eb shift can discard
+_SPEC_WINDOW_MIN = 2
+_SPEC_WINDOW_MAX = 64
+
+
+def _next_window(window: int, misses: int) -> int:
+    """Adaptive speculation depth: a fully-hit window doubles the next
+    one, any miss halves it. The depth never changes the emitted bytes,
+    only how much speculative work a miss throws away (the
+    ceaz_speculation_window gauge)."""
+    if misses == 0:
+        return min(window * 2, _SPEC_WINDOW_MAX)
+    return max(window // 2, _SPEC_WINDOW_MIN)
+
+
+def _chunk_total_bits(hist: np.ndarray, decision, n_outliers: int,
+                      nblocks: int) -> int:
+    """CompressedChunk.total_bits() from pass-1 summaries alone: the
+    payload is exactly hist . lengths, so the eb feedback chain replays
+    before any chunk is encoded."""
+    from ..core.ceaz import BLOCK_COUNT_BITS, CHUNK_HEADER_BITS, OUTLIER_BITS
+    bits = int(np.dot(hist.astype(np.int64),
+                      decision.codebook.lengths.astype(np.int64)))
+    bits += CHUNK_HEADER_BITS + BLOCK_COUNT_BITS * nblocks
+    bits += OUTLIER_BITS * n_outliers
+    if decision.stored_codebook:
+        bits += 5 * NUM_SYMBOLS
+    return bits
+
+
+def _zero_halo_rows(seg2: torch.Tensor):
+    """(valid2, prev2) of full chunk rows that are independent 1-D
+    streams: every value valid, and a zero raw halo — exactly the
+    per-chunk zero pad of the sequential loop."""
+    w, cv = seg2.shape
+    return (torch.ones((w, cv), dtype=torch.bool, device=seg2.device),
+            torch.zeros((w, 1), dtype=torch.float32, device=seg2.device))
+
+
+def _window_pass1(seg2: torch.Tensor, ebs, kernel_impl: str) -> _RowsPass:
+    """Pass 1 of the exact coder over a window of full chunks: ONE
+    `lorenzo_quant` launch quantizes every row at its own f32 bound and
+    histograms it. A row's escape count is its histogram's code-0 bin
+    (code 0 is the escape symbol), so the feedback replay needs no
+    other summary."""
+    dev = seg2.device
+    valid2, prev2 = _zero_halo_rows(seg2)
+    op = dispatch.resolve("lorenzo_quant", kernel_impl, dev)
+    with dispatch.measure("lorenzo_quant", kernel_impl, dev):
+        q2, codes2, outl2, delta2, hists = op(seg2, prev2, valid2,
+                                              _row_ebs(ebs, dev))
+    return _RowsPass(hists, None, None, None, None, codes2, outl2, delta2,
+                     valid2, q2, None)
+
+
+def _mega_window(seg2: torch.Tensor, ebs, bank_tables, block_size: int,
+                 w32: int, kernel_impl: str) -> _RowsPass:
+    """The bank coder's window: ONE `ceaz_chunk` op call over the rows
+    at their own bounds. The packed words come back with the histograms,
+    so a window that hits every forecast needs no second pass; `w32`
+    provisions the bank's full bit-rate (no repack path)."""
+    dev = seg2.device
+    valid2, prev2 = _zero_halo_rows(seg2)
+    op = dispatch.resolve("ceaz_chunk", kernel_impl, dev)
+    with dispatch.measure("ceaz_chunk", kernel_impl, dev):
+        (q2, codes2, outl2, delta2, _, hists, sel, totals, words,
+         block_nbits) = op(seg2, prev2, valid2, _row_ebs(ebs, dev),
+                           *bank_tables, block_size, w32, "lorenzo")
+    return _RowsPass(hists, sel, totals, words, block_nbits, codes2, outl2,
+                     delta2, valid2, q2, None)
+
+
+def _replace_row(wp: _RowsPass, j: int, row: _RowsPass) -> None:
+    """Overwrite row j of a window's device state with a one-row rerun."""
+    for f in ("hists", "sel", "totals", "words", "block_nbits", "codes2",
+              "outl2", "delta2", "q"):
+        t = getattr(wp, f)
+        if t is not None:
+            t[j] = getattr(row, f)[0]
+
+
+def compress_fixed_ratio(x: np.ndarray, ctrl, coder: AdaptiveCoder,
+                         chunk_values: int, block_size: int, device="cuda",
+                         adaptive: bool = True, exact_build: bool = False,
+                         stats_on_device: Optional[bool] = None,
+                         kernel_impl: str = "auto", speculation="auto"):
+    """Fused fixed-ratio compression of the array as a 1-D stream of
+    chunks on `device` (the card unless the caller asks for the CPU).
+
+    Chunk i's bound depends on chunk i-1's achieved bit-rate, but a
+    chunk's total bits are exactly ``hist . lengths`` plus per-chunk
+    overheads, known before pass 2. So the loop SPECULATES: it forecasts
+    the next w-1 bounds with the controller's rate law, quantizes the
+    whole window in one launch, then replays the exact feedback chain on
+    the host; a chunk whose forecast missed the exact bound is
+    requantized alone at it. The stream is byte-identical to the
+    sequential loop (``speculation='off'``) on every input.
+
+    `ctrl` is a FixedRatioController (stepped in place); `coder` an
+    AdaptiveCoder (window pass 2 is the `hufenc` pack) or a BankCoder
+    (windows run the `ceaz_chunk` op, payload included). Windows cover
+    full chunks only; the remaining full chunk and the partial one take
+    the sequential tail (`dualquant`, then `hufenc`).
+    """
+    from ..core.ceaz import CEAZCompressed
+    dev = target_device(device)
+    window = _spec_window(speculation)
+    adaptive_window = speculation == "auto"
+    if stats_on_device is None:
+        stats_on_device = dev.type != "cpu"
+    flat = x.reshape(-1)
+    n = len(flat)
+    cv = chunk_values
+    flat_t = torch.from_numpy(np.ascontiguousarray(
+        flat, dtype=np.float32)).to(dev)
+    use_bank = isinstance(coder, BankCoder)
+    if use_bank:
+        bank = coder.bank
+        tables = (torch.from_numpy(bank.lengths.astype(np.int32)).to(dev),
+                  torch.from_numpy(bank.code_table().astype(np.uint32)
+                                   .view(np.int32)).to(dev))
+        w32 = _bank_w32(int(bank.lengths.max()), cv)
+        quantize = lambda rows, ebs: _mega_window(rows, ebs, tables,
+                                                  block_size, w32,
+                                                  kernel_impl)
+    else:
+        quantize = lambda rows, ebs: _window_pass1(rows, ebs, kernel_impl)
+    nblocks = max(1, -(-cv // block_size))
+    chunks, lit_idx_parts, lit_val_parts = [], [], []
+    pos = 0                              # position in full-size chunks
+    n_full = n // cv
+    while window > 1 and n_full - pos >= 2:
+        w = min(window, n_full - pos)
+        ebs = [float(ctrl.eb)]           # the window head is always exact
+        for _ in range(w - 1):
+            ebs.append(ctrl.predict_next(ebs[-1]))
+        s0 = pos * cv
+        seg2 = flat_t[s0:s0 + w * cv].reshape(w, cv)
+        with ot.span("fused.spec_window_pass1", window=w):
+            wp = quantize(seg2, ebs)
+            hists = wp.hists.cpu().numpy().astype(np.int64)
+            sel = wp.sel.cpu().numpy() if use_bank else None
+        # replay the exact sequential feedback chain from the summaries;
+        # a mispredicted chunk requantizes alone at its exact bound
+        decisions, fed_bits, misses = [], [], 0
+        for j in range(w):
+            if j > 0 and ebs[j] != float(ctrl.eb):
+                ebs[j] = float(ctrl.eb)
+                misses += 1
+                with ot.span("fused.spec_repair", chunk=pos + j):
+                    row = quantize(seg2[j:j + 1], ebs[j:j + 1])
+                    _replace_row(wp, j, row)
+                    hists[j] = row.hists[0].cpu().numpy()
+                    if use_bank:
+                        sel[j] = int(row.sel[0])
+            d = _policy(hists[j:j + 1], coder, adaptive, exact_build)[0]
+            if use_bank and d.bank_index != int(sel[j]):
+                raise RuntimeError(
+                    f"chunk {pos + j}: the host bank replay picked book "
+                    f"{d.bank_index}, the device {int(sel[j])}")
+            bits = _chunk_total_bits(hists[j], d, int(hists[j, 0]), nblocks)
+            ctrl.feedback(bits / cv)
+            decisions.append(d)
+            fed_bits.append(bits)
+        # the window head is exact by construction: w-1 chunks were
+        # speculated, the repaired ones mispredicted
+        om.add(om.SPEC_MISSES, misses)
+        om.add(om.SPEC_HITS, (w - 1) - misses)
+        if use_bank:
+            words_np = wp.words.cpu().numpy().view(np.uint32)
+            nbits_np = wp.block_nbits.cpu().numpy()
+            totals = wp.totals.cpu().numpy().astype(np.int64)
+        else:                            # one pass 2 over the window
+            words_np, nbits_np, totals = _encode_rows(
+                hists, wp.codes2, wp.valid2, cv, decisions, block_size,
+                kernel_impl)
+        p1 = _finish_pass1(wp.codes2, wp.outl2, wp.delta2, wp.valid2, wp.q,
+                           seg2, _row_ebs(ebs, dev)[:, None], cv,
+                           stats_on_device, hists=hists)
+        new = _assemble_chunks(p1, words_np, nbits_np, totals, _outliers(p1),
+                               ebs, decisions, block_size)
+        for j, ch in enumerate(new):
+            if ch.total_bits() != fed_bits[j]:
+                raise RuntimeError(
+                    f"chunk {pos + j}: {ch.total_bits()} bits emitted, "
+                    f"{fed_bits[j]} fed back to the rate controller")
+        li, lv = _literals(p1, flat[s0:s0 + w * cv], ebs)
+        lit_idx_parts.append(li + s0)
+        lit_val_parts.append(lv)
+        chunks.extend(new)
+        pos += w
+        if adaptive_window:
+            window = _next_window(window, misses)
+            om.set_gauge(om.SPEC_WINDOW, window)
+    # sequential tail: the remaining full chunks (speculation off, or one
+    # full chunk left) and the final partial chunk
+    for s in range(pos * cv, n, cv):
+        e = min(s + cv, n)
+        eb = float(ctrl.eb)
+        p1 = _run_pass1(flat_t[s:e], eb, 1, e - s, stats_on_device,
+                        kernel_impl)
+        decisions = _policy(p1.hists, coder, adaptive, exact_build)
+        words_np, nbits_np, totals = _encode_rows(
+            p1.hists, p1.codes2, p1.valid2, e - s, decisions, block_size,
+            kernel_impl)
+        ch = _assemble_chunks(p1, words_np, nbits_np, totals, _outliers(p1),
+                              eb, decisions, block_size)[0]
+        li, lv = _literals(p1, flat[s:e], eb)
+        lit_idx_parts.append(li + s)
+        lit_val_parts.append(lv)
+        chunks.append(ch)
+        ctrl.feedback(ch.total_bits() / ch.n_values)
+    return CEAZCompressed(shape=x.shape, dtype=str(x.dtype), ndim=1,
+                          mode="fixed_ratio", chunks=chunks,
+                          word_bits=x.dtype.itemsize * 8,
+                          literal_idx=np.concatenate(lit_idx_parts)
+                          .astype(np.int64),
+                          literal_val=np.concatenate(lit_val_parts))

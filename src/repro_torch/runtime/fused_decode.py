@@ -1,19 +1,29 @@
-"""Fused CEAZ decode: the decode-megakernel route.
+"""Fused CEAZ decode: the decode-megakernel route and the split route.
 
-Port of the reference's ``runtime/fused_decode.py`` megakernel route
-(``decompress_batch(megakernel=True)``): all chunks of all streams in a
-group are staged on the host into padded rows and decoded by ONE call of
-the `ceaz_chunk_dec` op — table walk, outlier patch and inverse
-dual-quant; 1-D streams carry their Lorenzo chain across chunk rows in
-the op, higher-rank fields take the multi-axis cumsum afterwards
-(:func:`_nd_cumsum`), and value-direct rows add their chunk's centre
-(``base``) with no prefix sum. Bank chunks resolve their book from the
-CodebookBank they name. The host then replays the staged float64 scale
-multiply and patches the literals.
+Port of the reference's ``runtime/fused_decode.py``. All chunks of all
+streams in a group are staged on the host into padded rows and decoded
+by ONE device pass, one of two:
+
+  * the megakernel route (``decompress_batch(megakernel=True)``, the
+    default) — ONE call of the `ceaz_chunk_dec` op: table walk, outlier
+    patch and inverse dual-quant. 1-D abs/rel streams carry their
+    Lorenzo chain across chunk rows in the op, fixed-ratio rows are each
+    a chain of their own, higher-rank fields take the multi-axis cumsum
+    afterwards (:func:`_nd_cumsum`), and value-direct rows add their
+    chunk's centre (``base``) with no prefix sum;
+  * the split route (``megakernel=False``) — the `hufdec` walk alone,
+    then per stream the outlier scatter and the inverse (cumsums, or the
+    centre add) as plain torch ops on the device
+    (:func:`decompress_one`).
+
+Bank chunks resolve their book from the CodebookBank they name. The host
+then replays the staged float64 scale multiply (per chunk for
+fixed-ratio and value-direct streams) and patches the literals.
 
 Bit-exactness contract: the decoded bytes equal the reference's for
 every stream the encoder produces (float32/float64, Lorenzo or
-value-direct, abs/rel, exact or bank codebooks).
+value-direct, abs/rel/fixed_ratio, exact or bank codebooks), on both
+routes.
 """
 from __future__ import annotations
 
@@ -54,12 +64,12 @@ def _bucket_words(n: int) -> int:
 
 
 def fused_decode_ok(c, offline: Codebook) -> bool:
-    """Streams this route decodes: float32/float64 Lorenzo or
-    value-direct abs/rel streams with chunks, codebooks at the standard
-    length limit."""
+    """Streams these routes decode: float32/float64 Lorenzo or
+    value-direct abs/rel/fixed_ratio streams with chunks, codebooks at
+    the standard length limit."""
     return (getattr(c, "predictor", "lorenzo") in ("lorenzo", "none")
             and np.dtype(c.dtype) in (np.float32, np.float64)
-            and c.mode in ("abs", "rel")
+            and c.mode in ("abs", "rel", "fixed_ratio")
             and len(c.chunks) > 0
             and offline.max_len == MAX_CODE_BITS)
 
@@ -88,9 +98,12 @@ class _ChunkBatch:
         row0 = len(self.counts)
         value = getattr(c, "predictor", "lorenzo") == "none"
         # one flat Lorenzo chain across the comp's rows only when the
-        # work shape IS flat; higher-rank fields decode per-row deltas
-        # and run the multi-axis cumsum in decompress_one_mega
-        chained = not value and len(c.shape) == 1
+        # work shape IS flat (abs/rel); fixed-ratio rows are each a chain
+        # of their own; higher-rank fields decode per-row deltas and run
+        # the multi-axis cumsum in decompress_one_mega
+        chained = (not value and c.mode in ("abs", "rel")
+                   and len(c.shape) == 1)
+        lor1d = not value and (c.mode == "fixed_ratio" or chained)
         for j, (ch, book) in enumerate(
                 zip(c.chunks, replay_codebooks(c.chunks, offline,
                                                bank=bank))):
@@ -100,7 +113,7 @@ class _ChunkBatch:
             self.books.append(book)
             self.odelta.append(ch.outlier_delta)
             self.base.append(int(ch.center) if value else 0)
-            self.islor.append(1 if chained else 0)
+            self.islor.append(1 if lor1d else 0)
             self.seg0.append(row0 if chained else row0 + j)
         self.spans.append((row0, len(self.counts)))
 
@@ -138,6 +151,17 @@ class _ChunkBatch:
                 np.concatenate(tables_sym).astype(np.int32),
                 np.concatenate(tables_len).astype(np.int32), cb_idx)
 
+    def run(self) -> torch.Tensor:
+        """-> codes (C_cap, NB_cap*block_size) int32 on the device: the
+        `hufdec` walk over the whole group (the split route)."""
+        words2, nbits2, counts, sym_flat, len_flat, cb_idx = self._stage()
+        dev = self.device
+        t = lambda a: torch.from_numpy(a).to(dev)
+        fn = dispatch.resolve("hufdec", self.kernel_impl, dev)
+        with dispatch.measure("hufdec", self.kernel_impl, dev):
+            return fn(t(words2.view(np.int32)), t(nbits2), t(counts),
+                      t(sym_flat), t(len_flat), t(cb_idx), self.block_size)
+
     def run_mega(self) -> torch.Tensor:
         """-> q (C_cap, NB_cap*block_size) int32 on the device: the
         `ceaz_chunk_dec` op over the whole group."""
@@ -161,6 +185,96 @@ class _ChunkBatch:
             return fn(t(words2.view(np.int32)), t(nbits2), t(counts),
                       t(sym_flat), t(len_flat), t(cb_idx), t(odelta2),
                       t(base), t(seg0), t(islor), self.block_size)
+
+
+# ---------------------------------------------------------------------------
+# The split route's tail: outlier scatter + inverse dual-quant, plain torch
+# ops on the device
+# ---------------------------------------------------------------------------
+
+def _padded_outliers(chunks, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(C, K) outlier index/delta tensors; padding indices point far past
+    the chunk so the scatter drops them."""
+    k = max(1, max(len(ch.outlier_idx) for ch in chunks))
+    oidx = np.full((len(chunks), k), 1 << 30, np.int32)
+    odelta = np.zeros((len(chunks), k), np.int32)
+    for i, ch in enumerate(chunks):
+        m = len(ch.outlier_idx)
+        oidx[i, :m] = ch.outlier_idx.astype(np.int32)
+        odelta[i, :m] = ch.outlier_delta.astype(np.int32)
+    return (torch.from_numpy(oidx).to(device),
+            torch.from_numpy(odelta).to(device))
+
+
+def _scatter_outliers(codes2: torch.Tensor, oidx2: torch.Tensor,
+                      odelta2: torch.Tensor) -> torch.Tensor:
+    """codes -> int32 deltas with the escape symbols replaced by their
+    stored values. As the reference's ``mode='drop'`` scatter: a negative
+    index counts from the row's end once, and an index still outside the
+    row (the padding) is dropped — masked out before the scatter, which
+    torch would otherwise refuse (or, on the card, write out of range)."""
+    delta2 = codes2.to(torch.int32) - core_dq.RADIUS
+    cv = delta2.shape[1]
+    idx = torch.where(oidx2 < 0, oidx2 + cv, oidx2).to(torch.int64)
+    keep = (idx >= 0) & (idx < cv)
+    rows = torch.arange(delta2.shape[0], device=delta2.device)[:, None] \
+        .expand_as(idx)
+    delta2[rows[keep], idx[keep]] = odelta2[keep]
+    return delta2
+
+
+def _inverse_nd(codes2, oidx2, odelta2, ndim: int, n: int, work_shape
+                ) -> torch.Tensor:
+    """abs/rel: one Lorenzo field cut into chunks -> flat integer q; the
+    cumsums cross chunk boundaries as the encoder's whole-array pass
+    did."""
+    delta2 = _scatter_outliers(codes2, oidx2, odelta2)
+    delta = delta2.reshape(-1)[:n].reshape(work_shape)
+    return core_dq.inverse_lorenzo(delta, ndim).reshape(-1)
+
+
+def _inverse_1d_chunks(codes2, oidx2, odelta2) -> torch.Tensor:
+    """fixed_ratio: every chunk is an independent 1-D stream (the int64
+    cumsum wrapped back to int32, the reference's int32 residues)."""
+    delta2 = _scatter_outliers(codes2, oidx2, odelta2)
+    return torch.cumsum(delta2, dim=1).to(torch.int32)
+
+
+def _inverse_value_chunks(codes2, oidx2, odelta2, centers) -> torch.Tensor:
+    """value-direct: per-chunk centre add, no prefix sum, wrapped to
+    int32 as the encoder's wrapped deltas."""
+    delta2 = _scatter_outliers(codes2, oidx2, odelta2)
+    return (delta2.to(torch.int64) + centers[:, None]).to(torch.int32)
+
+
+def _chunk_parts(c, q2: np.ndarray):
+    """Per-chunk q rows cut to their lengths, and each value's 2*eb."""
+    q = np.concatenate([q2[i, :ch.n_values]
+                        for i, ch in enumerate(c.chunks)])
+    ebs = np.repeat([2.0 * ch.eb for ch in c.chunks],
+                    [ch.n_values for ch in c.chunks])
+    return q, ebs
+
+
+def decompress_one(codes_rows: torch.Tensor, c) -> np.ndarray:
+    """The split route's tail for one stream, given its decoded chunk rows
+    (on the device, possibly wider than the stream's chunk_values)."""
+    cv = int(c.chunks[0].n_values)
+    n = int(c.n_values)
+    dev = codes_rows.device
+    oidx, odelta = _padded_outliers(c.chunks, dev)
+    rows = codes_rows[:, :cv]
+    if getattr(c, "predictor", "lorenzo") == "none":
+        centers = torch.tensor([int(ch.center) for ch in c.chunks],
+                               dtype=torch.int64, device=dev)
+        q2 = _inverse_value_chunks(rows, oidx, odelta, centers)
+        return _finish_host(c, *_chunk_parts(c, q2.cpu().numpy()))
+    if c.mode in ("abs", "rel"):
+        q = _inverse_nd(rows, oidx, odelta, c.ndim, n, _work_shape(c))
+        return _finish_host(c, q.cpu().numpy(),
+                            np.float64(2.0 * c.chunks[0].eb))
+    q2 = _inverse_1d_chunks(rows, oidx, odelta)
+    return _finish_host(c, *_chunk_parts(c, q2.cpu().numpy()))
 
 
 def _finish_host(c, q: np.ndarray, eb_per_value) -> np.ndarray:
@@ -194,9 +308,13 @@ def decompress_one_mega(q_rows: torch.Tensor, c) -> np.ndarray:
     cv = int(c.chunks[0].n_values)
     n = int(c.n_values)
     rows = q_rows[:, :cv]
-    if getattr(c, "predictor", "lorenzo") == "none" or len(c.shape) == 1:
-        # the rows are final q: value-direct centres added, or the flat
-        # Lorenzo chain carried across the chunk boundaries, in the op
+    if (getattr(c, "predictor", "lorenzo") == "none"
+            or c.mode == "fixed_ratio"):
+        # per-chunk rows are final q, each with its chunk's eb
+        return _finish_host(c, *_chunk_parts(c, rows.cpu().numpy()))
+    if len(c.shape) == 1:
+        # the flat Lorenzo chain was carried across the chunk boundaries
+        # in the op
         q = rows.reshape(-1)[:n]
     else:
         q = _nd_cumsum(rows, c.ndim, n, _work_shape(c))
@@ -204,19 +322,24 @@ def decompress_one_mega(q_rows: torch.Tensor, c) -> np.ndarray:
 
 
 def decompress_batch(comps: Sequence, block_size: int, offline: Codebook,
-                     device="cuda", kernel_impl: str = "auto", bank=None
-                     ) -> List[np.ndarray]:
+                     device="cuda", kernel_impl: str = "auto", bank=None,
+                     megakernel: bool = True) -> List[np.ndarray]:
     """Fused decode of a group of CEAZCompressed streams on `device`
-    (the card unless the caller asks for the CPU): ONE `ceaz_chunk_dec`
-    pass over every chunk of the group. Bank chunks resolve their book
-    from `bank` when its id matches, else from the bank registry.
-    Callers filter with :func:`fused_decode_ok` first (the facade
-    does)."""
+    (the card unless the caller asks for the CPU): ONE pass over every
+    chunk of the group — the `ceaz_chunk_dec` op with `megakernel`, else
+    the `hufdec` walk followed by each stream's plain torch tail. Both
+    routes give the same bytes. Bank chunks resolve their book from
+    `bank` when its id matches, else from the bank registry. Callers
+    filter with :func:`fused_decode_ok` first (the facade does)."""
     batch = _ChunkBatch(block_size, target_device(device), kernel_impl)
     for c in comps:
         batch.add_comp(c, offline, bank=bank)
     if not batch.counts:
         return []
-    q_all = batch.run_mega()
-    return [decompress_one_mega(q_all[r0:r1], c)
+    if megakernel:
+        q_all = batch.run_mega()
+        return [decompress_one_mega(q_all[r0:r1], c)
+                for c, (r0, r1) in zip(comps, batch.spans)]
+    codes_all = batch.run()
+    return [decompress_one(codes_all[r0:r1], c)
             for c, (r0, r1) in zip(comps, batch.spans)]

@@ -182,25 +182,41 @@ def test_facade_runs_on_the_card_unless_asked_for_cpu():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(use_fused=False), "Queue 1 item 1"),
-    (dict(mode="fixed_ratio"), "Queue 1 item 6"),
     (dict(use_fused=False, predictor="none"), "Queue 1 item 1"),
-    (dict(mode="fixed_ratio", predictor="auto"), "Queue 1 item 6"),
-    (dict(mode="fixed_ratio", codebook="bank"), "Queue 1 item 6"),
+    (dict(use_fused=False, mode="fixed_ratio"), "Queue 1 item 1"),
 ])
 def test_unported_routes_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         _port(**kw).compress(np.ones(64, np.float32))
 
 
+@pytest.mark.parametrize("kw", [
+    dict(mode="fixed_ratio"),
+    dict(mode="fixed_ratio", predictor="auto"),
+    dict(mode="fixed_ratio", codebook="bank"),
+], ids=["exact", "predictor-auto", "bank"])
+def test_fixed_ratio_routes_match_reference(kw):
+    """The routes that raised before fixed-ratio mode was ported: the
+    facade's stream equals the reference's on a multi-chunk field."""
+    x, fkw = FIELDS["hacc"]
+    _, cp, y = _check(x, None, **kw, **fkw)
+    assert len(cp.chunks) > 1 and cp.mode == "fixed_ratio"
+    ebs = np.repeat([ch.eb for ch in cp.chunks],
+                    [ch.n_values for ch in cp.chunks])
+    assert np.all(np.abs(y.astype(np.float64) - x) <= ebs)
+
+
 def test_unported_decode_and_batch_routes_raise():
     c = _port().compress(np.ones(64, np.float32))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        _port(decode_megakernel="split").decompress(c)
+    # the split route is ported: same bytes as the megakernel route
+    assert _port(decode_megakernel="split").decompress(c).tobytes() \
+        == _port().decompress(c).tobytes()
     with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         _port().compress_batch([np.ones(8, np.float32)] * 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(ValueError, match="speculation"):
         TC.CEAZ(device="cpu", offline_codebook=PORT_OFF, codebook="bank",
-                mode="fixed_ratio").compress(np.ones(64, np.float32))
+                mode="fixed_ratio", speculation="warp").compress(
+                    np.ones(64, np.float32))
     with pytest.raises(TypeError):
         _port().compress(np.ones(8, np.int32))
 

@@ -257,3 +257,85 @@ def test_bank_round_trip_on_card_matches_cpu(dev, predictor, kw):
         assert np.array_equal(cg.literal_idx, cc.literal_idx)
         assert gpu.decompress(cg).tobytes() == cpu.decompress(cc).tobytes()
         assert all(v > 0 for v in dispatch.launches().values())
+
+
+# ---------------------------------------------------------------------------
+# The split route's walk (csrc/hufdec.cu ceaz_hufdec) and fixed-ratio mode
+# ---------------------------------------------------------------------------
+
+def _valid_walk_args(dev, counts, bs, seed):
+    """Rows of random symbols, each encoded with its own codebook."""
+    from repro_torch.core.huffman import encode
+    from repro_torch.runtime.fused_decode import _u64_to_u32
+    rng = np.random.default_rng(seed)
+    rows, nbs, books = [], [], []
+    for k, n in enumerate(counts):
+        syms = np.clip(rng.normal(512, 20 + 10 * k, n), 0, 1023) \
+            .astype(np.int64)
+        book = Codebook.from_freqs(np.bincount(syms, minlength=1024))
+        w64, bnb, _ = encode(syms, book, bs)
+        rows.append(_u64_to_u32(w64))
+        nbs.append(bnb)
+        books.append(book)
+    C = len(counts)
+    words2 = np.zeros((C, max(len(w) for w in rows) + 2), np.uint32)
+    nbits2 = np.zeros((C, max(len(b) for b in nbs)), np.int32)
+    for i in range(C):
+        words2[i, :len(rows[i])] = rows[i]
+        nbits2[i, :len(nbs[i])] = nbs[i]
+    arrays = (words2.view(np.int32), nbits2, np.asarray(counts, np.int32),
+              np.concatenate([b.tables()[0] for b in books]).astype(np.int32),
+              np.concatenate([b.tables()[1] for b in books]).astype(np.int32),
+              np.arange(C, dtype=np.int32))
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in arrays]
+
+
+@pytest.mark.parametrize("counts,bs", [([4096, 700, 37], 512),
+                                       ([200000, 131072, 5], 4096),
+                                       ([70000] * 3, 1024)])
+def test_hufdec_kernel_matches_plain(dev, counts, bs):
+    """Valid streams (several lanes per warp, rows past one warp of
+    lanes, tail counts) and random garbage: the kernel's in-warp cursor
+    scan and clamped walk agree with the plain version bitwise."""
+    args = _valid_walk_args(dev, counts, bs, 7)
+    got = HD.hufdec_cuda(*args, bs)
+    _eq(got, HD.hufdec_plain(*args, bs))
+    _eq(got, HD.hufdec_plain(*[a.cpu() for a in args], bs))
+    rng = np.random.default_rng(8)
+    g = _garbage(rng, 3, 70, int(rng.integers(3, 40)))
+    garbage = [torch.from_numpy(v).to(dev) for v in g.values()][:6]
+    _eq(HD.hufdec_cuda(*garbage, 256), HD.hufdec_plain(*garbage, 256))
+
+
+@pytest.mark.parametrize("codebook", ["exact", "bank"])
+def test_fixed_ratio_round_trip_on_card_matches_cpu(dev, codebook):
+    """Fixed-ratio mode (speculation 'auto') on the card equals the CPU
+    run field for field, and decodes through both routes to the same
+    bytes."""
+    x = F.hacc_proxy(size="small")[:-1000]
+    off = default_offline_codebook()
+    kw = dict(mode="fixed_ratio", target_ratio=10.0, chunk_bytes=1 << 14,
+              codebook=codebook)
+    dispatch.reset_launches()
+    gpu = CEAZ(CEAZConfig(device="cuda", **kw), offline_codebook=off)
+    cpu = CEAZ(CEAZConfig(device="cpu", **kw), offline_codebook=off)
+    cg, cc = gpu.compress(x), cpu.compress(x)
+    assert len(cg.chunks) == len(cc.chunks) > 1
+    for a, b in zip(cg.chunks, cc.chunks):
+        assert a.eb == b.eb and a.action == b.action
+        assert np.array_equal(a.words, b.words)
+        assert np.array_equal(a.block_nbits, b.block_nbits)
+        assert np.array_equal(a.outlier_idx, b.outlier_idx)
+        assert np.array_equal(a.outlier_delta, b.outlier_delta)
+        assert (a.codebook_id, a.bank_index) == (b.codebook_id, b.bank_index)
+    assert np.array_equal(cg.literal_idx, cc.literal_idx)
+    want = cpu.decompress(cc).tobytes()
+    assert gpu.decompress(cg).tobytes() == want
+    split = CEAZ(CEAZConfig(device="cuda", decode_megakernel="split", **kw),
+                 offline_codebook=off)
+    assert split.decompress(cg).tobytes() == want
+    launched = dispatch.launches()
+    assert launched.get("ceaz_chunk_fused", 0) > 0
+    assert launched.get("hufdec", 0) == 1
+    assert launched.get("gather_pack_tiled", 0) > 0
