@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (src/repro_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N]
 
 Builds the port's CUDA kernels from the sources in this checkout, then
 drives the port's routes — ``CEAZ.compress`` -> ``CEAZ.decompress`` —
@@ -55,10 +55,29 @@ through the public facade, at rel eb 1e-4 unless said otherwise:
            decode_megakernel='split' (S.A, S.B, S.E, S.G): the split
            route's walk kernel (hufdec), then the outlier scatter and the
            inverse as torch ops; neither decode megakernel kernel may
-           launch, and the bytes must equal the megakernel route's.
+           launch, and the bytes must equal the megakernel route's;
+  phase P  the paper's MPI_Gather scenario, fixed width: 4 ranks, each a
+           Nyx-like 256^3 f32 field (64 MB, seeded per rank), through
+           ``io.collectives.compressed_all_gather`` with no group (the
+           rank axis leading, one card) at 8 and 4 bits, without and with
+           the Lorenzo residual stream (P.b8, P.b8.lorenzo, P.b4,
+           P.b4.lorenzo): the bitpack pack and unpack kernels;
+  phase Q  the gradient exchange: the weight and norm leaves of 2 of
+           gemma3-1b's 26 layers at its published widths (d_model 1152,
+           4 q heads and 1 kv head of 256, d_ff 6912; 26.8 M values a
+           layer) on 4 pods (215 M values), gradients from --seed; 3 steps
+           of error feedback + ``compressed_cross_pod_mean`` at 8 bits,
+           then ``adamw_update`` on the pod mean: pack and unpack a leaf;
+  Q.snap   ``snapshot_grads`` then ``restore_grad_snapshot`` on five of
+           the last step's pod-mean leaves, through the facade.
 
 Each phase is run with the kernels' launch counts set to 0 just before
-and read just after, and must launch every kernel of its path. A count
+and read just after, and must launch every kernel of its path. Phases P
+and Q hold their packed words, scales, pod means and residuals bitwise
+against the port's CPU run; decoded values and AdamW states to the
+bounds derived in ``io/collectives.py`` (``step_bound``,
+``lorenzo_bounds``) and ``optim/adamw.py`` (``norm_error``,
+``step_deviation``). A count
 is one per launch: a quantize launch counts under the TPU kernel whose
 work it does at that row length (``ceaz_chunk_fused`` up to 2^17
 values, the tiled kernel past it). Its
@@ -102,6 +121,8 @@ REPLACES = {
     # jnp, megakernel/ref.py::select_bank)
     "bank_select": "src/repro/kernels/megakernel/kernel.py:111",
     "hufdec": "src/repro/kernels/hufdec/kernel.py:85",
+    "pack": "src/repro/kernels/bitpack/kernel.py:46",
+    "unpack": "src/repro/kernels/bitpack/kernel.py:65",
 }
 SOURCES = {
     "dq1d": "src/repro_torch/csrc/dualquant.cu",
@@ -116,6 +137,8 @@ SOURCES = {
     "dq_center": "src/repro_torch/csrc/center.cu",
     "bank_select": "src/repro_torch/csrc/bank.cu",
     "hufdec": "src/repro_torch/csrc/hufdec.cu",
+    "pack": "src/repro_torch/csrc/bitpack.cu",
+    "unpack": "src/repro_torch/csrc/bitpack.cu",
 }
 _VALUE = ("value_quant_tiles", "dq_center", "value_finalize_tiles")
 PHASE_KERNELS = {
@@ -146,6 +169,8 @@ DRIFT_PHASES = ("E.drift",)
 CAPTURED_OPS = ("dualquant", "hufenc", "ceaz_chunk_dec", "ceaz_chunk",
                 "value_quant", "dq_center", "value_finalize", "bank_select",
                 "lorenzo_quant", "hufdec")
+# the wire path's ops: the call with the most values is kept
+WIRE_OPS = ("pack_words", "unpack_words")
 
 
 class CheckFailed(RuntimeError):
@@ -204,6 +229,18 @@ def same_outputs(a, b):
     return len(a) == len(b) and all(
         x.dtype == y.dtype and x.shape == y.shape and bool((x == y).all())
         for x, y in zip(a, b))
+
+
+def same_bits_or_nan(a, b):
+    """Float tensors equal bit for bit where not NaN, and NaN at the same
+    places: the card makes the canonical NaN where x86 propagates an
+    operand's payload."""
+    import torch
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(na, nb)
+            and torch.equal(a[~na].view(torch.int32),
+                            b[~nb].view(torch.int32)))
 
 
 def assert_same_stream(g, c, phase):
@@ -591,6 +628,442 @@ def center_corner_check():
           f"{got.tolist()}")
 
 
+# -- the fixed-width wire path (phases P, Q, Q.snap) ---------------------------
+
+N_RANKS = 4
+N_PODS = 4
+Q_STEPS = 3
+GATHER_PHASES = (("P.b8", 8, False), ("P.b8.lorenzo", 8, True),
+                 ("P.b4", 4, False), ("P.b4.lorenzo", 4, True))
+# gemma3-1b (src/repro/configs/gemma3_1b.py): d_model 1152, 4 q heads and 1
+# kv head of 256, d_ff 6912, qk-norm and sandwich norms; the leaves of one
+# layer as the reference's transformer names them (attn_init, mlp_init,
+# norm_init). Cut: 24 of 26 layers and the 262144 x 1152 embedding.
+D, H, KV, HD, FF = 1152, 4, 1, 256, 6912
+GEMMA_LAYER = {
+    "attn": {"wq": (D, H, HD), "wk": (D, KV, HD), "wv": (D, KV, HD),
+             "wo": (H, HD, D), "q_norm": {"scale": (HD,)},
+             "k_norm": {"scale": (HD,)}},
+    "ln1": {"scale": (D,)}, "ln1_post": {"scale": (D,)},
+    "ln2": {"scale": (D,)}, "ln2_post": {"scale": (D,)},
+    "mlp": {"wi": (D, FF), "wg": (D, FF), "wo": (FF, D)}}
+Q_LAYERS = 2
+SNAP_LEAVES = ("layers/0/attn/wq", "layers/0/attn/wk", "layers/0/attn/wo",
+               "layers/0/mlp/wi", "layers/0/ln1/scale")
+
+
+def gemma_leaf_shapes():
+    """{keystr path: shape} of Q_LAYERS gemma3-1b layers, in the
+    reference's leaf order."""
+    import types
+    from repro_torch.convert import tree_items
+    wrap = lambda node: ({k: wrap(v) for k, v in node.items()}
+                         if isinstance(node, dict)
+                         else types.SimpleNamespace(shape=node))
+    tree = {"layers": [wrap(GEMMA_LAYER) for _ in range(Q_LAYERS)]}
+    return {k: v.shape for k, v in tree_items(tree)}
+
+
+def device_breakdown(name, fn, top=5):
+    """One call of fn under torch.profiler: wall ms (host clock, ending in
+    a sync), the summed device time of its kernels, the device's idle
+    share of the wall time, and the kernels with the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = []
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        kern.append((us / 1e3, e.count, e.key))
+    kern.sort(reverse=True)
+    dev_ms = sum(k[0] for k in kern)
+    out = dict(wall_ms=wall, device_ms=dev_ms if kern else None,
+               idle_share=(1 - dev_ms / wall) if kern else None,
+               launches=sum(k[1] for k in kern),
+               top=[dict(ms=k[0], n=k[1], kernel=k[2][:80])
+                    for k in kern[:top]])
+    print(f"profile {name}: wall {wall} ms, device "
+          f"{out['device_ms'] if kern else 'not measured'} ms in "
+          f"{out['launches']} kernels, idle share {out['idle_share']}; "
+          f"top {out['top']}")
+    return out
+
+
+def run_gather_phases(fields, dispatch, captured, dev):
+    """Phases P: counted gather on `dev`, then the checks against the
+    port's CPU run and the derived bounds. -> (counts, inputs, stats)."""
+    import numpy as np
+    import torch
+    from repro_torch.io import collectives as COL
+    from repro_torch.optim import grad_compress as GC
+    x = np.stack(fields)                               # (ranks, *field)
+    xc = torch.from_numpy(x)
+    xg = xc.to(dev)
+    n = x[0].size
+    counts, inputs, stats = {}, {}, {}
+    for name, bits, lor in GATHER_PHASES:
+        wire = COL.WireFormat(bits=bits, use_lorenzo=lor)
+        captured.clear()
+        torch.cuda.synchronize()
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        dec = COL.compressed_all_gather(xg, wire, device=dev)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        counts[name] = dispatch.launches()
+        inputs[name] = dict(captured)
+        for k in ("pack", "unpack"):
+            check(counts[name].get(k, 0) > 0,
+                  f"phase {name}: kernel {k} was not launched "
+                  f"({counts[name]})")
+        # the wire: words and scales against the CPU run, bit for bit
+        x2g, x2c = xg.reshape(N_RANKS, n), xc.reshape(N_RANKS, n)
+        words, scales = COL._encode_local(x2g, bits, lor)
+        words_c, scales_c = COL._encode_local(x2c, bits, lor)
+        check(same_outputs((words.cpu(), scales.cpu()), (words_c, scales_c)),
+              f"phase {name}: words or scales differ from the CPU run")
+        dec_c = COL.compressed_all_gather(xc, wire, device="cpu")
+        dec = dec.cpu().reshape(N_RANKS, n).numpy()
+        rh = GC.dequantize_rows(
+            GC.BP.unpack_words(words, words.numel() * (32 // bits), bits)
+            .reshape(N_RANKS, -1)[:, :n], scales, bits).cpu().numpy()
+        worst, worst_bound, max_err = 0.0, 0.0, 0.0
+        for r in range(N_RANKS):
+            sc, xr = float(scales_c[r]), x[r].reshape(-1)
+            err = np.abs(dec[r].astype(np.float64) - xr)
+            max_err = max(max_err, float(err.max()))
+            if not lor:
+                bound = COL.step_bound(sc, np.abs(xr).max())
+                check(float(err.max()) <= bound,
+                      f"phase {name}: rank {r} max error {err.max()} > "
+                      f"{bound} (0.5*scale + 2^-23*max|x|)")
+                continue
+            S, scan, open_loop = COL.lorenzo_bounds(
+                xr, rh[r], sc, COL.sqrt_block(n))
+            for which, d in (("card", dec[r]),
+                             ("cpu", dec_c[r].reshape(-1).numpy())):
+                dev_err = np.abs(d.astype(np.float64) - S)
+                check(bool(np.all(dev_err <= scan)),
+                      f"phase {name}: rank {r} {which} decode off the "
+                      f"float64 prefix sum by more than the scan bound")
+                if which == "card":
+                    abs_sum = np.cumsum(np.abs(rh[r].astype(np.float64)))
+                    worst = max(worst, float(np.max(
+                        dev_err / np.maximum(2.0 ** -24 * abs_sum,
+                                             1e-300))))
+                    worst_bound = max(worst_bound, float(np.max(
+                        dev_err / np.maximum(scan, 1e-300))))
+            check(bool(np.all(err <= open_loop)),
+                  f"phase {name}: rank {r} error over the open-loop bound")
+        if not lor:
+            check(dec.tobytes() == dec_c.numpy().tobytes(),
+                  f"phase {name}: decoded bytes differ from the CPU run")
+        wire_b = COL.wire_bytes(N_RANKS, n, bits)
+        stats[name] = dict(s=s, wire_bytes=wire_b, raw_bytes=int(x.nbytes),
+                           wire_fraction=wire_b / x.nbytes, max_err=max_err,
+                           scale=[float(v) for v in scales_c])
+        stats[name]["s_median"] = host_s(
+            lambda: COL.compressed_all_gather(xg, wire, device=dev))
+        stats[name]["profile"] = device_breakdown(
+            name, lambda: COL.compressed_all_gather(xg, wire, device=dev))
+        if lor:
+            stats[name]["scan_err_over_u_sum"] = worst
+            stats[name]["scan_err_over_bound"] = worst_bound
+            print(f"phase {name}: worst |decode - float64 prefix sum| / "
+                  f"(2^-24 * sum|r^|) on the card = {worst}, "
+                  f"{worst_bound} of the scan bound (blocked_cumsum, "
+                  f"block {COL.sqrt_block(n)})")
+        print(f"phase {name}: {x.shape} bits={bits} lorenzo={lor} "
+              f"words+scales == cpu run: True{'' if lor else ', bytes too'} "
+              f"{stats[name]} launches={counts[name]}")
+    return counts, inputs, stats
+
+
+def _q_state(dev, seed):
+    """Params (dense_init-like normals, norms zero) for the Q leaves."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = {}
+    for k, shape in gemma_leaf_shapes().items():
+        if k.endswith("/scale"):
+            params[k] = torch.zeros(shape, device=dev)
+        else:
+            params[k] = torch.randn(shape, generator=gen, device=dev) \
+                * shape[0] ** -0.5
+    return params
+
+
+def _q_grads(dev, seed, step):
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed * 1000 + step + 1)
+    return {k: torch.randn((N_PODS,) + tuple(shape), generator=gen,
+                           device=dev) * 1e-3
+            for k, shape in gemma_leaf_shapes().items()}
+
+
+def run_exchange_phase(dispatch, captured, dev, seed):
+    """Phase Q: 3 counted steps of the exchange and AdamW on `dev`, params
+    and gradients made from `seed`; after each, the same step on the CPU
+    from the card's inputs: means and residuals bitwise, AdamW within
+    ``adamw.step_deviation``."""
+    import torch
+    from repro_torch.kernels.bitpack import ops as BP
+    from repro_torch.optim import adamw as PA
+    from repro_torch.optim import grad_compress as GC
+    ccfg, acfg = GC.CompressionConfig(bits=8), PA.AdamWConfig()
+    params = _q_state(dev, seed)
+    opt = PA.adamw_init(params, acfg, device=dev)
+    # the error-feedback residuals, one per pod on the leading axis
+    res = {k: torch.zeros((N_PODS,) + tuple(p.shape), device=dev)
+           for k, p in params.items()}
+    res_c = {k: r.cpu() for k, r in res.items()}
+    n_vals = N_PODS * sum(p.numel() for p in params.values())
+    wire = sum(N_PODS * (4 * BP.words_len(p.numel(), ccfg.bits) + 4)
+               for p in params.values())
+    steps, flips, worst_p, gn_dev = [], 0, 0.0, 0.0
+    counts = {}
+    captured.clear()
+    for step in range(Q_STEPS):
+        grads = _q_grads(dev, seed, step)
+        p_before = {k: v.cpu() for k, v in params.items()}
+        o_before = {"mu": {k: v.cpu() for k, v in opt["mu"].items()},
+                    "nu": {k: v.cpu() for k, v in opt["nu"].items()},
+                    "step": opt["step"].cpu()}
+        torch.cuda.synchronize()
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        res_prev = res
+        mean, res = GC.compressed_cross_pod_mean(grads, res, ccfg,
+                                                 device=dev)
+        t1 = time.perf_counter()
+        params, opt, om = PA.adamw_update(params, mean, opt, acfg,
+                                          device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for k, v in dispatch.launches().items():
+            counts[k] = counts.get(k, 0) + v
+        # the CPU run of the same step from the same inputs
+        grads_c = {k: g.cpu() for k, g in grads.items()}
+        mean_c, res_c = GC.compressed_cross_pod_mean(grads_c, res_c, ccfg,
+                                                     device="cpu")
+        for k in mean:
+            check(same_outputs((mean[k].cpu(), res[k].cpu()),
+                               (mean_c[k], res_c[k])),
+                  f"phase Q step {step}: pod mean or residual of {k} "
+                  f"differs from the CPU run")
+        new_p, new_o, om_c = PA.adamw_update(p_before, mean_c, o_before,
+                                             acfg, device="cpu")
+        # each global norm against the float64 one; the clip bound from
+        # that norm and the two norms' checked deviations from it
+        gn_g, gn_c = float(om["grad_norm"]), float(om_c["grad_norm"])
+        exact, gn_err = PA.norm_error(mean_c)
+        check(abs(gn_g - exact) <= gn_err and abs(gn_c - exact) <= gn_err,
+              f"phase Q step {step}: global norms {gn_g} (card), {gn_c} "
+              f"(cpu) off the float64 {exact} by more than {gn_err}")
+        gn_dev = max(gn_dev, abs(gn_g - exact) / gn_err,
+                     abs(gn_c - exact) / gn_err)
+        rho = PA.clip_rho(exact, (gn_g, gn_c), acfg)
+        clip = PA.clip_factor(exact, acfg)
+        for k in mean_c:
+            b = PA.step_deviation(p_before[k], mean_c[k], o_before["mu"][k],
+                                  o_before["nu"][k], step + 1, acfg, clip,
+                                  rho)
+            d = (params[k].cpu().to(torch.float64)
+                 - new_p[k].to(torch.float64)).abs()
+            check(bool((d <= b["p"]).all()),
+                  f"phase Q step {step}: params of {k} off the CPU run by "
+                  f"more than step_deviation")
+            worst_p = max(worst_p, float((d / b["p"]).max()))
+            for m in ("mu", "nu"):
+                nf, ok = PA.bf16_moment_check(b[m + "32"], b[m],
+                                              opt[m][k].cpu(), new_o[m][k])
+                check(ok, f"phase Q step {step}: {m} of {k} differs beyond "
+                      "its f32 bound around a bf16 rounding boundary")
+                flips += nf
+        steps.append(dict(exchange_s=t1 - t0, step_s=t2 - t0,
+                          grad_norm=gn_g, lr=float(om["lr"])))
+        print(f"phase Q step {step}: {t2 - t0} s (exchange {t1 - t0} s) "
+              f"grad_norm={gn_g} wire fraction {wire / (4 * n_vals)} of "
+              f"f32 ({wire} B) means+residuals == cpu run: True")
+    for k in ("pack", "unpack"):
+        check(counts.get(k, 0) > 0,
+              f"phase Q: kernel {k} was not launched ({counts})")
+    # where a step's time goes: the last step's exchange and update again
+    prof = dict(exchange=device_breakdown(
+        "Q exchange", lambda: GC.compressed_cross_pod_mean(
+            grads, res_prev, ccfg, device=dev)),
+        adamw=device_breakdown("Q adamw", lambda: PA.adamw_update(
+            params, mean, opt, acfg, device=dev)))
+    stats = dict(profile=prof, values=n_vals, leaves=len(params), steps=steps,
+                 wire_bytes=wire, wire_fraction_f32=wire / (4 * n_vals),
+                 wire_fraction_bf16=wire / (2 * n_vals),
+                 adamw_worst_param_dev_over_bound=worst_p,
+                 grad_norm_worst_dev_over_bound=gn_dev,
+                 bf16_moment_flips=flips)
+    print(f"phase Q: {n_vals} gradient values in {len(params)} leaves x "
+          f"{N_PODS} pods, {Q_STEPS} steps, global norms within "
+          f"norm_error (worst {gn_dev} of it), AdamW params within "
+          f"step_deviation (worst {worst_p} of it), {flips} bf16 moments "
+          f"off the CPU run at a rounding boundary; launches={counts}")
+    return counts, dict(captured), stats, mean
+
+
+def run_snapshot_phase(mean, dispatch, dev):
+    """Phase Q.snap: five pod-mean leaves through snapshot_grads and
+    restore_grad_snapshot on the card, against the CPU run."""
+    import numpy as np
+    import torch
+    from repro_torch.core import CEAZCompressed
+    from repro_torch.core.dualquant import value_range
+    from repro_torch.optim import grad_compress as GC
+    leaves = {k: mean[k] for k in SNAP_LEAVES}
+    host = {k: v.cpu().numpy() for k, v in leaves.items()}
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    snap = GC.snapshot_grads(leaves, device=dev)
+    back = GC.restore_grad_snapshot(snap, device=dev)
+    torch.cuda.synchronize()
+    counts = dispatch.launches()
+    check(counts.get("gather_pack_tiled", 0) > 0
+          and counts.get("hufdec_tiles", 0)
+          + counts.get("ceaz_chunk_dec_fused", 0) > 0,
+          f"phase Q.snap: the facade's kernels did not launch ({counts})")
+    snap_c = GC.snapshot_grads(host, device="cpu")
+    back_c = GC.restore_grad_snapshot(snap_c, device="cpu")
+    ratios = {}
+    for k in SNAP_LEAVES:
+        check(back[k].tobytes() == back_c[k].tobytes(),
+              f"phase Q.snap: {k} decodes to other bytes than the CPU run")
+        if isinstance(snap[k], CEAZCompressed):
+            assert_same_stream(snap[k], snap_c[k], f"phase Q.snap {k}")
+            bound = 1e-3 * value_range(host[k])
+            err = float(np.abs(back[k].astype(np.float64)
+                               - host[k]).max())
+            check(err <= bound, f"phase Q.snap: {k} error {err} > {bound}")
+            ratios[k] = (snap[k].ratio(), snap[k].predictor)
+        else:
+            check(back[k].tobytes() == host[k].tobytes(),
+                  f"phase Q.snap: raw leaf {k} changed")
+            ratios[k] = "raw"
+    print(f"phase Q.snap: {len(SNAP_LEAVES)} leaves, records+bytes == cpu "
+          f"run: True {ratios} launches={counts}")
+    return counts
+
+
+def wire_checks():
+    """The bitpack kernels on every width, odd lengths, out-of-range values
+    and a misaligned view, and a NaN/Inf leaf through the exchange,
+    against the plain versions on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.bitpack import ops as BP
+    from repro_torch.optim import grad_compress as GC
+    rng = np.random.default_rng(0)
+    for bits in (2, 4, 8, 16):
+        for n in (1, 4097, 1000003):
+            v = rng.integers(-(1 << 20), 1 << 20, n + 1).astype(np.int32)
+            v[::3] &= (1 << bits) - 1
+            for q in (torch.from_numpy(v[:n]).cuda(),
+                      torch.from_numpy(v).cuda()[1:]):
+                qc = q.cpu()
+                w = BP.pack_words_cuda(q, bits)
+                t = BP.pack_flat_cuda(q, bits)
+                check(same_outputs(
+                    [x.cpu() for x in (w, t, BP.unpack_words_cuda(w, n, bits),
+                                       BP.unpack_flat_cuda(t, n, bits),
+                                       BP.unpack_cuda(t, bits))],
+                    [BP.pack_words_plain(qc, bits),
+                     BP.pack_flat_plain(qc, bits),
+                     BP.unpack_words_plain(w.cpu(), n, bits),
+                     BP.unpack_flat_plain(t.cpu(), n, bits),
+                     BP.unpack_plain(t.cpu(), bits)]),
+                      f"bitpack kernels disagree with plain at bits={bits} "
+                      f"n={n}")
+    print("pack/unpack (both layouts) on b=2,4,8,16, odd lengths, "
+          "out-of-range values, a misaligned view == plain (cpu): True")
+    g = {k: torch.from_numpy(rng.standard_normal((4,) + s).astype(
+        np.float32)) for k, s in (("w", (33, 70)), ("nan", (129,)),
+                                  ("inf", (3, 5)))}
+    g["nan"][2, 3] = float("nan")
+    g["inf"][0, 1, 1] = float("-inf")
+    cfg = GC.CompressionConfig(bits=8)
+    got = GC.compressed_cross_pod_mean(g, GC.ef_init(g, device="cuda"), cfg)
+    want = GC.compressed_cross_pod_mean(g, GC.ef_init(g, device="cpu"), cfg,
+                                        device="cpu")
+    for k in g:
+        check(same_bits_or_nan(got[0][k].cpu(), want[0][k])
+              and same_bits_or_nan(got[1][k].cpu(), want[1][k]),
+              f"exchange of the {k} leaf differs from the CPU run")
+    check(bool(torch.isnan(got[0]["nan"]).all()
+               and torch.isnan(got[0]["inf"]).all()),
+          "a NaN/Inf leaf did not decode to NaN")
+    print("exchange with a NaN leaf and an Inf leaf == cpu run, NaN "
+          "throughout: True")
+
+
+def wire_kernel_rows(inputs, rows):
+    """pack and unpack at the main path's shapes: the row's numbers at
+    Q's largest leaf in the wire (consecutive) layout; P's, and the TPU
+    kernel's tile layout at both, as cases."""
+    import torch
+    from repro_torch.kernels.bitpack import ops as BP
+    where = [("Q", inputs["Q"])] + [(p, inputs[p]) for p, _, _ in
+                                    GATHER_PHASES[::2]]
+    for kernel, op in (("pack", "pack_words"), ("unpack", "unpack_words")):
+        cases = []
+        for phase, inp in where:
+            args = inp[op][0]
+            bits = args[-1]
+            if kernel == "pack":
+                q = args[0]
+                n = q.numel()
+                layouts = (("words", BP.pack_words_cuda, BP.pack_words_plain,
+                            (q, bits)),
+                           ("tile", BP.pack_flat_cuda, BP.pack_flat_plain,
+                            (q, bits)))
+            else:
+                w, n = args[0], args[1]
+                tile = BP.pack_flat_cuda(BP.unpack_words_cuda(w, n, bits),
+                                         bits)
+                layouts = (("words", BP.unpack_words_cuda,
+                            BP.unpack_words_plain, (w, n, bits)),
+                           ("tile", BP.unpack_flat_cuda,
+                            BP.unpack_flat_plain, (tile, n, bits)))
+            for layout, cuda_fn, plain_fn, a in layouts:
+                got = cuda_fn(*a)
+                check(same_outputs(got, plain_fn(*a)),
+                      f"kernel {kernel} ({layout} layout) disagrees with "
+                      f"its plain version at {phase}'s shapes")
+                ms = cuda_ms(lambda: cuda_fn(*a))
+                plain_ms = cuda_ms(lambda: plain_fn(*a), reps=3, warmup=1)
+                nbytes_ = 4 * n + n * bits // 8
+                bound = nbytes_ / HBM_BYTES_PER_S * 1e3
+                cases.append(dict(phase=phase, layout=layout, values=n,
+                                  bits=bits, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound, max_abs_err=0))
+                print(f"kernel {kernel} {layout} layout at {phase} ({n} "
+                      f"values, {bits} bits): bitwise == plain: True ms={ms} "
+                      f"plain_ms={plain_ms} bound_ms={bound} (bytes; "
+                      f"{nbytes_} B)")
+        main = cases[0]
+        rows[kernel] = dict(
+            name=kernel, route="cuda", source=SOURCES[kernel],
+            replaces=REPLACES[kernel], launches=0, max_abs_err=0,
+            ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by="bytes", library_ms=None,
+            phase="Q", layout="words", cases=cases[1:])
+
+
 PHASES = (
     # name, field, facade options (rel eb 1e-4 unless given)
     ("A", "cesm", {}),
@@ -618,7 +1091,13 @@ PHASES = (
 
 
 def main():
+    import argparse
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of phase P's fields and phase Q's params "
+                         "and gradients")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -644,6 +1123,15 @@ def main():
             captured.setdefault(_op, (a,))
             return _fn(*a)
         dispatch.register(op, "cuda", lambda _r=recorder: _r)
+    for op in WIRE_OPS:
+        fn = dispatch.resolve(op, "cuda", "cuda")
+
+        def largest(*a, _fn=fn, _op=op):
+            old = captured.get(_op)
+            if old is None or a[0].numel() > old[0][0].numel():
+                captured[_op] = (a,)
+            return _fn(*a)
+        dispatch.register(op, "cuda", lambda _r=largest: _r)
 
     offline = default_offline_codebook()
     fields = {"cesm": F.cesm_proxy(size="medium"),
@@ -678,10 +1166,29 @@ def main():
           and all("hufdec" in inputs[p] for p in SPLIT_PHASES.values()),
           "phase G/S inputs not captured")
 
+    # the fixed-width wire path: P, Q, Q.snap
+    nyx = [F.nyx_proxy(seed=5 + N_RANKS * args.seed + r, size="medium")
+           for r in range(N_RANKS)]
+    check(all(f.shape == (256, 256, 256) for f in nyx),
+          "unexpected phase P shapes")
+    c, i, wire_stats = run_gather_phases(nyx, dispatch, captured, "cuda")
+    del nyx
+    counts.update(c)
+    inputs.update(i)
+    counts["Q"], inputs["Q"], wire_stats["Q"], q_mean = run_exchange_phase(
+        dispatch, captured, "cuda", args.seed)
+    counts["Q.snap"] = run_snapshot_phase(q_mean, dispatch, "cuda")
+    del q_mean
+    for p in [n for n, _, _ in GATHER_PHASES] + ["Q"]:
+        check(all(op in inputs[p] for op in WIRE_OPS),
+              f"pack/unpack inputs of phase {p} not captured")
+
     rows = kernel_rows(inputs)
     window_checks(inputs, rows)
     nonfinite_check()
     center_corner_check()
+    wire_kernel_rows(inputs, rows)
+    wire_checks()
     for name, r in rows.items():
         r["launches"] = sum(c.get(name, 0) for c in counts.values())
     for name, t in thr.items():
@@ -692,6 +1199,7 @@ def main():
               f"of f32 input")
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"throughput": thr, "card": card}))
+    print(json.dumps({"wire": wire_stats, "card": card}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

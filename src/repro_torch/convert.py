@@ -10,6 +10,18 @@ the reference:
     ref_c = ref_ceaz.CEAZCompressed(**{**fields, "chunks": [
         ref_ceaz.CompressedChunk(**f) for f in fields["chunks"]]})
 
+Parameter-like trees (params, gradients, the error-feedback residual,
+the AdamW moments) are nested dicts/lists of numpy arrays in the
+reference and flat ``dict[str, Tensor]`` in the port, keyed by the paths
+``repro.runtime.compat.keystr`` gives, in ``jax.tree.leaves`` order:
+
+    params = tree_from_reference(ref_params)            # on the card
+    opt = opt_state_from_reference(ref_opt, device="cpu")
+    ref_params = tree_to_reference(params, like=ref_params)
+
+bf16 leaves (numpy's ``bfloat16`` from ml_dtypes) cross as their uint16
+bits, so the port never imports ml_dtypes.
+
 Codebooks convert the same way (``lengths``, ``codes``, ``max_len``);
 their ``id`` is a hash of the lengths, so it survives the trip. A
 record's bank fields (``center``, ``bank_ref``, ``bank_index``) travel
@@ -20,9 +32,10 @@ converted bank resolves the ``bank_ref`` of reference records.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
+import torch
 
 from .core.ceaz import CEAZCompressed, CompressedChunk
 from .core.codebook import CodebookBank
@@ -84,3 +97,78 @@ def bank_from_reference(bank) -> CodebookBank:
     version and lengths, is the same on both sides."""
     return CodebookBank(lengths=np.array(bank.lengths, np.uint8),
                         version=int(bank.version), meta=dict(bank.meta))
+
+
+# -- parameter-like trees --------------------------------------------------------
+
+def tree_items(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(key, leaf) pairs of a nested dict/list/tuple tree in the order of
+    ``jax.tree.leaves`` (dict keys sorted), keys joined by '/' as
+    ``keystr(path, simple=True, separator='/')`` joins them. None is an
+    empty subtree, as in JAX."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_items(tree[k], f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_items(v, f"{prefix}{i}/")
+    elif tree is not None:
+        yield prefix[:-1], tree
+
+
+def _is_bf16(dtype) -> bool:
+    return np.dtype(dtype).name == "bfloat16"
+
+
+def _to_tensor(leaf, device) -> torch.Tensor:
+    arr = np.ascontiguousarray(np.asarray(leaf))
+    if _is_bf16(arr.dtype):
+        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr.copy())
+    return t.to(device)
+
+
+def _to_numpy(t: torch.Tensor, dtype) -> np.ndarray:
+    t = t.detach().cpu()
+    if _is_bf16(dtype):
+        return t.to(torch.bfloat16).view(torch.int16).numpy().view(dtype)
+    return t.numpy().astype(dtype, copy=False)
+
+
+def tree_from_reference(tree, device="cuda") -> Dict[str, torch.Tensor]:
+    """A reference pytree of arrays -> {keystr path: Tensor} on `device`
+    (the card unless device='cpu')."""
+    from .runtime.fused import target_device
+    dev = target_device(device)
+    return {k: _to_tensor(v, dev) for k, v in tree_items(tree)}
+
+
+def tree_to_reference(flat: Dict[str, torch.Tensor], like):
+    """{keystr path: Tensor} -> a tree shaped as `like` (the reference
+    tree it came from) with numpy leaves of like's dtypes."""
+    def build(node, prefix):
+        if isinstance(node, dict):
+            return {k: build(node[k], f"{prefix}{k}/") for k in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v, f"{prefix}{i}/")
+                              for i, v in enumerate(node))
+        if node is None:
+            return None
+        return _to_numpy(flat[prefix[:-1]], np.asarray(node).dtype)
+    return build(like, "")
+
+
+def opt_state_from_reference(state, device="cuda") -> Dict[str, Any]:
+    """The reference's AdamW state {"mu", "nu", "step"} -> the port's."""
+    from .runtime.fused import target_device
+    dev = target_device(device)
+    return {"mu": tree_from_reference(state["mu"], dev),
+            "nu": tree_from_reference(state["nu"], dev),
+            "step": _to_tensor(state["step"], dev)}
+
+
+def opt_state_to_reference(state: Dict[str, Any], like) -> Dict[str, Any]:
+    return {"mu": tree_to_reference(state["mu"], like["mu"]),
+            "nu": tree_to_reference(state["nu"], like["nu"]),
+            "step": _to_numpy(state["step"], np.asarray(like["step"]).dtype)}

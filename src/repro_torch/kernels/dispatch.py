@@ -41,6 +41,12 @@ Op calling conventions (tensors on one device):
   bank_select(hists, bank_lengths, bank_cwords)
       -> (sel, totals, lengths_sel, cwords_sel)
   dq_center(q2, valid2) -> centers (C,) int32 (kernels/dualquant/ops.py)
+  pack(vals, bits) / unpack(words, bits), pack_flat(x, bits) /
+  unpack_flat(words, n, bits), pack_words(q, bits) /
+  unpack_words(words, n, bits)
+      fixed-width b-bit pack in the TPU kernel's tile layout and in the
+      wire path's consecutive layout (kernels/bitpack/ops.py); the CUDA
+      versions count launches of ``pack`` and ``unpack``
 
 Launch accounting: every CUDA wrapper adds one to its kernel's count
 (:func:`count_launch`) where it launches, and nowhere else, so a run
@@ -202,6 +208,9 @@ for _op, _module, _plain, _cuda in (
         ("bank_select", "megakernel.ops", "bank_select_plain",
          "bank_select_cuda"),
         ("dq_center", "dualquant.ops", "chunk_center_plain",
-         "dq_center_cuda")):
+         "dq_center_cuda"),
+        *((op, "bitpack.ops", op + "_plain", op + "_cuda")
+          for op in ("pack", "unpack", "pack_flat", "unpack_flat",
+                     "pack_words", "unpack_words"))):
     register(_op, "torch", _loader(_module, _plain))
     register(_op, "cuda", _loader(_module, _cuda))

@@ -339,3 +339,100 @@ def test_fixed_ratio_round_trip_on_card_matches_cpu(dev, codebook):
     assert launched.get("ceaz_chunk_fused", 0) > 0
     assert launched.get("hufdec", 0) == 1
     assert launched.get("gather_pack_tiled", 0) > 0
+
+
+# -- bitpack and the fixed-width wire path ---------------------------------------
+
+def _eq_nan(a, b):
+    """Bitwise where not NaN, NaN at the same places: the card makes the
+    canonical NaN where x86 propagates an operand's payload."""
+    a, b = a.cpu(), b.cpu()
+    assert a.dtype == b.dtype and a.shape == b.shape
+    na, nb = torch.isnan(a), torch.isnan(b)
+    assert torch.equal(na, nb)
+    assert torch.equal(a[~na].view(torch.int32), b[~nb].view(torch.int32))
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8, 16])
+@pytest.mark.parametrize("n", [1, 4097, 1000003])
+def test_bitpack_kernels_match_plain(dev, bits, n):
+    """Both layouts, random codes with out-of-range values (the mask), on
+    lengths that are multiples of neither per nor the tile; against the
+    plain versions on the card and on the CPU. A misaligned view takes
+    the kernels' scalar path."""
+    from repro_torch.kernels.bitpack import ops as BP
+    rng = np.random.default_rng(n + bits)
+    v = rng.integers(-(1 << 20), 1 << 20, n + 1).astype(np.int32)
+    v[::3] &= (1 << bits) - 1
+    for q in (torch.from_numpy(v[:n]).to(dev),
+              torch.from_numpy(v).to(dev)[1:]):
+        for cuda_fn, plain_fn in ((BP.pack_words_cuda, BP.pack_words_plain),
+                                  (BP.pack_flat_cuda, BP.pack_flat_plain)):
+            words = cuda_fn(q, bits)
+            _eq(words, plain_fn(q, bits))
+            _eq(words, plain_fn(q.cpu(), bits))
+        w = BP.pack_words_cuda(q, bits)
+        _eq(BP.unpack_words_cuda(w, n, bits),
+            BP.unpack_words_plain(w.cpu(), n, bits))
+        t = BP.pack_flat_cuda(q, bits)
+        _eq(BP.unpack_flat_cuda(t, n, bits),
+            BP.unpack_flat_plain(t.cpu(), n, bits))
+        _eq(BP.unpack_cuda(t, bits), BP.unpack_plain(t.cpu(), bits))
+        tile = BP.unpack_cuda(t, bits)
+        _eq(BP.pack_cuda(tile, bits), BP.pack_plain(tile.cpu(), bits))
+
+
+@pytest.mark.parametrize("lor", [True, False])
+def test_compressed_all_gather_on_card_matches_cpu(dev, lor):
+    """A small gather with a NaN and an Inf rank: pack and unpack launch
+    on the card; the non-Lorenzo decode equals the CPU run's bytes, the
+    Lorenzo decode the same NaN pattern and within the scan bound."""
+    from repro_torch.io import collectives as COL
+    rng = np.random.default_rng(3)
+    x = np.cumsum(rng.standard_normal((3, 10001)), axis=1).astype(np.float32)
+    x[1, 77] = np.nan
+    x[2, 5] = np.inf
+    for bits in (8, 4):
+        wire = COL.WireFormat(bits, lor)
+        dispatch.reset_launches()
+        got = COL.compressed_all_gather(x, wire, device="cuda")
+        torch.cuda.synchronize()
+        counts = dispatch.launches()
+        assert counts.get("pack") == 1 and counts.get("unpack") == 1
+        want = COL.compressed_all_gather(x, wire, device="cpu")
+        got = got.cpu()
+        if not lor:
+            _eq_nan(got, want)
+            continue
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        words, scale = COL._encode_local(torch.from_numpy(x[:1]), bits, lor)
+        from repro_torch.optim import grad_compress as GC
+        codes = GC.BP.unpack_words(words, x.shape[1], bits)
+        rh = GC.dequantize_rows(codes[None], scale, bits)[0].numpy()
+        S, scan, _ = COL.lorenzo_bounds(x[0], rh, float(scale[0]),
+                                        COL.sqrt_block(x.shape[1]))
+        assert np.all(np.abs(got[0].numpy().astype(np.float64) - S) <= scan)
+
+
+def test_cross_pod_mean_on_card_matches_cpu(dev):
+    """Two steps of the exchange with a NaN leaf and an Inf leaf: means
+    and residuals equal the CPU run's bytes."""
+    from repro_torch.optim import grad_compress as GC
+    rng = np.random.default_rng(4)
+    grads = {k: torch.from_numpy(rng.standard_normal((4,) + s).astype(
+        np.float32)) for k, s in (("w", (33, 70)), ("nan", (129,)),
+                                  ("inf", (3, 5)), ("b", (7,)))}
+    grads["nan"][2, 3] = float("nan")
+    grads["inf"][0, 1, 1] = float("-inf")
+    cfg = GC.CompressionConfig(bits=8)
+    res_g = GC.ef_init(grads, device="cuda")
+    res_c = GC.ef_init(grads, device="cpu")
+    for _ in range(2):
+        mean_g, res_g = GC.compressed_cross_pod_mean(grads, res_g, cfg)
+        mean_c, res_c = GC.compressed_cross_pod_mean(grads, res_c, cfg,
+                                                     device="cpu")
+        for k in grads:
+            _eq_nan(mean_g[k], mean_c[k])
+            _eq_nan(res_g[k], res_c[k])
+    assert torch.isnan(mean_g["nan"]).all() and torch.isnan(
+        mean_g["inf"]).all()

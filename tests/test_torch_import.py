@@ -21,7 +21,10 @@ def test_import_leaves_jax_and_reference_out():
     code = ("import sys, repro_torch, repro_torch.convert, "
             "repro_torch.runtime.fused, repro_torch.runtime.fused_decode, "
             "repro_torch.kernels.megakernel.ops, "
-            "repro_torch.kernels.dualquant.ops\n"
+            "repro_torch.kernels.dualquant.ops, "
+            "repro_torch.kernels.bitpack.ops, repro_torch.optim, "
+            "repro_torch.optim.adamw, repro_torch.optim.grad_compress, "
+            "repro_torch.io, repro_torch.io.collectives\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n")
