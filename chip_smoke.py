@@ -56,6 +56,22 @@ through the public facade, at rel eb 1e-4 unless said otherwise:
            route's walk kernel (hufdec), then the outlier scatter and the
            inverse as torch ops; neither decode megakernel kernel may
            launch, and the bytes must equal the megakernel route's;
+  phase T  the staged route (``use_fused=False``, backend 'torch'): T.A the
+           CESM field as phase A (one 32 MB chunk: dq2d, the histogram
+           kernel, the per-block packer + stitch), T.E the NWChem field
+           value-direct at rel 1e-3 (the value kernels, dq_center,
+           histogram, per-block packer + stitch), T.G the HACC field at
+           fixed ratio 10 in 256 chunks of 2^15 (chunk_bytes=2^17, the
+           reference's section 4.7 settings: dq1d, histogram and the
+           one-CTA gather-pack per chunk). Staged decode is the host table
+           decode. T.A's stream must equal phase A's, T.E's phase E.exact's
+           and T.G's the fused route's at the same settings;
+  BATCH    the HACC field as 4 shards of 2^21 through ``compress_batch``:
+           fused (one pass pair: dq1d per shard, one histogram and one
+           pack launch; one batched decode, the tiled walk) and, as
+           BATCH.staged, with use_fused=False (per
+           shard: dq1d, histogram, per-block packer + stitch); every shard
+           must equal its own ``compress`` and both batches each other;
   phase P  the paper's MPI_Gather scenario, fixed width: 4 ranks, each a
            Nyx-like 256^3 f32 field (64 MB, seeded per rank), through
            ``io.collectives.compressed_all_gather`` with no group (the
@@ -123,6 +139,10 @@ REPLACES = {
     "hufdec": "src/repro/kernels/hufdec/kernel.py:85",
     "pack": "src/repro/kernels/bitpack/kernel.py:46",
     "unpack": "src/repro/kernels/bitpack/kernel.py:65",
+    "histogram": "src/repro/kernels/histogram/kernel.py:39",
+    "gather_pack": "src/repro/kernels/hufenc/kernel.py:164",
+    # with its stitch, the reference's host hufenc/ops.py::to_host_stream
+    "hufenc": "src/repro/kernels/hufenc/kernel.py:344",
 }
 SOURCES = {
     "dq1d": "src/repro_torch/csrc/dualquant.cu",
@@ -139,11 +159,15 @@ SOURCES = {
     "hufdec": "src/repro_torch/csrc/hufdec.cu",
     "pack": "src/repro_torch/csrc/bitpack.cu",
     "unpack": "src/repro_torch/csrc/bitpack.cu",
+    "histogram": "src/repro_torch/csrc/histogram.cu",
+    "gather_pack": "src/repro_torch/csrc/hufenc.cu",
+    "hufenc": "src/repro_torch/csrc/hufenc.cu",
 }
 _VALUE = ("value_quant_tiles", "dq_center", "value_finalize_tiles")
+_BLOCKS = ("histogram", "hufenc", "hufenc_stitch")
 PHASE_KERNELS = {
-    "A": ("dq2d", "gather_pack_tiled", "hufdec_tiles"),
-    "B": ("dq1d", "gather_pack_tiled", "ceaz_chunk_dec_fused"),
+    "A": ("dq2d", "histogram", "gather_pack_tiled", "hufdec_tiles"),
+    "B": ("dq1d", "histogram", "gather_pack_tiled", "ceaz_chunk_dec_fused"),
     "C": ("ceaz_chunk_fused", "bank_select", "gather_pack_tiled",
           "ceaz_chunk_dec_fused"),
     "C.value": ("ceaz_chunk_fused", "dq_center", "bank_select",
@@ -153,12 +177,26 @@ PHASE_KERNELS = {
     "E.bank": _VALUE + ("bank_select", "gather_pack_tiled", "hufdec_tiles"),
     "E.exact": _VALUE + ("gather_pack_tiled", "hufdec_tiles"),
     "E.drift": _VALUE + ("bank_select", "gather_pack_tiled", "hufdec_tiles"),
-    "F": ("dq2d", "bank_select", "gather_pack_tiled", "hufdec_tiles"),
+    "F": ("dq2d", "histogram", "bank_select", "gather_pack_tiled",
+          "hufdec_tiles"),
     "G": ("ceaz_chunk_fused", "gather_pack_tiled", "ceaz_chunk_dec_fused"),
-    "G.off": ("dq1d", "gather_pack_tiled", "ceaz_chunk_dec_fused"),
+    "G.off": ("dq1d", "histogram", "gather_pack_tiled",
+              "ceaz_chunk_dec_fused"),
     "G.bank": ("ceaz_chunk_fused", "bank_select", "gather_pack_tiled",
                "ceaz_chunk_dec_fused"),
+    "T.A": ("dq2d",) + _BLOCKS,
+    "T.E": _VALUE + _BLOCKS,
+    "T.G": ("dq1d", "histogram", "gather_pack"),
+    "BATCH": ("dq1d", "histogram", "gather_pack_tiled", "hufdec_tiles"),
+    "BATCH.staged": ("dq1d",) + _BLOCKS,
 }
+# the staged phases' fused counterparts at the same settings: the
+# streams must be identical (T.G's counterpart is run there)
+STAGED_TWINS = {"T.A": "A", "T.E": "E.exact"}
+# phases whose staged host decode (256 chunks of 2^15 through the table
+# walk of core/huffman.py) takes tens of seconds: timed once, on the
+# counted run, and left out of the traced round trip
+ONE_DECODE_PHASES = ("T.G",)
 # the split decodes: stream of phase -> its S phase; the walk kernel must
 # launch and neither decode megakernel kernel may
 SPLIT_PHASES = {"A": "S.A", "B": "S.B", "E.exact": "S.E", "G": "S.G"}
@@ -168,7 +206,8 @@ FIXED_RATIO_ENVELOPE = 0.15      # the reference's tests/test_full_grid.py
 DRIFT_PHASES = ("E.drift",)
 CAPTURED_OPS = ("dualquant", "hufenc", "ceaz_chunk_dec", "ceaz_chunk",
                 "value_quant", "dq_center", "value_finalize", "bank_select",
-                "lorenzo_quant", "hufdec")
+                "lorenzo_quant", "hufdec", "histogram", "gather_pack",
+                "hufenc_blocks", "hufenc_stitch")
 # the wire path's ops: the call with the most values is kept
 WIRE_OPS = ("pack_words", "unpack_words")
 
@@ -300,9 +339,12 @@ def run_phase(name, x, kw, offline, dispatch, CEAZ, CEAZConfig, captured):
     before = om.snapshot()
     dispatch.reset_launches()
     c_gpu = gpu.compress(x)
-    y_gpu = gpu.decompress(c_gpu)
     import torch
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y_gpu = gpu.decompress(c_gpu)
+    torch.cuda.synchronize()
+    counted_dec_s = time.perf_counter() - t0
     counts = dispatch.launches()
     spec = om.diff(om.snapshot(), before)
     for k in PHASE_KERNELS[name]:
@@ -342,7 +384,8 @@ def run_phase(name, x, kw, offline, dispatch, CEAZ, CEAZConfig, captured):
         check(abs(c_gpu.ratio() / target - 1) <= FIXED_RATIO_ENVELOPE,
               f"phase {name}: ratio {c_gpu.ratio()} is not within "
               f"{FIXED_RATIO_ENVELOPE:.0%} of the target {target}")
-        if kw.get("speculation", "auto") != "off":
+        if kw.get("speculation", "auto") != "off" \
+                and kw.get("use_fused", True):
             print(f"phase {name}: speculation hits="
                   f"{spec.get(om.SPEC_HITS, 0)} misses="
                   f"{spec.get(om.SPEC_MISSES, 0)} final window="
@@ -352,10 +395,16 @@ def run_phase(name, x, kw, offline, dispatch, CEAZ, CEAZConfig, captured):
         check(err <= bound, f"phase {name}: max error {err} > bound "
               f"{bound}")
     enc_s = host_s(lambda: gpu.compress(x))
-    dec_s = host_s(lambda: gpu.decompress(c_gpu))
+    if name in ONE_DECODE_PHASES:
+        dec_s = counted_dec_s
+        traced, what = (lambda: gpu.compress(x)), "compress"
+    else:
+        dec_s = host_s(lambda: gpu.decompress(c_gpu))
+        traced = lambda: gpu.decompress(gpu.compress(x))
+        what = "round trip"
     gb = x.nbytes / 1e9
-    print(f"phase {name} spans (ms, one traced round trip, kernel passes "
-          f"synced): {span_breakdown(lambda: gpu.decompress(gpu.compress(x)), dispatch)}")
+    print(f"phase {name} spans (ms, one traced {what}, kernel passes "
+          f"synced): {span_breakdown(traced, dispatch)}")
     print(f"phase {name}: shape={x.shape} chunks={len(c_gpu.chunks)} "
           f"predictor={c_gpu.predictor} "
           f"actions={sorted({ch.action for ch in c_gpu.chunks})} "
@@ -364,7 +413,9 @@ def run_phase(name, x, kw, offline, dispatch, CEAZ, CEAZConfig, captured):
           f"stream+bytes==cpu run: True (cpu run {cpu_s:.2f} s)")
     return counts, inputs, dict(compress_GBps=gb / enc_s,
                                 decompress_GBps=gb / dec_s,
-                                compress_s=enc_s, decompress_s=dec_s), \
+                                compress_s=enc_s, decompress_s=dec_s,
+                                decompress_samples=(
+                                    1 if name in ONE_DECODE_PHASES else 3)), \
         (c_gpu, y_gpu)
 
 
@@ -396,6 +447,32 @@ def run_split_phase(name, c, y_mega, kw, offline, dispatch, CEAZ, CEAZConfig,
                                         / dec_s, decompress_s=dec_s)
 
 
+def add_row(rows, name, cuda_fn, plain_fn, in_bytes, out_bytes, ops,
+            extra=None, library_ms=None):
+    """One kernel's row: bitwise against its plain version, timed, with
+    its bound from the bytes and operations of these inputs."""
+    import torch
+    got = cuda_fn()
+    want = plain_fn()
+    torch.cuda.synchronize()
+    check(same_outputs(got, want),
+          f"kernel {name} disagrees with its plain version")
+    ms = cuda_ms(cuda_fn)
+    plain_ms = cuda_ms(plain_fn, reps=3, warmup=1)
+    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    rows[name] = dict(
+        name=name, route="cuda", source=SOURCES[name],
+        replaces=REPLACES[name], launches=0, max_abs_err=0,
+        ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=library_ms, **(extra or {}))
+    print(f"kernel {name}: bitwise == plain: True  ms={ms} "
+          f"plain_ms={plain_ms} bound_ms={rows[name]['bound_ms']} "
+          f"({rows[name]['bound_by']}; {in_bytes + out_bytes} B, "
+          f"{ops} ops) library_ms={library_ms}")
+
+
 def kernel_rows(inputs):
     """Each kernel on its main-path inputs: bitwise vs plain, timed."""
     import torch
@@ -406,26 +483,8 @@ def kernel_rows(inputs):
     rows = {}
     inputs_a, inputs_b = inputs["A"], inputs["B"]
 
-    def row(name, cuda_fn, plain_fn, in_bytes, out_bytes, ops, extra=None):
-        got = cuda_fn()
-        want = plain_fn()
-        torch.cuda.synchronize()
-        check(same_outputs(got, want),
-              f"kernel {name} disagrees with its plain version")
-        ms = cuda_ms(cuda_fn)
-        plain_ms = cuda_ms(plain_fn, reps=3, warmup=1)
-        t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / FP32_OPS_PER_S * 1e3
-        rows[name] = dict(
-            name=name, route="cuda", source=SOURCES[name],
-            replaces=REPLACES[name], launches=0, max_abs_err=0,
-            ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None, **(extra or {}))
-        print(f"kernel {name}: bitwise == plain: True  ms={ms} "
-              f"plain_ms={plain_ms} bound_ms={rows[name]['bound_ms']} "
-              f"({rows[name]['bound_by']}; {in_bytes + out_bytes} B, "
-              f"{ops} ops)")
+    def row(*a, **kw):
+        add_row(rows, *a, **kw)
 
     for name, inp in (("dq2d", inputs_a), ("dq1d", inputs_b)):
         work, eb, ndim, n_out = inp["dualquant"][0]
@@ -1064,6 +1123,150 @@ def wire_kernel_rows(inputs, rows):
             phase="Q", layout="words", cases=cases[1:])
 
 
+# -- the staged route and compress_batch (phases T, BATCH) ---------------------
+
+N_SHARDS = 4
+
+
+def run_batch_phases(field, offline, dispatch, CEAZ, CEAZConfig, captured):
+    """BATCH (fused) and BATCH.staged: the field as N_SHARDS shards through
+    ``compress_batch`` and ``decompress_batch`` on the card, counted; each
+    shard's stream equals the CPU run's and its own ``compress``'s, the
+    decoded bytes the CPU run's. -> (counts, inputs, throughput)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.dualquant import value_range
+    shards = list(field.reshape(N_SHARDS, -1))
+    counts, inputs, thr, outs = {}, {}, {}, {}
+    for name, kw in (("BATCH", {}), ("BATCH.staged", dict(use_fused=False))):
+        cfg = dict(mode="rel", eb=1e-4, **kw)
+        gpu = CEAZ(CEAZConfig(device="cuda", **cfg), offline_codebook=offline)
+        cpu = CEAZ(CEAZConfig(device="cpu", **cfg), offline_codebook=offline)
+        captured.clear()
+        torch.cuda.synchronize()
+        dispatch.reset_launches()
+        c_gpu = gpu.compress_batch(shards)
+        y_gpu = gpu.decompress_batch(c_gpu)
+        torch.cuda.synchronize()
+        counts[name] = dispatch.launches()
+        inputs[name] = dict(captured)
+        for k in PHASE_KERNELS[name]:
+            check(counts[name].get(k, 0) > 0,
+                  f"phase {name}: kernel {k} was not launched "
+                  f"({counts[name]})")
+        if name == "BATCH":
+            check(counts[name]["histogram"] == 1
+                  and counts[name]["gather_pack_tiled"] == 1,
+                  f"phase BATCH: not one pass pair ({counts[name]})")
+        c_cpu = cpu.compress_batch(shards)
+        y_cpu = cpu.decompress_batch(c_cpu)
+        for i, s in enumerate(shards):
+            assert_same_stream(c_gpu[i], c_cpu[i], f"phase {name} shard {i}")
+            assert_same_stream(c_gpu[i], gpu.compress(s),
+                               f"phase {name} shard {i} vs its own compress")
+            check(y_gpu[i].tobytes() == y_cpu[i].tobytes(),
+                  f"phase {name} shard {i}: decoded bytes differ from the "
+                  "CPU run")
+            err = float(np.abs(y_gpu[i].astype(np.float64) - s).max())
+            check(err <= 1e-4 * value_range(s),
+                  f"phase {name} shard {i}: max error {err} over the bound")
+        outs[name] = c_gpu
+        enc_s = host_s(lambda: gpu.compress_batch(shards))
+        dec_s = host_s(lambda: gpu.decompress_batch(c_gpu))
+        gb = field.nbytes / 1e9
+        thr[name] = dict(compress_GBps=gb / enc_s, decompress_GBps=gb / dec_s,
+                         compress_s=enc_s, decompress_s=dec_s,
+                         decompress_samples=3)
+        print(f"phase {name}: {N_SHARDS} shards of {shards[0].size} "
+              f"chunks={[len(c.chunks) for c in c_gpu]} ratios="
+              f"{[c.ratio() for c in c_gpu]} launches={counts[name]} "
+              "streams==cpu run==own compress, bytes==cpu run: True")
+    for i in range(N_SHARDS):
+        assert_same_stream(outs["BATCH.staged"][i], outs["BATCH"][i],
+                           f"phase BATCH.staged shard {i} vs BATCH")
+    print("phase BATCH.staged streams == BATCH streams: True")
+    return counts, inputs, thr
+
+
+def staged_kernel_rows(inputs, rows):
+    """The three kernels this route brought: `histogram` at B's and A's
+    shapes beside the torch.bincount call it replaces, `gather_pack` at
+    T.G's chunk, `hufenc` (+ its stitch) at T.A's chunk; both packers
+    held against each other and timed at 2^15, 2^16 and 2^23 of T.E's
+    codes, the two sides of encode_device's rule."""
+    import torch
+    from repro_torch.kernels.histogram import ops as HG
+    from repro_torch.kernels.hufenc import ops as HE
+    cases = []
+    for phase in ("B", "A"):
+        codes2, valid2 = inputs[phase]["histogram"][0]
+        C, n = codes2.shape
+        # the one bincount _chunk_hists made before the kernel, its row
+        # keys built beforehand
+        keys = torch.where(valid2, codes2.to(torch.int64) + NUM_SYMBOLS
+                           * torch.arange(C, device=codes2.device)[:, None],
+                           C * NUM_SYMBOLS).reshape(-1)
+        lib = cuda_ms(lambda: torch.bincount(keys,
+                                             minlength=C * NUM_SYMBOLS + 1))
+        add_row(rows, "histogram", lambda: HG.histogram_cuda(codes2, valid2),
+                lambda: HG.histogram_plain(codes2, valid2),
+                in_bytes=nbytes(codes2, valid2), out_bytes=4 * C * NUM_SYMBOLS,
+                ops=2 * C * n, extra=dict(phase=phase, shape=[C, n]),
+                library_ms=lib)
+        cases.append(dict(rows["histogram"]))
+    rows["histogram"] = dict(cases[0], cases=[
+        {k: cases[1][k] for k in ("phase", "shape", "ms", "plain_ms",
+                                  "bound_ms", "library_ms")}])
+
+    args = inputs["T.G"]["gather_pack"][0]
+    codes2, valid2, ln, cw, bs, w32 = args
+    add_row(rows, "gather_pack", lambda: HE.gather_pack_cuda(*args),
+            lambda: HE.encode_pack_plain(*args),
+            in_bytes=nbytes(codes2, valid2, ln, cw),
+            out_bytes=4 * (w32 + -(-codes2.shape[1] // bs)),
+            ops=8 * codes2.numel(),
+            extra=dict(phase="T.G", values=codes2.shape[1]))
+
+    blocks = inputs["T.A"]["hufenc_blocks"][0]
+    stitch = inputs["T.A"]["hufenc_stitch"][0]
+    codes, ln, cw, bs, max_len = blocks
+    total = stitch[2]
+    add_row(rows, "hufenc",
+            lambda: (*HE.hufenc_blocks_cuda(*blocks),
+                     HE.stitch_cuda(*stitch)),
+            lambda: (*HE.hufenc_blocks_plain(*blocks),
+                     HE.stitch_plain(*stitch)),
+            in_bytes=nbytes(codes, ln, cw),
+            out_bytes=total // 8 + 4 * stitch[1].numel(),
+            ops=8 * codes.numel(),
+            extra=dict(phase="T.A", values=codes.numel(),
+                       blocks_ms=cuda_ms(lambda: HE.hufenc_blocks_cuda(
+                           *blocks)),
+                       stitch_ms=cuda_ms(lambda: HE.stitch_cuda(*stitch))))
+
+    codes, ln, cw, bs, max_len = inputs["T.E"]["hufenc_blocks"][0]
+    crossover = []
+    for n in (1 << 15, 1 << 16, codes.numel()):
+        c = codes[:n]
+        _, nb = HE.hufenc_blocks_cuda(c, ln, cw, bs, max_len)
+        tot = int(nb.sum())
+        n32 = 2 * ((tot + 63) // 64 + 1)
+        one = torch.ones((1, n), dtype=torch.bool, device=c.device)
+        gp = lambda: HE.gather_pack_cuda(c[None], one, ln[None], cw[None],
+                                         bs, n32)
+        hb = lambda: HE.stitch_cuda(*HE.hufenc_blocks_cuda(c, ln, cw, bs,
+                                                           max_len), tot)
+        words, nbits = gp()
+        check(same_outputs((words[0], nbits[0]), (hb(), nb)),
+              f"gather_pack and hufenc_blocks + stitch disagree at {n} "
+              "values")
+        crossover.append(dict(values=n, gather_pack_ms=cuda_ms(gp),
+                              hufenc_ms=cuda_ms(hb)))
+        print(f"packers at {n} values of T.E's codes: gather_pack == "
+              f"hufenc_blocks + stitch: True {crossover[-1]}")
+    rows["gather_pack"]["crossover"] = crossover
+
+
 PHASES = (
     # name, field, facade options (rel eb 1e-4 unless given)
     ("A", "cesm", {}),
@@ -1087,6 +1290,11 @@ PHASES = (
                            chunk_bytes=1 << 19, speculation="off")),
     ("G.bank", "hacc", dict(mode="fixed_ratio", target_ratio=10.0,
                             chunk_bytes=1 << 19, codebook="bank")),
+    # the staged route (use_fused=False, backend 'torch')
+    ("T.A", "cesm", dict(use_fused=False)),
+    ("T.E", "nwchem", dict(use_fused=False, eb=1e-3, predictor="none")),
+    ("T.G", "hacc", dict(use_fused=False, mode="fixed_ratio",
+                         target_ratio=10.0, chunk_bytes=1 << 17)),
 )
 
 
@@ -1149,6 +1357,20 @@ def main():
     assert_same_stream(streams["G.off"][0], streams["G"][0],
                        "phase G vs G.off")
     print("phase G stream == speculation 'off' stream on the card: True")
+    for staged, fused in STAGED_TWINS.items():
+        assert_same_stream(streams[staged][0], streams[fused][0],
+                           f"phase {staged} vs phase {fused} (fused)")
+    fused_kw = {k: v for k, v in kws["T.G"].items() if k != "use_fused"}
+    assert_same_stream(streams["T.G"][0], CEAZ(
+        CEAZConfig(device="cuda", **fused_kw), offline_codebook=offline)
+        .compress(fields["hacc"]), "phase T.G vs the fused route")
+    print("staged streams == fused streams (T.A == A, T.E == E.exact, T.G "
+          "== fused at its settings) on the card: True")
+    c, i, t = run_batch_phases(fields["hacc"], offline, dispatch, CEAZ,
+                               CEAZConfig, captured)
+    counts.update(c)
+    inputs.update(i)
+    thr.update(t)
     for src, name in SPLIT_PHASES.items():
         counts[name], inputs[name], thr[name] = run_split_phase(
             name, *streams[src], kws[src], offline, dispatch, CEAZ,
@@ -1161,6 +1383,11 @@ def main():
     check("ceaz_chunk" in inputs["C.value"]
           and "ceaz_chunk" in inputs["E.bank"]
           and "dq_center" in inputs["E.exact"], "phase E inputs not captured")
+    check(all("histogram" in inputs[p] for p in ("A", "B"))
+          and "gather_pack" in inputs["T.G"]
+          and all(op in inputs["T.A"] and op in inputs["T.E"]
+                  for op in ("hufenc_blocks", "hufenc_stitch")),
+          "phase A/B/T inputs not captured")
     check("lorenzo_quant" in inputs["G"] and "dualquant" in inputs["G.off"]
           and "ceaz_chunk" in inputs["G.bank"]
           and all("hufdec" in inputs[p] for p in SPLIT_PHASES.values()),
@@ -1184,6 +1411,7 @@ def main():
               f"pack/unpack inputs of phase {p} not captured")
 
     rows = kernel_rows(inputs)
+    staged_kernel_rows(inputs, rows)
     window_checks(inputs, rows)
     nonfinite_check()
     center_corner_check()
@@ -1191,12 +1419,14 @@ def main():
     wire_checks()
     for name, r in rows.items():
         r["launches"] = sum(c.get(name, 0) for c in counts.values())
+    rows["hufenc"]["stitch_launches"] = sum(c.get("hufenc_stitch", 0)
+                                            for c in counts.values())
     for name, t in thr.items():
         enc = (f"compress {t['compress_GBps']} GB/s ({t['compress_s']} s), "
                if "compress_s" in t else "")
         print(f"throughput phase {name} [{card}]: {enc}decompress "
-              f"{t['decompress_GBps']} GB/s ({t['decompress_s']} s) "
-              f"of f32 input")
+              f"{t['decompress_GBps']} GB/s ({t['decompress_s']} s, "
+              f"median of {t.get('decompress_samples', 3)}) of f32 input")
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"throughput": thr, "card": card}))
     print(json.dumps({"wire": wire_stats, "card": card}))

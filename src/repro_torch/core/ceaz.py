@@ -1,4 +1,4 @@
-"""CEAZ compressor facade (PyTorch port): the fused routes.
+"""CEAZ compressor facade (PyTorch port): the fused and staged routes.
 
 Same records and policy as the reference facade (``src/repro/core/
 ceaz.py``). Error-bounded modes (``mode='abs'|'rel'``):
@@ -6,15 +6,32 @@ ceaz.py``). Error-bounded modes (``mode='abs'|'rel'``):
 value-direct prediction (``predictor='lorenzo'|'none'|'auto'``).
 Fixed-ratio mode (``mode='fixed_ratio'``) treats the array as a 1-D
 stream of chunks whose bound adapts per chunk so the payload tracks
-``target_ratio``; it ignores ``predictor`` (Lorenzo) and speculates the
-bound chain in windows (``speculation``). Chunks are coded with the
-adaptive chi policy or, with ``codebook='bank'``, with per-chunk books
-selected on the device from an offline CodebookBank (falling back to
-the exact route on drift). The :class:`CEAZCompressed` returned is
-bit-identical to the reference's ``CEAZ(use_fused=True)`` output;
-``decompress`` inverts it through the decode megakernel or, with
+``target_ratio``; it ignores ``predictor`` (Lorenzo). Chunks are coded
+with the adaptive chi policy or, with ``codebook='bank'``, with
+per-chunk books from an offline CodebookBank (falling back to the exact
+route on drift).
+
+Two routes, one stream:
+
+  * fused (``use_fused=True``, the default): batched device passes
+    (``runtime/fused.py``); fixed ratio speculates the bound chain in
+    windows (``speculation``). Bit-identical to the reference's
+    ``CEAZ(use_fused=True)``.
+  * staged (``use_fused=False``): the reference's host-staged loop,
+    chunk by chunk — quantize, histogram, the host policy, Huffman
+    encode, outliers — with the per-value work on ``backend``:
+    ``'torch'`` (the default) runs the kernel ops on ``device`` and is
+    bit-identical to the reference's ``'jax'`` and ``'pallas'`` (and so
+    to the fused route); ``'numpy'`` is the reference's float64/int64
+    host reference, bit-identical to its ``'numpy'``. The two differ
+    where compiled XLA's fused multiply-add in ``x - q*2eb`` rounds once
+    and numpy rounds twice (f32 midpoints).
+
+``decompress`` inverts a stream through the decode megakernel or, with
 ``decode_megakernel='split'``, through the `hufdec` walk and plain
-torch inverse passes.
+torch inverse passes; streams those routes do not take (any stream when
+``use_fused=False``, or an offline codebook whose length limit is not
+16) take the staged host decoder, as in the reference.
 
 The work runs on ``CEAZConfig.device`` — the card unless the caller
 asks for the CPU. Routes of the reference not yet ported raise
@@ -32,8 +49,9 @@ from . import dualquant as dq
 from ..obs import metrics as om
 from ..obs import trace as ot
 from .codebook import (DEFAULT_BANK_DRIFT_TOL, DEFAULT_TAU0, DEFAULT_TAU1,
-                       AdaptiveCoder, BankCoder, CodebookBank)
-from .huffman import NUM_SYMBOLS, Codebook
+                       AdaptiveCoder, AdaptiveDecision, BankCoder,
+                       CodebookBank)
+from .huffman import NUM_SYMBOLS, Codebook, decode, encode
 from .metrics import compression_ratio
 from .ratecontrol import (FixedRatioController, bitrate_from_ratio,
                           calibrate_eb_for_bitrate)
@@ -120,6 +138,13 @@ class CEAZConfig:
     ``kernel_impl`` picks the op implementations from the dispatch
     registry (``kernels/dispatch.py``): ``'auto'`` (the kernels on the
     card, plain PyTorch on the CPU), ``'cuda'`` or ``'torch'``.
+
+    ``use_fused=False`` takes the staged route; its ``backend`` is
+    ``'torch'`` (the kernel ops on ``device``; the reference's ``'jax'``
+    and ``'pallas'``) or ``'numpy'`` (the reference's host reference,
+    run only when asked). The reference defaults to ``'numpy'`` because
+    its staged route is its oracle on the host; the port's staged route
+    exists to run on the card, so it defaults to ``'torch'``.
     """
     mode: str = "rel"                 # 'abs' | 'rel' | 'fixed_ratio'
     eb: float = 1e-4                  # absolute or range-relative bound
@@ -130,8 +155,9 @@ class CEAZConfig:
     tau1: float = DEFAULT_TAU1
     exact_build: bool = False         # True => oracle Huffman
     adaptive: bool = True             # False => always rebuild
+    backend: str = "torch"            # staged route: 'torch' | 'numpy'
     predictor: str = "lorenzo"        # 'lorenzo' | 'none' | 'auto'
-    use_fused: bool = True            # ported: the fused route
+    use_fused: bool = True            # False: the staged route
     # fixed-ratio speculation window: 'auto' (8, then adapted per
     # window), an int >= 1, or 'off' (the sequential loop); the stream
     # never depends on it
@@ -204,9 +230,10 @@ class CEAZ:
 
     def _check_route(self):
         cfg = self.cfg
-        if not cfg.use_fused:
-            _not_ported("the staged route (use_fused=False)",
-                        "Queue 1 item 1")
+        if cfg.backend not in ("torch", "numpy"):
+            raise ValueError(
+                f"backend must be 'torch' or 'numpy', got {cfg.backend!r} "
+                "(the reference's 'jax' and 'pallas' are 'torch' here)")
         if cfg.mode not in ("abs", "rel", "fixed_ratio"):
             raise ValueError(cfg.mode)
         if cfg.predictor not in ("lorenzo", "none", "auto"):
@@ -245,9 +272,8 @@ class CEAZ:
 
         Raises:
           TypeError: non-float dtype.
-          ValueError: unknown ``cfg.mode``, ``cfg.codebook`` or
-            ``cfg.kernel_impl``.
-          NotImplementedError: a route not ported yet.
+          ValueError: unknown ``cfg.mode``, ``cfg.codebook``,
+            ``cfg.backend`` or ``cfg.kernel_impl``.
         """
         x = np.asarray(x)
         if x.dtype not in (np.float32, np.float64):
@@ -288,29 +314,42 @@ class CEAZ:
         return c
 
     def _compress_routed(self, x: np.ndarray, coder) -> CEAZCompressed:
-        """Mode and predictor routing for one array, under a given coder:
-        the single-pass bank route for a BankCoder, the exact route
-        else."""
-        from ..runtime import fused
+        """Mode, route and predictor routing for one array, under a
+        given coder."""
         if self.cfg.mode == "fixed_ratio":
             return self._compress_fixed_ratio(x, coder)
         eb = self._abs_eb(x)
         pred = self._pick_predictor(x, eb)
+        if not self.cfg.use_fused:
+            if pred == "none":
+                return self._compress_eb_direct(x, coder)
+            return self._compress_eb(x, coder)
+        return self._compress_eb_fused(x, pred, coder, eb)
+
+    def _compress_eb_fused(self, x: np.ndarray, predictor: str,
+                           coder=None, eb: Optional[float] = None
+                           ) -> CEAZCompressed:
+        """The fused abs/rel route: the single-pass bank route for a
+        BankCoder, the exact two-pass route else."""
+        from ..runtime import fused
+        coder = coder if coder is not None else self._coder()
+        eb = self._abs_eb(x) if eb is None else eb
         chunk_values = self._chunk_values(x.dtype.itemsize * 8)
         if isinstance(coder, BankCoder):
             return fused.compress_error_bounded_bank(
                 x, eb, self.cfg.mode, coder, chunk_values,
                 self.cfg.block_size, device=self.device,
-                kernel_impl=self.cfg.kernel_impl, predictor=pred)
+                kernel_impl=self.cfg.kernel_impl, predictor=predictor)
         return fused.compress_error_bounded(
             x, eb, self.cfg.mode, coder, chunk_values, self.cfg.block_size,
             device=self.device, adaptive=self.cfg.adaptive,
             exact_build=self.cfg.exact_build,
-            kernel_impl=self.cfg.kernel_impl, predictor=pred)
+            kernel_impl=self.cfg.kernel_impl, predictor=predictor)
 
     def _compress_fixed_ratio(self, x: np.ndarray, coder) -> CEAZCompressed:
         """The bound chain starts from the rate law calibrated on the
-        first chunk; the runtime steps the controller per chunk."""
+        first chunk; each chunk's achieved bit-rate steps the controller
+        (the fused route speculates the chain in windows)."""
         from ..runtime import fused
         word_bits = x.dtype.itemsize * 8
         flat = x.reshape(-1)
@@ -318,14 +357,225 @@ class CEAZ:
         cv = self._chunk_values(word_bits)
         eb = calibrate_eb_for_bitrate(flat[:min(len(flat), cv)], target_b, 1)
         ctrl = FixedRatioController(target_bitrate=target_b, eb=eb)
-        return fused.compress_fixed_ratio(
-            x, ctrl, coder, cv, self.cfg.block_size, device=self.device,
-            adaptive=self.cfg.adaptive, exact_build=self.cfg.exact_build,
-            kernel_impl=self.cfg.kernel_impl,
-            speculation=self.cfg.speculation)
+        if self.cfg.use_fused:
+            return fused.compress_fixed_ratio(
+                x, ctrl, coder, cv, self.cfg.block_size, device=self.device,
+                adaptive=self.cfg.adaptive,
+                exact_build=self.cfg.exact_build,
+                kernel_impl=self.cfg.kernel_impl,
+                speculation=self.cfg.speculation)
+        src = self._staged_input(flat)
+        chunks, lit_idx, lit_val = [], [], []
+        for s in range(0, len(flat), cv):
+            e = min(s + cv, len(flat))
+            codes, outlier, delta = self._dual_quantize(src[s:e], ctrl.eb, 1)
+            ch = self._encode_chunk(codes, delta, outlier, ctrl.eb, coder)
+            rec = dq.np_dequantize(_host(delta), ctrl.eb, 1, dtype=x.dtype)
+            viol = np.flatnonzero(np.abs(rec.astype(np.float64)
+                                         - flat[s:e].astype(np.float64))
+                                  > ctrl.eb)
+            lit_idx.append(viol + s)
+            lit_val.append(flat[s:e][viol])
+            chunks.append(ch)
+            ctrl.feedback(ch.total_bits() / ch.n_values)
+        return CEAZCompressed(shape=x.shape, dtype=str(x.dtype), ndim=1,
+                              mode="fixed_ratio", chunks=chunks,
+                              word_bits=word_bits,
+                              literal_idx=np.concatenate(lit_idx)
+                              .astype(np.int64),
+                              literal_val=np.concatenate(lit_val))
 
-    def compress_batch(self, shards, plan=None):
-        _not_ported("compress_batch (batch_compress)", "Queue 1 item 2")
+    # -- the staged route (use_fused=False) ------------------------------------
+    def _staged_input(self, a: np.ndarray):
+        """The staged route's input: the host array itself on 'numpy',
+        its f32 cast on the facade's device on 'torch'."""
+        if self.cfg.backend == "numpy":
+            return a
+        return torch.from_numpy(np.ascontiguousarray(
+            a, dtype=np.float32)).to(self.device)
+
+    def _dual_quantize(self, work, eb: float, ndim: int):
+        """-> (codes, outlier, delta) of the work field: numpy arrays of
+        its shape on 'numpy' (int64 delta), flat tensors on its device
+        through the `dualquant` op on 'torch' (int32 delta)."""
+        if self.cfg.backend == "numpy":
+            return dq.np_dual_quantize(work, eb, ndim)
+        from ..runtime import fused
+        codes2, outl2, delta2, _, _ = fused._quantize_pass(
+            work, eb, ndim, 1, work.numel(), self.cfg.kernel_impl)
+        return codes2[0], outl2[0], delta2[0]
+
+    def _value_quantize(self, chunk, eb: float):
+        """Per-chunk value-direct quantization: the float64/int64 host
+        reference on 'numpy', the runtime's value-direct ops (f32
+        quantize, `dq_center`, finalize) on 'torch' — the fused route
+        batches the same ops, so the two routes agree bit for bit."""
+        if self.cfg.backend == "numpy":
+            return dq.np_value_quantize(chunk, eb)
+        return dq.value_quantize_tensors(chunk, eb, self.cfg.kernel_impl)
+
+    def _encode_chunk(self, codes_flat, delta_flat, outlier_flat, eb: float,
+                      coder) -> CompressedChunk:
+        """One chunk: its histogram, the host policy, the Huffman
+        encode and the outlier escapes — numpy on 'numpy'; the
+        `histogram` op, ``encode_device`` and a device compaction on
+        'torch'."""
+        from ..kernels.hufenc.ops import encode_device
+        from ..runtime import fused
+        bs = self.cfg.block_size
+        impl = self.cfg.kernel_impl
+        numpy = self.cfg.backend == "numpy"
+        if numpy:
+            freqs = np.bincount(codes_flat, minlength=NUM_SYMBOLS)
+        else:
+            freqs = fused._chunk_hists(
+                codes_flat[None], torch.ones_like(codes_flat[None],
+                                                  dtype=torch.bool),
+                impl)[0].cpu().numpy().astype(np.int64)
+        if isinstance(coder, BankCoder) or self.cfg.adaptive:
+            decision = coder.step(freqs)
+        else:
+            cb = Codebook.from_freqs(freqs, exact=self.cfg.exact_build)
+            decision = AdaptiveDecision("rebuild", 0.0, cb, True)
+        if numpy:
+            words, block_nbits, _ = encode(codes_flat, decision.codebook, bs)
+            oidx = np.flatnonzero(outlier_flat)
+            odelta = delta_flat[oidx]
+        else:
+            words, block_nbits, _ = encode_device(
+                codes_flat, decision.codebook, bs, freqs=freqs,
+                kernel_impl=impl)
+            oidx_t = torch.nonzero(outlier_flat).reshape(-1)
+            odelta = delta_flat[oidx_t].cpu().numpy()
+            oidx = oidx_t.cpu().numpy()
+        return CompressedChunk(
+            words=words, block_nbits=block_nbits, n_values=len(codes_flat),
+            eb=eb, action=decision.action, chi=decision.chi,
+            codebook_lengths=(decision.codebook.lengths.copy()
+                              if decision.stored_codebook else None),
+            codebook_id=decision.codebook.id,
+            outlier_idx=oidx.astype(np.int64),
+            outlier_delta=odelta.astype(np.int32),
+            bank_ref=decision.bank_ref, bank_index=decision.bank_index)
+
+    def _compress_eb(self, x: np.ndarray, coder) -> CEAZCompressed:
+        """Staged Lorenzo: quantize the whole array (native rank <= 3),
+        encode it chunk by chunk, and replay the float64 reconstruction
+        on the host for the literal channel."""
+        word_bits = x.dtype.itemsize * 8
+        ndim = min(x.ndim, 3)
+        work = x if x.ndim <= 3 else x.reshape((-1,) + x.shape[-2:])
+        eb = self._abs_eb(x)
+        codes, outlier, delta = self._dual_quantize(
+            self._staged_input(work), eb, ndim)
+        codes_f = codes.reshape(-1)
+        delta_f = delta.reshape(-1)
+        outl_f = outlier.reshape(-1)
+        cv = self._chunk_values(word_bits)
+        chunks = []
+        for s in range(0, len(codes_f), cv):
+            e = min(s + cv, len(codes_f))
+            chunks.append(self._encode_chunk(codes_f[s:e], delta_f[s:e],
+                                             outl_f[s:e], eb, coder))
+        rec = dq.np_dequantize(_host(delta).reshape(work.shape), eb, ndim,
+                               dtype=x.dtype).reshape(-1)
+        viol = np.flatnonzero(np.abs(rec.astype(np.float64)
+                                     - x.reshape(-1).astype(np.float64)) > eb)
+        return CEAZCompressed(shape=x.shape, dtype=str(x.dtype), ndim=ndim,
+                              mode=self.cfg.mode, chunks=chunks,
+                              word_bits=word_bits,
+                              literal_idx=viol.astype(np.int64),
+                              literal_val=x.reshape(-1)[viol].copy())
+
+    def _compress_eb_direct(self, x: np.ndarray, coder) -> CEAZCompressed:
+        """Staged value-direct (predictor='none'): each chunk quantized
+        against its own centre code."""
+        word_bits = x.dtype.itemsize * 8
+        flat = x.reshape(-1)
+        eb = self._abs_eb(x)
+        cv = self._chunk_values(word_bits)
+        src = self._staged_input(flat)
+        chunks, lit_idx, lit_val = [], [], []
+        for s in range(0, len(flat), cv):
+            e = min(s + cv, len(flat))
+            codes, outlier, delta, center = self._value_quantize(src[s:e], eb)
+            ch = self._encode_chunk(codes.reshape(-1), delta.reshape(-1),
+                                    outlier.reshape(-1), eb, coder)
+            ch.center = center
+            rec = dq.np_value_dequantize(_host(delta), center, eb,
+                                         dtype=x.dtype)
+            viol = np.flatnonzero(
+                np.abs(rec.astype(np.float64)
+                       - flat[s:e].astype(np.float64)) > eb)
+            lit_idx.append(viol + s)
+            lit_val.append(flat[s:e][viol])
+            chunks.append(ch)
+        return CEAZCompressed(
+            shape=x.shape, dtype=str(x.dtype), ndim=1, mode=self.cfg.mode,
+            chunks=chunks, word_bits=word_bits, predictor="none",
+            literal_idx=np.concatenate(lit_idx).astype(np.int64),
+            literal_val=np.concatenate(lit_val))
+
+    # -- batches ---------------------------------------------------------------
+    def compress_batch(self, shards, plan=None) -> List[CEAZCompressed]:
+        """Compress a sequence of shards under this facade's policy.
+
+        With ``use_fused``, error-bounded shards are grouped by (shape,
+        dtype, resolved predictor) and every group of two or more runs
+        as ONE pass pair (``runtime/fused.py::batch_compress``), each
+        shard with its own adaptive coder. Everything left over (ragged
+        shapes, singletons, bank mode, fixed ratio, ``use_fused=False``)
+        takes per-shard :meth:`compress` (or the fused route directly
+        for a singleton whose predictor is already resolved). Returns
+        one stream per shard, in order, each bit-identical to the
+        shard's own :meth:`compress`.
+
+        ``plan``: None, or a plan without a mesh. Raises
+        NotImplementedError for a plan that carries a mesh, else as
+        :meth:`compress`.
+        """
+        if plan is not None and getattr(plan, "mesh", None) is not None:
+            _not_ported("compress_batch over a mesh plan "
+                        "(runtime/sharding.py)", "Queue 1 item 3")
+        from ..runtime import fused
+        shards = [np.asarray(s) for s in shards]
+        out: List[Optional[CEAZCompressed]] = [None] * len(shards)
+        preds: dict = {}               # probe once; leftovers reuse it
+        if self.cfg.use_fused and self.cfg.mode in ("abs", "rel") \
+                and not self._bank_mode():
+            self._check_route()
+            # bank mode routes per shard through compress(): the drift
+            # fallback decides per array
+            groups: dict = {}
+            for i, s in enumerate(shards):
+                if s.dtype not in (np.float32, np.float64) or s.size == 0:
+                    continue        # compress() raises/handles below
+                preds[i] = self._pick_predictor(s, self._abs_eb(s))
+                groups.setdefault((s.shape, s.dtype, preds[i]),
+                                  []).append(i)
+            for (_, dtype, pred), idxs in groups.items():
+                if len(idxs) < 2:
+                    continue        # per-shard fused compress below
+                with ot.span("ceaz.batch_fused_pass", n=len(idxs),
+                             predictor=pred):
+                    outs = fused.batch_compress(
+                        [shards[i] for i in idxs], self.cfg.eb,
+                        self._chunk_values(dtype.itemsize * 8),
+                        self.cfg.block_size, self.offline,
+                        mode=self.cfg.mode, device=self.device,
+                        tau0=self.cfg.tau0, tau1=self.cfg.tau1,
+                        adaptive=self.cfg.adaptive,
+                        exact_build=self.cfg.exact_build,
+                        kernel_impl=self.cfg.kernel_impl, predictor=pred)
+                for i, c in zip(idxs, outs):
+                    out[i] = c
+        # counters: shards routed through compress() count there;
+        # batched / per-shard fused results count here
+        return [self._note_compressed(s, c) if c is not None
+                else (self._note_compressed(
+                          s, self._compress_eb_fused(s, preds[i]))
+                      if i in preds else self.compress(s))
+                for i, (c, s) in enumerate(zip(out, shards))]
 
     # -- decode side -----------------------------------------------------------
     def decompress(self, c: CEAZCompressed) -> np.ndarray:
@@ -338,33 +588,24 @@ class CEAZ:
         return self.decompress_batch([c])[0]
 
     def decompress_batch(self, comps) -> List[np.ndarray]:
-        """Decode a sequence of streams; all eligible streams share ONE
-        batched pass: the `ceaz_chunk_dec` op, or with
-        ``decode_megakernel='split'`` the `hufdec` walk. Returns arrays
-        in input order."""
+        """Decode a sequence of streams. With ``use_fused``, all
+        eligible streams share ONE batched pass: the `ceaz_chunk_dec`
+        op, or with ``decode_megakernel='split'`` the `hufdec` walk; the
+        rest take the staged host decoder. Returns arrays in input
+        order."""
         comps = list(comps)
         dmk = self.cfg.decode_megakernel
         if dmk not in ("auto", "mega", "split"):
             raise ValueError(f"unknown decode_megakernel {dmk!r}; choose "
                              "from ('auto', 'mega', 'split')")
-        if not self.cfg.use_fused:
-            _not_ported("the staged route (use_fused=False)",
-                        "Queue 1 item 1")
         from ..runtime import fused_decode as FD
         out: List[Optional[np.ndarray]] = [None] * len(comps)
         with ot.span("ceaz.decompress_batch", n=len(comps)):
-            idx = []
-            for i, c in enumerate(comps):
-                if not c.chunks:                 # empty stream: zero values
-                    out[i] = np.zeros(c.shape, dtype=np.dtype(c.dtype))
-                elif FD.fused_decode_ok(c, self.offline):
-                    self._check_block_size(c)
-                    idx.append(i)
-                else:
-                    # the reference decodes these on its staged route
-                    _not_ported(f"decoding {c.mode}/{c.predictor} "
-                                f"{c.dtype} streams (the staged decoder)",
-                                "Queue 1 item 1")
+            idx = ([i for i, c in enumerate(comps)
+                    if FD.fused_decode_ok(c, self.offline)]
+                   if self.cfg.use_fused else [])
+            for i in idx:
+                self._check_block_size(comps[i])
             if idx:
                 dec = FD.decompress_batch(
                     [comps[i] for i in idx], self.cfg.block_size,
@@ -373,6 +614,10 @@ class CEAZ:
                     megakernel=dmk != "split")
                 for i, a in zip(idx, dec):
                     out[i] = a
+            # the rest (empty streams, use_fused off, books the fused
+            # routes do not take) decode on the staged host route
+            out = [a if a is not None else self._decompress_staged(c)
+                   for a, c in zip(out, comps)]
         for c, a in zip(comps, out):
             om.add(om.DECODED_CHUNKS, len(c.chunks))
             om.add(om.DECODED_BYTES, int(a.nbytes))
@@ -390,3 +635,42 @@ class CEAZ:
                     f"chunk {i} has {len(ch.block_nbits)} blocks for "
                     f"{ch.n_values} values (expected {expect}); pass the "
                     "block_size the stream was compressed with")
+
+    def _decompress_staged(self, c: CEAZCompressed) -> np.ndarray:
+        """The host-staged decoder (the reference's bit-exactness
+        oracle): the table walk of ``huffman.decode`` per chunk, the
+        outlier patch and the float64 inverse, all numpy."""
+        from .huffman import replay_codebooks
+        self._check_block_size(c)
+        out_dtype = np.dtype(c.dtype)
+        if not c.chunks:                     # empty stream: zero values
+            return np.zeros(c.shape, dtype=out_dtype)
+        books = replay_codebooks(c.chunks, self.offline, bank=self.bank)
+        deltas = []
+        for ch, cb in zip(c.chunks, books):
+            codes = decode(ch.words, ch.block_nbits, ch.n_values,
+                           self.cfg.block_size, cb)
+            d = codes.astype(np.int64) - dq.RADIUS
+            d[ch.outlier_idx] = ch.outlier_delta
+            deltas.append(d)
+        if c.predictor == "none":
+            rec = np.concatenate([
+                dq.np_value_dequantize(d, ch.center, ch.eb, dtype=out_dtype)
+                for d, ch in zip(deltas, c.chunks)])
+        elif c.mode in ("abs", "rel"):
+            work_shape = (c.shape if len(c.shape) <= 3
+                          else (-1,) + c.shape[-2:])
+            rec = dq.np_dequantize(np.concatenate(deltas).reshape(work_shape),
+                                   c.chunks[0].eb, c.ndim,
+                                   dtype=out_dtype).reshape(-1)
+        else:
+            rec = np.concatenate([
+                dq.np_dequantize(d, ch.eb, 1, dtype=out_dtype)
+                for d, ch in zip(deltas, c.chunks)])
+        rec[c.literal_idx] = c.literal_val.astype(out_dtype)
+        return rec.reshape(c.shape)
+
+
+def _host(a) -> np.ndarray:
+    """A staged-route array on the host (a device tensor's copy)."""
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else a

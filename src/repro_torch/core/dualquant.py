@@ -159,10 +159,21 @@ def value_quantize(x, eb: float, kernel_impl: str = "auto", device="cuda"):
     flat = torch.from_numpy(np.ascontiguousarray(
         np.asarray(x).reshape(-1), dtype=np.float32)).to(
             fused.target_device(device))
+    codes, outl, delta, center = value_quantize_tensors(flat, eb,
+                                                        kernel_impl)
+    return (codes.cpu().numpy(), outl.cpu().numpy(), delta.cpu().numpy(),
+            center)
+
+
+def value_quantize_tensors(flat: torch.Tensor, eb: float,
+                           kernel_impl: str = "auto"):
+    """:func:`value_quantize` of a flat f32 tensor, leaving the codes,
+    outlier flags and deltas on its device (the staged route packs them
+    there). -> (codes int32, outlier bool, delta int32, center int)."""
+    from ..runtime import fused
     _, codes2, outl2, delta2, _, centers, _ = fused._value_pass(
         flat, eb, 1, flat.numel(), kernel_impl)
-    return (codes2[0].cpu().numpy(), outl2[0].cpu().numpy(),
-            delta2[0].cpu().numpy(), int(centers[0]))
+    return codes2[0], outl2[0], delta2[0], int(centers[0])
 
 
 # ---------------------------------------------------------------------------

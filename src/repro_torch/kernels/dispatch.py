@@ -24,6 +24,15 @@ Op calling conventions (tensors on one device):
       to n_out; q the flat prequantized field (n values)
   hufenc(codes2, valid2, lengths_tbl, cwords_tbl, block_size, w32)
       -> (words (C, w32) int32 holding u32 bits, block_nbits (C, nblocks))
+  gather_pack(...) the same call and output in one launch, one CTA a row
+  hufenc_blocks(codes, lengths, cwords, block_size, max_len)
+      -> (rows (nblocks, R) int32 holding u32 bits, nbits (nblocks,))
+  hufenc_stitch(rows, nbits, total_bits) -> words (2*(nwords+1),) int32
+      the staged route's per-block packer and the stitch of its rows into
+      the host stream (kernels/hufenc/ops.py)
+  histogram(codes2, valid2) -> hists (C, 1024) int32
+      per-row histograms of the valid codes in [0, 1024)
+      (kernels/histogram/ops.py)
   ceaz_chunk_dec(words2, nbits2, counts, sym2, len2, cb_idx, odelta2,
                  base, seg0, islor, block_size) -> q (C, NB*block_size)
       the decode megakernel op; see kernels/megakernel/ops.py
@@ -194,6 +203,12 @@ for _op, _module, _plain, _cuda in (
         ("dualquant", "dualquant.ops", "dual_quantize_plain",
          "dual_quantize_cuda"),
         ("hufenc", "hufenc.ops", "encode_pack_plain", "encode_pack_cuda"),
+        ("gather_pack", "hufenc.ops", "encode_pack_plain",
+         "gather_pack_cuda"),
+        ("hufenc_blocks", "hufenc.ops", "hufenc_blocks_plain",
+         "hufenc_blocks_cuda"),
+        ("hufenc_stitch", "hufenc.ops", "stitch_plain", "stitch_cuda"),
+        ("histogram", "histogram.ops", "histogram_plain", "histogram_cuda"),
         ("ceaz_chunk_dec", "megakernel.ops", "ceaz_chunk_dec_plain",
          "ceaz_chunk_dec_cuda"),
         ("hufdec", "hufdec.ops", "hufdec_plain", "hufdec_cuda"),

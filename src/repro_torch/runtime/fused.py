@@ -1,16 +1,16 @@
 """Fused CEAZ encode: the exact two-pass route and the single-pass bank
-route, abs/rel, Lorenzo or value-direct prediction, and fixed-ratio
-mode on either coder.
+route, abs/rel, Lorenzo or value-direct prediction, fixed-ratio mode on
+either coder, and batches of same-shape shards.
 
 Port of the reference's ``runtime/fused.py::compress_error_bounded``,
-``compress_error_bounded_bank`` and ``compress_fixed_ratio`` on torch
-tensors. The exact route:
+``compress_error_bounded_bank``, ``compress_fixed_ratio`` and
+``batch_compress`` on torch tensors. The exact route:
 
   pass 1  — the `dualquant` op quantizes the WHOLE array (native-rank
             global Lorenzo) into the chunked layout and yields the
             prequantized field q the literal check replays; per-chunk
-            histograms (and, on the card, literal candidates) are the
-            only summaries that reach the host.
+            histograms (on the card the `histogram` op, with the literal
+            candidates) are the only summaries that reach the host.
   host    — the chi / codebook policy (AdaptiveCoder) on the histograms.
   pass 2  — the `hufenc` op gather-packs every chunk against its own
             codebook; payload words and block bit counts come back in one
@@ -57,9 +57,11 @@ import numpy as np
 import torch
 
 from ..core import dualquant as core_dq
-from ..core.codebook import AdaptiveCoder, AdaptiveDecision, BankCoder
+from ..core.codebook import (DEFAULT_TAU0, DEFAULT_TAU1, AdaptiveCoder,
+                             AdaptiveDecision, BankCoder)
 from ..core.huffman import DEFAULT_MAX_LEN, NUM_SYMBOLS, Codebook
 from ..kernels import dispatch
+from ..kernels.hufenc.ops import u32_to_u64
 from ..obs import metrics as om
 from ..obs import trace as ot
 
@@ -131,16 +133,12 @@ def _extract_sparse(mask: torch.Tensor, values: torch.Tensor):
     return idx, values[idx]
 
 
-def _chunk_hists(codes2, valid2) -> torch.Tensor:
-    """Per-chunk histograms of the valid codes as one device bincount."""
-    n_chunks = codes2.shape[0]
-    rows = torch.arange(n_chunks, device=codes2.device)[:, None] * NUM_SYMBOLS
-    # padding lands in one extra bin past the last chunk's
-    keys = torch.where(valid2, rows + codes2.to(torch.int64),
-                       n_chunks * NUM_SYMBOLS)
-    hists = torch.bincount(keys.reshape(-1),
-                           minlength=n_chunks * NUM_SYMBOLS + 1)
-    return hists[:n_chunks * NUM_SYMBOLS].reshape(n_chunks, NUM_SYMBOLS)
+def _chunk_hists(codes2, valid2, kernel_impl: str) -> torch.Tensor:
+    """Per-chunk histograms of the valid codes: the `histogram` op."""
+    dev = codes2.device
+    hist = dispatch.resolve("histogram", kernel_impl, dev)
+    with dispatch.measure("histogram", kernel_impl, dev):
+        return hist(codes2, valid2)
 
 
 def _literal_candidates(q, work, eb32):
@@ -202,11 +200,11 @@ def _finish_pass1(codes2, outl2, delta2, valid2, q, work, eb,
 
     q and work are the flat stream, or (rows, cv) chunk rows with `eb` a
     (rows, 1) f32 tensor of per-row bounds (a fixed-ratio window);
-    `hists`, when the pass produced them, is a tensor or an array."""
+    `hists`, when the pass or the device-stats branch produced them, is
+    a tensor or an array (else the host snapshot counts them)."""
     n = q.numel()
     if hists is None:
-        hists = (_chunk_hists(codes2, valid2) if stats_on_device
-                 else _host_hists(codes2.cpu().numpy(), n))
+        hists = _host_hists(codes2.cpu().numpy(), n)
     if isinstance(hists, torch.Tensor):
         hists = hists.cpu().numpy()
     p1 = _Pass1(codes2, outl2, delta2, valid2, q, hists.astype(np.int64),
@@ -230,8 +228,10 @@ def _run_pass1(work: torch.Tensor, eb: float, ndim: int, chunk_values: int,
     n_chunks, _ = chunk_layout(work.numel(), chunk_values)
     codes2, outl2, delta2, valid2, q = _quantize_pass(
         work, eb, ndim, n_chunks, chunk_values, kernel_impl)
+    hists = (_chunk_hists(codes2, valid2, kernel_impl) if stats_on_device
+             else None)
     return _finish_pass1(codes2, outl2, delta2, valid2, q, work.reshape(-1),
-                         eb, chunk_values, stats_on_device)
+                         eb, chunk_values, stats_on_device, hists=hists)
 
 
 def _chunk_rows(flat: torch.Tensor, n_chunks: int, chunk_values: int):
@@ -252,14 +252,12 @@ def _row_ebs(ebs, device) -> torch.Tensor:
     return torch.tensor(ebs, dtype=torch.float32, device=device)
 
 
-def _value_pass(flat: torch.Tensor, eb: float, n_chunks: int,
-                chunk_values: int, kernel_impl: str):
-    """Value-direct pass 1 over chunk rows: quantize, centre each row on
-    its median, code against the centre. -> (q2, codes2, outl2, delta2,
-    valid2, centers, hists)."""
-    dev = flat.device
-    work2, valid2 = _chunk_rows(flat, n_chunks, chunk_values)
-    ebs = _row_ebs([eb] * n_chunks, dev)
+def _value_rows(work2: torch.Tensor, valid2: torch.Tensor, ebs,
+                kernel_impl: str):
+    """Value-direct pass 1 over chunk rows at one f32 bound each:
+    quantize, centre each row on its median, code against the centre.
+    -> (q2, codes2, outl2, delta2, centers, hists)."""
+    dev = work2.device
     vquant, center, vfinal = (
         dispatch.resolve(op, kernel_impl, dev)
         for op in ("value_quant", "dq_center", "value_finalize"))
@@ -269,6 +267,16 @@ def _value_pass(flat: torch.Tensor, eb: float, n_chunks: int,
         centers = center(q2, valid2)
     with dispatch.measure("value_finalize", kernel_impl, dev):
         q2, codes2, outl2, delta2, hists = vfinal(q2, valid2, centers)
+    return q2, codes2, outl2, delta2, centers, hists
+
+
+def _value_pass(flat: torch.Tensor, eb: float, n_chunks: int,
+                chunk_values: int, kernel_impl: str):
+    """Value-direct pass 1 over the chunk rows of one flat stream.
+    -> (q2, codes2, outl2, delta2, valid2, centers, hists)."""
+    work2, valid2 = _chunk_rows(flat, n_chunks, chunk_values)
+    q2, codes2, outl2, delta2, centers, hists = _value_rows(
+        work2, valid2, _row_ebs([eb] * n_chunks, flat.device), kernel_impl)
     return q2, codes2, outl2, delta2, valid2, centers, hists
 
 
@@ -375,12 +383,6 @@ def _encode_rows(hists: np.ndarray, codes2, valid2, chunk_values: int,
             totals)
 
 
-def _u32_to_u64(u32: np.ndarray) -> np.ndarray:
-    """Fold MSB-first u32 pairs into the u64 wire words."""
-    return ((u32[0::2].astype(np.uint64) << np.uint64(32))
-            | u32[1::2].astype(np.uint64))
-
-
 def _assemble_chunks(p1: _Pass1, words_np, nbits_np, totals, outliers,
                      eb, decisions, block_size: int) -> List:
     """Host CompressedChunk records from the batched transfers; `eb` is
@@ -391,7 +393,7 @@ def _assemble_chunks(p1: _Pass1, words_np, nbits_np, totals, outliers,
     for i, decision in enumerate(decisions):
         n_i = _chunk_len(p1, i)
         nw64 = (int(totals[i]) + 63) // 64
-        words = _u32_to_u64(words_np[i, :2 * (nw64 + 1)])
+        words = u32_to_u64(words_np[i, :2 * (nw64 + 1)])
         nblocks = max(1, -(-n_i // block_size))
         oi, od = outliers[i]
         chunks.append(CompressedChunk(
@@ -566,7 +568,7 @@ def _bank_pass(work, eb: float, ndim: int, n_chunks: int, chunk_values: int,
     dev = work.device
     codes2, outl2, delta2, valid2, q = _quantize_pass(
         work, eb, ndim, n_chunks, chunk_values, kernel_impl)
-    hists = _chunk_hists(codes2, valid2).to(torch.int32)
+    hists = _chunk_hists(codes2, valid2, kernel_impl)
     select = dispatch.resolve("bank_select", kernel_impl, dev)
     with dispatch.measure("bank_select", kernel_impl, dev):
         sel, totals, ln_sel, cw_sel = select(hists, bank_lengths,
@@ -896,3 +898,92 @@ def compress_fixed_ratio(x: np.ndarray, ctrl, coder: AdaptiveCoder,
                           literal_idx=np.concatenate(lit_idx_parts)
                           .astype(np.int64),
                           literal_val=np.concatenate(lit_val_parts))
+
+
+# ---------------------------------------------------------------------------
+# Batched compression of same-shape shards: one pass pair for a group
+# ---------------------------------------------------------------------------
+
+def batch_compress(shards, eb_rel: float, chunk_values: int, block_size: int,
+                   offline: Codebook, mode: str = "rel", device="cuda",
+                   stats_on_device: Optional[bool] = None,
+                   tau0: float = DEFAULT_TAU0, tau1: float = DEFAULT_TAU1,
+                   adaptive: bool = True, exact_build: bool = False,
+                   kernel_impl: str = "auto", predictor: str = "lorenzo"):
+    """Compress same-shape, same-dtype shards through one pass pair on
+    `device` (the card unless the caller asks for the CPU).
+
+    Pass 1 quantizes every shard at its own bound (rel: `eb_rel` times
+    the shard's value range): the `dualquant` op once a shard for
+    Lorenzo (each shard its own Lorenzo field), or ONE value-direct pass
+    over all shards' chunk rows. The histograms of all chunk rows come
+    from one `histogram` launch (value-direct: from the finalize), each
+    shard keeps its own AdaptiveCoder stream, and ONE `hufenc` pack
+    covers every shard's chunks. Each result equals the shard's own
+    ``compress_error_bounded`` bit for bit (the reference's
+    ``runtime/fused.py::batch_compress``).
+    """
+    from ..core.ceaz import CEAZCompressed
+    if len({s.shape for s in shards}) != 1:
+        raise ValueError("batch_compress requires same-shape shards")
+    if len({s.dtype for s in shards}) != 1:
+        raise ValueError("batch_compress requires same-dtype shards")
+    dev = target_device(device)
+    if stats_on_device is None:
+        stats_on_device = dev.type != "cpu"
+    ebs = [eb_rel * core_dq.value_range(s) if mode == "rel" else eb_rel
+           for s in shards]
+    n = int(shards[0].size)
+    chunk_values = max(1, min(chunk_values, n))
+    n_chunks, _ = chunk_layout(n, chunk_values)
+    works = [_work(s, predictor, dev) for s in shards]
+    ndim = works[0][1]
+    works = [w for w, _ in works]
+    rows = lambda si: slice(si * n_chunks, (si + 1) * n_chunks)
+    p1s: List[_Pass1] = []
+    if predictor == "none":
+        parts = [_chunk_rows(w.reshape(-1), n_chunks, chunk_values)
+                 for w in works]
+        valid2 = torch.cat([v for _, v in parts])
+        q2, codes2, outl2, delta2, centers, hists = _value_rows(
+            torch.cat([w for w, _ in parts]), valid2,
+            _row_ebs([e for e in ebs for _ in range(n_chunks)], dev),
+            kernel_impl)
+        for si, w in enumerate(works):
+            sl = rows(si)
+            p1s.append(_finish_pass1(
+                codes2[sl], outl2[sl], delta2[sl], valid2[sl],
+                q2[sl].reshape(-1)[:n], w.reshape(-1), ebs[si],
+                chunk_values, stats_on_device, hists=hists[sl],
+                predictor="none", centers=centers[sl]))
+    else:
+        passes = [_quantize_pass(w, ebs[si], ndim, n_chunks, chunk_values,
+                                 kernel_impl) for si, w in enumerate(works)]
+        codes2 = torch.cat([p[0] for p in passes])
+        valid2 = torch.cat([p[3] for p in passes])
+        hists = (_chunk_hists(codes2, valid2, kernel_impl)
+                 if stats_on_device else None)
+        for si, (c2, o2, d2, v2, q) in enumerate(passes):
+            p1s.append(_finish_pass1(
+                c2, o2, d2, v2, q, works[si].reshape(-1), ebs[si],
+                chunk_values, stats_on_device,
+                hists=None if hists is None else hists[rows(si)]))
+    decisions = [_policy(p.hists, AdaptiveCoder(offline, tau0, tau1,
+                                                exact_build),
+                         adaptive, exact_build) for p in p1s]
+    words_np, nbits_np, totals = _encode_rows(
+        np.concatenate([p.hists for p in p1s]), codes2, valid2,
+        chunk_values, [d for ds in decisions for d in ds], block_size,
+        kernel_impl)
+    outs = []
+    for si, s in enumerate(shards):
+        sl = rows(si)
+        chunks = _assemble_chunks(p1s[si], words_np[sl], nbits_np[sl],
+                                  totals[sl], _outliers(p1s[si]), ebs[si],
+                                  decisions[si], block_size)
+        lit_idx, lit_val = _literals(p1s[si], s.reshape(-1), ebs[si])
+        outs.append(CEAZCompressed(
+            shape=s.shape, dtype=str(s.dtype), ndim=ndim, mode=mode,
+            chunks=chunks, word_bits=s.dtype.itemsize * 8,
+            predictor=predictor, literal_idx=lit_idx, literal_val=lit_val))
+    return outs

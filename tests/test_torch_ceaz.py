@@ -180,14 +180,27 @@ def test_facade_runs_on_the_card_unless_asked_for_cpu():
         _port(kernel_impl="cuda").compress(np.ones(64, np.float32))
 
 
+class _MeshPlan:
+    mesh = object()
+
+
 @pytest.mark.parametrize("kw,item", [
-    (dict(use_fused=False), "Queue 1 item 1"),
-    (dict(use_fused=False, predictor="none"), "Queue 1 item 1"),
-    (dict(use_fused=False, mode="fixed_ratio"), "Queue 1 item 1"),
+    (dict(use_fused=False), "Queue 1 item 3"),
+    (dict(use_fused=False, predictor="none"), "Queue 1 item 3"),
+    (dict(use_fused=False, mode="fixed_ratio"), "Queue 1 item 3"),
 ])
 def test_unported_routes_raise(kw, item):
+    """The staged routes run now (tests/test_torch_staged.py holds them
+    to the reference); what stays unported on them is a batch over a
+    mesh plan (ROADMAP `item`, the sharding plan)."""
+    x = np.linspace(-1, 1, 64, dtype=np.float32)
+    comp = _port(**kw)
+    c = comp.compress(x)
+    assert comp.decompress(c).tobytes() == _port(**kw).decompress(c) \
+        .tobytes()
+    assert comp.compress_batch([x, x], plan=object())[0].chunks
     with pytest.raises(NotImplementedError, match=item):
-        _port(**kw).compress(np.ones(64, np.float32))
+        comp.compress_batch([x, x], plan=_MeshPlan())
 
 
 @pytest.mark.parametrize("kw", [
@@ -211,8 +224,14 @@ def test_unported_decode_and_batch_routes_raise():
     # the split route is ported: same bytes as the megakernel route
     assert _port(decode_megakernel="split").decompress(c).tobytes() \
         == _port().decompress(c).tobytes()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        _port().compress_batch([np.ones(8, np.float32)] * 2)
+    # compress_batch is ported; only a mesh plan raises
+    assert len(_port().compress_batch([np.ones(8, np.float32)] * 2)) == 2
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        _port().compress_batch([np.ones(8, np.float32)] * 2,
+                               plan=_MeshPlan())
+    with pytest.raises(ValueError, match="backend"):
+        _port(use_fused=False, backend="jax").compress(
+            np.ones(64, np.float32))
     with pytest.raises(ValueError, match="speculation"):
         TC.CEAZ(device="cpu", offline_codebook=PORT_OFF, codebook="bank",
                 mode="fixed_ratio", speculation="warp").compress(

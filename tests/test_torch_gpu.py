@@ -18,6 +18,7 @@ from repro_torch.core.huffman import Codebook
 from repro_torch.data import fields as F
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.dualquant import ops as DQ
+from repro_torch.kernels.histogram import ops as HG
 from repro_torch.kernels.hufdec import ops as HD
 from repro_torch.kernels.hufenc import ops as HE
 from repro_torch.kernels.megakernel import ops as MK
@@ -436,3 +437,112 @@ def test_cross_pod_mean_on_card_matches_cpu(dev):
             _eq_nan(res_g[k], res_c[k])
     assert torch.isnan(mean_g["nan"]).all() and torch.isnan(
         mean_g["inf"]).all()
+
+
+@pytest.mark.parametrize("C,n", [(1, 1), (1, 1000), (3, 65536), (70000, 3),
+                                 (2, 100003)])
+def test_histogram_kernel_matches_plain(dev, C, n):
+    """Skewed rows (half the codes at 512), invalid positions and codes
+    outside [0, 1024) that must count nowhere; C past the grid's y
+    limit."""
+    rng = np.random.default_rng(n)
+    codes = rng.normal(512, 3, (C, n)).astype(np.int32)
+    codes[:, ::2] = 512
+    codes[:, 5::17] = rng.choice([-1, 1024, 5000, -7], codes[:, 5::17].shape)
+    valid = rng.random((C, n)) < 0.9
+    c, v = torch.from_numpy(codes).to(dev), torch.from_numpy(valid).to(dev)
+    got = HG.histogram_cuda(c, v)
+    _eq(got, HG.histogram_plain(c, v))
+    _eq(got, HG.histogram_plain(c.cpu(), v.cpu()))
+
+
+@pytest.mark.parametrize("cv,bs", [(1, 4096), (65536, 4096), (5000, 16),
+                                   (70001, 1000)])
+def test_gather_pack_kernel_matches_plain(dev, cv, bs):
+    rng = np.random.default_rng(cv)
+    C = 3
+    _, ln, cw = _books(rng, C)
+    codes = rng.integers(0, 1024, size=(C, cv)).astype(np.int32)
+    valid = rng.random((C, cv)) < 0.95
+    args = [torch.from_numpy(a).to(dev) for a in (codes, valid, ln, cw)]
+    for w32 in (4, 96, 2 * (16 * cv // 64 + 1)):      # truncated .. full
+        got = HE.gather_pack_cuda(*args, bs, w32)
+        _eq(got, HE.encode_pack_plain(*args, bs, w32))
+        _eq(got, HE.encode_pack_cuda(*args, bs, w32))
+
+
+@pytest.mark.parametrize("n,bs,max_len", [(1, 4096, 16), (4096 * 3, 4096, 16),
+                                          (100003, 4096, 12), (999, 16, 16),
+                                          (70000, 1024, 16)])
+def test_hufenc_blocks_and_stitch_match_plain(dev, n, bs, max_len):
+    """Full blocks, a ragged tail, 12-bit books, and 16-symbol blocks
+    whose u32 output words gather bits of several blocks (a one-symbol
+    book: 1-bit codes)."""
+    rng = np.random.default_rng(n)
+    for book in (Codebook.from_freqs(rng.integers(0, 1000, 1024) ** 2,
+                                     max_len=max_len),
+                 Codebook.from_freqs(np.eye(1024, dtype=np.int64)[7],
+                                     smoothing=False)):
+        codes = (rng.integers(0, 1024, n) if book.lengths[0] else
+                 np.full(n, 7)).astype(np.int32)
+        c = torch.from_numpy(codes).to(dev)
+        ln = torch.from_numpy(book.lengths.astype(np.int32)).to(dev)
+        cw = torch.from_numpy(book.codes.astype(np.int32)).to(dev)
+        rows, nbits = HE.hufenc_blocks_cuda(c, ln, cw, bs, book.max_len)
+        _eq((rows, nbits), HE.hufenc_blocks_plain(c, ln, cw, bs,
+                                                  book.max_len))
+        total = int(nbits.sum())
+        _eq(HE.stitch_cuda(rows, nbits, total),
+            HE.stitch_plain(rows, nbits, total))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(mode="rel", eb=1e-4),
+    dict(mode="rel", eb=1e-3, predictor="none", chunk_bytes=1 << 17),
+    dict(mode="fixed_ratio", target_ratio=10.0, chunk_bytes=1 << 17),
+    dict(mode="abs", eb=1e-3, codebook="bank", chunk_bytes=1 << 16),
+], ids=["rel", "value", "fixed-ratio", "bank"])
+def test_staged_round_trip_on_card_matches_cpu_and_fused(dev, kw):
+    """The staged route (use_fused=False) on the card: its stream equals
+    the CPU run's and the fused route's, through both pack kernels."""
+    x = F.hacc_proxy(size="small")
+    off = default_offline_codebook()
+    staged = dict(kw, use_fused=False)
+    dispatch.reset_launches()
+    cg = CEAZ(CEAZConfig(device="cuda", **staged),
+              offline_codebook=off).compress(x)
+    launched = dispatch.launches()
+    cc = CEAZ(CEAZConfig(device="cpu", **staged),
+              offline_codebook=off).compress(x)
+    cf = CEAZ(CEAZConfig(device="cuda", **kw),
+              offline_codebook=off).compress(x)
+    for other in (cc, cf):
+        assert len(cg.chunks) == len(other.chunks)
+        for a, b in zip(cg.chunks, other.chunks):
+            for k in ("words", "block_nbits", "outlier_idx",
+                      "outlier_delta"):
+                assert np.array_equal(getattr(a, k), getattr(b, k)), k
+            assert a.codebook_id == b.codebook_id and a.eb == b.eb
+        assert np.array_equal(cg.literal_idx, other.literal_idx)
+    assert launched.get("histogram", 0) > 0
+    assert launched.get("gather_pack", 0) + launched.get("hufenc", 0) > 0
+    y = CEAZ(CEAZConfig(device="cuda", **staged),
+             offline_codebook=off).decompress(cg)
+    assert y.tobytes() == CEAZ(CEAZConfig(device="cpu", **staged),
+                               offline_codebook=off).decompress(cc).tobytes()
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(predictor="none", eb=1e-3),
+                                dict(use_fused=False)])
+def test_compress_batch_on_card_matches_per_shard(dev, kw):
+    rng = np.random.default_rng(3)
+    shards = [np.cumsum(rng.standard_normal(70000)).astype(np.float32)
+              for _ in range(3)]
+    comp = CEAZ(CEAZConfig(device="cuda", chunk_bytes=1 << 16, **kw),
+                offline_codebook=default_offline_codebook())
+    for a, b in zip(comp.compress_batch(shards),
+                    [comp.compress(s) for s in shards]):
+        for x, y in zip(a.chunks, b.chunks):
+            assert np.array_equal(x.words, y.words)
+            assert np.array_equal(x.outlier_idx, y.outlier_idx)
+        assert np.array_equal(a.literal_idx, b.literal_idx)

@@ -3,6 +3,12 @@ one the card's kernel is held against) vs the reference's jnp
 ``encode_pack`` and its gather-pack Pallas kernel (interpret mode).
 Bitwise: payload words and per-block bit counts.
 
+The staged route's packers: the `hufenc_blocks` op's plain version vs
+the reference's serial per-block Pallas ``hufenc`` (interpret mode),
+the stitch vs the reference's numpy ``to_host_stream``, and
+``encode_device`` (on the CPU: the plain versions) vs
+``core/huffman.py::encode``.
+
 The reference's word-tiled Pallas kernel (``gather_pack_tiled``) does
 not trace under the installed JAX (``pl.unblocked`` is gone); its
 contract is bit-identity with ``encode_pack`` and the untiled
@@ -14,7 +20,9 @@ import torch
 
 from repro.core import huffman as RH
 from repro.kernels.hufenc import kernel as EK
+from repro.kernels.hufenc import ops as EO
 from repro.kernels.hufenc import ref as ER
+from repro_torch import convert
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.hufenc import ops as TO
 
@@ -102,3 +110,104 @@ def test_cuda_impl_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         TO.encode_pack_cuda(z, z.bool(), torch.zeros((1, 1024), dtype=torch.int32),
                             torch.zeros((1, 1024), dtype=torch.int32), 4, 4)
+
+
+def _book(codes, max_len=16, one_symbol=False):
+    freqs = np.bincount(codes.reshape(-1), minlength=1024)
+    if one_symbol:
+        return RH.Codebook.from_freqs(freqs, smoothing=False,
+                                      max_len=max_len)
+    return RH.Codebook.from_freqs(freqs, max_len=max_len)
+
+
+def _tables(cb):
+    return (torch.from_numpy(cb.lengths.astype(np.int32)),
+            torch.from_numpy(cb.codes.astype(np.uint32).view(np.int32)))
+
+
+@pytest.mark.parametrize("tail", [False, True])
+@pytest.mark.parametrize("sigma", [3, 30, 300])
+def test_blocks_packer_matches_pallas_hufenc(sigma, tail):
+    """Full 4096-symbol blocks, and a stream whose tail block
+    ``hufenc_flat`` pads with symbol 512 (the op packs the n symbols it
+    is given, so it gets the padded stream)."""
+    rng = np.random.default_rng(sigma)
+    n = 5000 if tail else 8192
+    x = np.clip(rng.normal(512, sigma, n), 0, 1023).astype(np.int32)
+    cb = _book(x)
+    kw, kn, _ = EO.hufenc_flat(jnp.asarray(x), jnp.asarray(cb.codes),
+                               jnp.asarray(cb.lengths.astype(np.int32)),
+                               pad_sym=512)
+    padded = np.full(kw.shape[0] * EK.BLOCK, 512, np.int32)
+    padded[:n] = x
+    ln, cw = _tables(cb)
+    rows, nbits = dispatch.resolve("hufenc_blocks", "auto", "cpu")(
+        torch.from_numpy(padded), ln, cw, EK.BLOCK, cb.max_len)
+    rows = rows.numpy().view(np.uint32)
+    assert rows.shape == (kw.shape[0], EK.WORDS + 1)
+    np.testing.assert_array_equal(rows[:, :EK.WORDS], np.asarray(kw))
+    assert not rows[:, EK.WORDS:].any()
+    np.testing.assert_array_equal(nbits.numpy(), np.asarray(kn))
+    # the stitch of those rows is the reference's host stream
+    total = int(nbits.sum())
+    words = dispatch.resolve("hufenc_stitch", "auto", "cpu")(
+        torch.from_numpy(rows.view(np.int32)), nbits, total)
+    stream, bits = EO.to_host_stream(kw, kn, len(padded), cb.lengths)
+    assert bits == total
+    np.testing.assert_array_equal(
+        TO.u32_to_u64(words.numpy().view(np.uint32)), stream)
+
+
+def _encode_both(codes, cb, bs):
+    port_cb = convert.from_reference(cb)
+    got = TO.encode_device(torch.from_numpy(codes), port_cb, bs)
+    want = RH.encode(codes, cb, bs)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert got[0].dtype == np.uint64 and got[1].dtype == np.int64
+    return got
+
+
+@pytest.mark.parametrize("max_len", [12, 16])
+@pytest.mark.parametrize("bs", [16, 1024, 4096])
+@pytest.mark.parametrize("n", [1, 4097, 3 * 4096, TO.GATHER_PACK_MAX_VALUES,
+                               TO.GATHER_PACK_MAX_VALUES + 1, 70001])
+def test_encode_device_matches_huffman_encode(n, bs, max_len):
+    """n = 1, odd n, exact multiples of every block size, and both sides
+    of the gather_pack / hufenc_blocks rule."""
+    rng = np.random.default_rng(n + bs)
+    codes = np.clip(rng.normal(512, 40, n), 0, 1023).astype(np.int32)
+    _encode_both(codes, _book(codes, max_len), bs)
+
+
+@pytest.mark.parametrize("n", [1, 999, TO.GATHER_PACK_MAX_VALUES + 7])
+def test_encode_device_one_symbol_book(n):
+    """1-bit codes: with 16-symbol blocks an output word gathers the bits
+    of two blocks."""
+    codes = np.full(n, 512, np.int32)
+    cb = _book(codes, one_symbol=True)
+    assert int(cb.lengths.sum()) == 1
+    words, nbits, total = _encode_both(codes, cb, 16)
+    assert total == n and nbits[0] == min(n, 16)
+
+
+def test_encode_device_refuses_an_uncovering_book():
+    codes = np.array([512, 512, 3], np.int32)
+    cb = _book(np.full(8, 512, np.int32), one_symbol=True)
+    with pytest.raises(ValueError, match="does not cover"):
+        RH.encode(codes, cb, 16)
+    with pytest.raises(ValueError, match="does not cover"):
+        TO.encode_device(torch.from_numpy(codes), convert.from_reference(cb),
+                         16)
+
+
+def test_new_cuda_impls_refuse_cpu_tensors():
+    z = torch.zeros(8, dtype=torch.int32)
+    t = torch.zeros(1024, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        TO.hufenc_blocks_cuda(z, t, t, 4, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        TO.stitch_cuda(z.reshape(1, 8), z[:1], 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        TO.gather_pack_cuda(z.reshape(1, 8), z.reshape(1, 8).bool(),
+                            t.reshape(1, -1), t.reshape(1, -1), 4, 4)

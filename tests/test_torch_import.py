@@ -24,7 +24,17 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.kernels.dualquant.ops, "
             "repro_torch.kernels.bitpack.ops, repro_torch.optim, "
             "repro_torch.optim.adamw, repro_torch.optim.grad_compress, "
-            "repro_torch.io, repro_torch.io.collectives\n"
+            "repro_torch.io, repro_torch.io.collectives, "
+            "repro_torch.kernels.histogram.ops, "
+            "repro_torch.kernels.hufenc.ops\n"
+            # the staged route and compress_batch import lazily: run them
+            "import numpy as np\n"
+            "from repro_torch.core import CEAZ\n"
+            "x = np.linspace(0, 1, 5000, dtype=np.float32)\n"
+            "for b in ('torch', 'numpy'):\n"
+            "    c = CEAZ(use_fused=False, backend=b, device='cpu')\n"
+            "    c.decompress(c.compress(x))\n"
+            "CEAZ(device='cpu').compress_batch([x, x])\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n")
@@ -37,6 +47,9 @@ def test_import_leaves_jax_and_reference_out():
 def test_no_source_imports_jax_or_reference():
     files = _port_files()
     assert len(files) > 20
+    for new in ("kernels/histogram/ops.py", "kernels/hufenc/ops.py",
+                "core/ceaz.py", "runtime/fused.py"):
+        assert os.path.join(PORT, new) in files, new
     for path in files:
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):
