@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (src/repro_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--src DIR]
 
 Builds the port's CUDA kernels from the sources in this checkout, then
 drives the port's routes — ``CEAZ.compress`` -> ``CEAZ.decompress`` —
@@ -63,14 +63,14 @@ through the public facade, at rel eb 1e-4 unless said otherwise:
            histogram, per-block packer + stitch), T.G the HACC field at
            fixed ratio 10 in 256 chunks of 2^15 (chunk_bytes=2^17, the
            reference's section 4.7 settings: dq1d, histogram and the
-           one-CTA gather-pack per chunk). Staged decode is the host table
-           decode. T.A's stream must equal phase A's, T.E's phase E.exact's
+           gather-pack per chunk, 8 tiles on 8 CTAs). Staged decode is
+           the host table decode. T.A's stream must equal phase A's, T.E's phase E.exact's
            and T.G's the fused route's at the same settings;
   BATCH    the HACC field as 4 shards of 2^21 through ``compress_batch``:
            fused (one pass pair: dq1d per shard, one histogram and one
            pack launch; one batched decode, the tiled walk) and, as
            BATCH.staged, with use_fused=False (per
-           shard: dq1d, histogram, per-block packer + stitch); every shard
+           shard: dq1d, histogram, gather-pack); every shard
            must equal its own ``compress`` and both batches each other;
   phase P  the paper's MPI_Gather scenario, fixed width: 4 ranks, each a
            Nyx-like 256^3 f32 field (64 MB, seeded per rank), through
@@ -102,11 +102,23 @@ must equal the port's own CPU run of the same input bit for bit, and
 the reconstruction must hold the error bound. Every kernel is then
 called on the inputs the main path gave it and held BITWISE against its
 plain PyTorch version on the card (integer outputs: tolerance 0), and
-timed (CUDA events, median after warm-up). The script prints the card
+timed (CUDA events around one call, median after warm-up: warm, and at
+small shapes mostly the wrapper's host time). `histogram` and both
+staged packers also get their kernels' own device time, L2-cold
+(``cold_device_ms``: torch.profiler's record of each launch, a 256 MB
+buffer written before every call), beside their bound and an empty
+launch through the same binding (the floor). The script prints the card
 (nvidia-smi name and power limit), the build time, per-kernel results,
 compress/decompress throughput, one JSON line of kernels and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit
 code is then non-zero and the last line is not printed.
+
+``--src DIR`` imports ``repro_torch`` from DIR instead of this
+checkout's ``src`` and changes nothing else: the same phases, checks and
+timed cases run against another commit's package (unpacked by ``git
+archive`` into a directory that ``.gitignore`` lists, e.g.
+``build/parent``; its kernels build into that tree's own ``build/``),
+so parent and change are measured by one instrument in one chip call.
 """
 import json
 import os
@@ -116,7 +128,6 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 NUM_SYMBOLS = 1024
@@ -188,7 +199,8 @@ PHASE_KERNELS = {
     "T.E": _VALUE + _BLOCKS,
     "T.G": ("dq1d", "histogram", "gather_pack"),
     "BATCH": ("dq1d", "histogram", "gather_pack_tiled", "hufdec_tiles"),
-    "BATCH.staged": ("dq1d",) + _BLOCKS,
+    # + the packer the imported package's rule picks (staged_packers)
+    "BATCH.staged": ("dq1d", "histogram"),
 }
 # the staged phases' fused counterparts at the same settings: the
 # streams must be identical (T.G's counterpart is run there)
@@ -243,6 +255,60 @@ def cuda_ms(fn, reps=5, warmup=2):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+L2_FLUSH_BYTES = 256 << 20       # 5x the H100's 50 MB L2
+
+
+def cold_device_ms(fn, names, reps=10):
+    """Device ms of one call of fn spent in the kernels whose names hold
+    one of `names`, with a cold L2: torch.profiler's record of each
+    launch, over `reps` calls, each after a 256 MB buffer is written, so
+    that every call reads its inputs from device memory and not from the
+    L2 the last call left them in (the write is none of `names`). The
+    median launch of each named kernel, summed over the names; None where
+    the profiler recorded none of a name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    durs = {n: [] for n in names}
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            for n in names:
+                if n in e.name:
+                    durs[n].append(e.time_range.elapsed_us())
+    del flush
+    if not all(durs.values()):
+        return None
+    return sum(statistics.median(d) for d in durs.values()) / 1e3
+
+
+def host_call_ms(fn, reps=100):
+    """Host ms of one call of fn: the mean over `reps` calls issued back
+    to back with no sync between them (the card keeps up at the shapes
+    timed), so the wrapper's host side alone."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e3
+
+
+def pct_of_bound(bound_ms, device_ms):
+    """The bound's share of a cold device time, in percent."""
+    return None if not device_ms else 100 * bound_ms / device_ms
 
 
 def host_s(fn, reps=3):
@@ -448,9 +514,11 @@ def run_split_phase(name, c, y_mega, kw, offline, dispatch, CEAZ, CEAZConfig,
 
 
 def add_row(rows, name, cuda_fn, plain_fn, in_bytes, out_bytes, ops,
-            extra=None, library_ms=None):
+            extra=None, library_ms=None, device_kernels=None):
     """One kernel's row: bitwise against its plain version, timed, with
-    its bound from the bytes and operations of these inputs."""
+    its bound from the bytes and operations of these inputs (and, given
+    the names of its CUDA kernels, their L2-cold device time and the
+    bound's share of it)."""
     import torch
     got = cuda_fn()
     want = plain_fn()
@@ -467,10 +535,18 @@ def add_row(rows, name, cuda_fn, plain_fn, in_bytes, out_bytes, ops,
         ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=library_ms, **(extra or {}))
+    cold = ""
+    if device_kernels:
+        r = rows[name]
+        r["device_ms"] = cold_device_ms(cuda_fn, device_kernels)
+        r["pct_of_bound"] = pct_of_bound(r["bound_ms"], r["device_ms"])
+        r["host_ms"] = host_call_ms(cuda_fn)
+        cold = (f" device_ms(L2-cold)={r['device_ms']} "
+                f"pct_of_bound={r['pct_of_bound']} host_ms={r['host_ms']}")
     print(f"kernel {name}: bitwise == plain: True  ms={ms} "
           f"plain_ms={plain_ms} bound_ms={rows[name]['bound_ms']} "
           f"({rows[name]['bound_by']}; {in_bytes + out_bytes} B, "
-          f"{ops} ops) library_ms={library_ms}")
+          f"{ops} ops) library_ms={library_ms}{cold}")
 
 
 def kernel_rows(inputs):
@@ -1128,6 +1204,15 @@ def wire_kernel_rows(inputs, rows):
 N_SHARDS = 4
 
 
+def staged_packers(n):
+    """The kernels the staged route packs an n-value chunk with, by the
+    rule of the imported package (``encode_device``): a parent's rule may
+    draw the line elsewhere."""
+    from repro_torch.kernels.hufenc import ops as HE
+    return (("gather_pack",) if n <= HE.GATHER_PACK_MAX_VALUES
+            else ("hufenc", "hufenc_stitch"))
+
+
 def run_batch_phases(field, offline, dispatch, CEAZ, CEAZConfig, captured):
     """BATCH (fused) and BATCH.staged: the field as N_SHARDS shards through
     ``compress_batch`` and ``decompress_batch`` on the card, counted; each
@@ -1150,7 +1235,9 @@ def run_batch_phases(field, offline, dispatch, CEAZ, CEAZConfig, captured):
         torch.cuda.synchronize()
         counts[name] = dispatch.launches()
         inputs[name] = dict(captured)
-        for k in PHASE_KERNELS[name]:
+        want = PHASE_KERNELS[name] + (staged_packers(shards[0].size)
+                                      if name == "BATCH.staged" else ())
+        for k in want:
             check(counts[name].get(k, 0) > 0,
                   f"phase {name}: kernel {k} was not launched "
                   f"({counts[name]})")
@@ -1188,17 +1275,40 @@ def run_batch_phases(field, offline, dispatch, CEAZ, CEAZConfig, captured):
     return counts, inputs, thr
 
 
+def launch_floor():
+    """An empty kernel launched through the kernels' ctypes binding
+    (csrc/empty.cu), timed as a row is: ms by CUDA events (the floor
+    under a row's ms at a small shape) and its device ms. None where the
+    imported tree's library has no such entry (a parent's, under --src)."""
+    import ctypes
+    from repro_torch.kernels import _build, dispatch
+    if not hasattr(_build.library(), "ceaz_empty_launch"):
+        return None
+    fn = _build.function("ceaz_empty_launch", [ctypes.c_void_p])
+
+    def call():
+        _build.check(fn(dispatch.stream_handle()), "empty launch")
+    return dict(ms=cuda_ms(call),
+                device_ms=cold_device_ms(call, ("empty_kernel",)),
+                host_ms=host_call_ms(call))
+
+
 def staged_kernel_rows(inputs, rows):
-    """The three kernels this route brought: `histogram` at B's and A's
-    shapes beside the torch.bincount call it replaces, `gather_pack` at
-    T.G's chunk, `hufenc` (+ its stitch) at T.A's chunk; both packers
-    held against each other and timed at 2^15, 2^16 and 2^23 of T.E's
-    codes, the two sides of encode_device's rule."""
+    """The three kernels the staged route brought, on the main path's
+    inputs: `histogram` at B's and A's calls and at one row of T.G (2^15
+    values) and of G.off (2^17), each beside the torch.bincount call it
+    replaces; `gather_pack` at T.G's chunk; `hufenc` (+ its stitch) at
+    T.A's chunk; both packers held against each other and timed at 2^15,
+    2^16 and 2^23 of T.E's codes, the two sides of encode_device's rule;
+    an empty launch, the floor under the one-row cases. Every case of
+    `histogram` and the packers has ms (events, warm, host included),
+    device_ms (the kernels alone, L2-cold) and host_ms (the wrapper's
+    host side) beside its bound."""
     import torch
     from repro_torch.kernels.histogram import ops as HG
     from repro_torch.kernels.hufenc import ops as HE
     cases = []
-    for phase in ("B", "A"):
+    for phase in ("B", "A", "T.G", "G.off"):
         codes2, valid2 = inputs[phase]["histogram"][0]
         C, n = codes2.shape
         # the one bincount _chunk_hists made before the kernel, its row
@@ -1212,11 +1322,12 @@ def staged_kernel_rows(inputs, rows):
                 lambda: HG.histogram_plain(codes2, valid2),
                 in_bytes=nbytes(codes2, valid2), out_bytes=4 * C * NUM_SYMBOLS,
                 ops=2 * C * n, extra=dict(phase=phase, shape=[C, n]),
-                library_ms=lib)
+                library_ms=lib, device_kernels=("histogram_kernel",))
         cases.append(dict(rows["histogram"]))
-    rows["histogram"] = dict(cases[0], cases=[
-        {k: cases[1][k] for k in ("phase", "shape", "ms", "plain_ms",
-                                  "bound_ms", "library_ms")}])
+    keep = ("phase", "shape", "ms", "device_ms", "pct_of_bound", "host_ms",
+            "plain_ms", "bound_ms", "library_ms")
+    rows["histogram"] = dict(cases[0], cases=[{k: c[k] for k in keep}
+                                              for c in cases[1:]])
 
     args = inputs["T.G"]["gather_pack"][0]
     codes2, valid2, ln, cw, bs, w32 = args
@@ -1225,7 +1336,8 @@ def staged_kernel_rows(inputs, rows):
             in_bytes=nbytes(codes2, valid2, ln, cw),
             out_bytes=4 * (w32 + -(-codes2.shape[1] // bs)),
             ops=8 * codes2.numel(),
-            extra=dict(phase="T.G", values=codes2.shape[1]))
+            extra=dict(phase="T.G", values=codes2.shape[1]),
+            device_kernels=("gather_pack_kernel",))
 
     blocks = inputs["T.A"]["hufenc_blocks"][0]
     stitch = inputs["T.A"]["hufenc_stitch"][0]
@@ -1260,11 +1372,30 @@ def staged_kernel_rows(inputs, rows):
         check(same_outputs((words[0], nbits[0]), (hb(), nb)),
               f"gather_pack and hufenc_blocks + stitch disagree at {n} "
               "values")
-        crossover.append(dict(values=n, gather_pack_ms=cuda_ms(gp),
-                              hufenc_ms=cuda_ms(hb)))
+        check(same_outputs((words, nbits), HE.encode_pack_plain(
+            c[None], one, ln[None], cw[None], bs, n32)),
+            f"kernel gather_pack disagrees with its plain version at {n} "
+            "values")
+        bound = (nbytes(c, one, ln, cw) + 4 * (n32 + nb.numel())) \
+            / HBM_BYTES_PER_S * 1e3
+        gp_dev = cold_device_ms(gp, ("gather_pack_kernel",))
+        crossover.append(dict(
+            values=n, gather_pack_ms=cuda_ms(gp), hufenc_ms=cuda_ms(hb),
+            gather_pack_device_ms=gp_dev,
+            hufenc_device_ms=cold_device_ms(
+                hb, ("blocks_pack_kernel", "stitch_kernel")),
+            gather_pack_host_ms=host_call_ms(gp),
+            hufenc_host_ms=host_call_ms(hb),
+            bound_ms=bound, pct_of_bound=pct_of_bound(bound, gp_dev)))
         print(f"packers at {n} values of T.E's codes: gather_pack == "
-              f"hufenc_blocks + stitch: True {crossover[-1]}")
+              f"hufenc_blocks + stitch == plain: True {crossover[-1]}")
     rows["gather_pack"]["crossover"] = crossover
+
+    floor = launch_floor()
+    print(f"launch floor, an empty kernel through ctypes: "
+          f"{floor if floor else 'not in this tree'}")
+    for name in ("histogram", "gather_pack"):
+        rows[name]["launch_floor"] = floor
 
 
 PHASES = (
@@ -1305,10 +1436,21 @@ def main():
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of phase P's fields and phase Q's params "
                          "and gradients")
+    ap.add_argument("--src", default=os.path.join(ROOT, "src"),
+                    help="the directory repro_torch is imported from "
+                         "(default: this checkout's src); e.g. a git "
+                         "archive of the parent commit's src, to measure "
+                         "it with this same script")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    src = os.path.abspath(args.src)
+    sys.path.insert(0, src)
+    import repro_torch
+    check(os.path.abspath(repro_torch.__file__).startswith(src + os.sep),
+          f"repro_torch was not imported from {src}")
+    print(f"repro_torch from {os.path.dirname(repro_torch.__file__)}")
     from repro_torch.core import CEAZ, CEAZConfig, default_offline_codebook
     from repro_torch.data import fields as F
     from repro_torch.kernels import _build, dispatch
@@ -1383,7 +1525,7 @@ def main():
     check("ceaz_chunk" in inputs["C.value"]
           and "ceaz_chunk" in inputs["E.bank"]
           and "dq_center" in inputs["E.exact"], "phase E inputs not captured")
-    check(all("histogram" in inputs[p] for p in ("A", "B"))
+    check(all("histogram" in inputs[p] for p in ("A", "B", "T.G", "G.off"))
           and "gather_pack" in inputs["T.G"]
           and all(op in inputs["T.A"] and op in inputs["T.E"]
                   for op in ("hufenc_blocks", "hufenc_stitch")),

@@ -420,6 +420,7 @@ class CEAZ:
         encode and the outlier escapes — numpy on 'numpy'; the
         `histogram` op, ``encode_device`` and a device compaction on
         'torch'."""
+        from ..kernels import dispatch
         from ..kernels.hufenc.ops import encode_device
         from ..runtime import fused
         bs = self.cfg.block_size
@@ -429,8 +430,8 @@ class CEAZ:
             freqs = np.bincount(codes_flat, minlength=NUM_SYMBOLS)
         else:
             freqs = fused._chunk_hists(
-                codes_flat[None], torch.ones_like(codes_flat[None],
-                                                  dtype=torch.bool),
+                codes_flat[None],
+                dispatch.all_valid(codes_flat.numel(), codes_flat.device),
                 impl)[0].cpu().numpy().astype(np.int64)
         if isinstance(coder, BankCoder) or self.cfg.adaptive:
             decision = coder.step(freqs)

@@ -24,7 +24,8 @@ Op calling conventions (tensors on one device):
       to n_out; q the flat prequantized field (n values)
   hufenc(codes2, valid2, lengths_tbl, cwords_tbl, block_size, w32)
       -> (words (C, w32) int32 holding u32 bits, block_nbits (C, nblocks))
-  gather_pack(...) the same call and output in one launch, one CTA a row
+  gather_pack(...) the same call and output in one launch, one CTA a
+      4096-symbol tile of a row
   hufenc_blocks(codes, lengths, cwords, block_size, max_len)
       -> (rows (nblocks, R) int32 holding u32 bits, nbits (nblocks,))
   hufenc_stitch(rows, nbits, total_bits) -> words (2*(nwords+1),) int32
@@ -154,6 +155,22 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 def stream_handle() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+_ALL_VALID: Dict[torch.device, torch.Tensor] = {}
+
+
+def all_valid(n: int, device) -> torch.Tensor:
+    """A (1, n) all-true bool mask on `device`, for an op's `valid2` when
+    every value of one row counts: a view of one mask cached per device
+    (grown when a longer row asks), so a call makes no tensor of its own.
+    Callers only read it."""
+    device = torch.device(device)
+    mask = _ALL_VALID.get(device)
+    if mask is None or mask.numel() < n:
+        mask = _ALL_VALID[device] = torch.ones(n, dtype=torch.bool,
+                                               device=device)
+    return mask[:n].view(1, n)
 
 
 # -- observability -------------------------------------------------------------

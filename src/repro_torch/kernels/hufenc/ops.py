@@ -15,7 +15,7 @@ reference's ``hufenc`` op (``src/repro/kernels/hufenc/ref.py::
 encode_pack``), cut at u32 grain and truncated at w32 words;
 block_nbits counts valid symbols' bits. `hufenc` is the word-tiled
 TPU kernel's port (three steps), `gather_pack` the one-program-per-chunk
-kernel's (one launch).
+kernel's (one launch, one CTA a 4096-symbol tile of a row).
 
 `hufenc_blocks` packs a flat stream of n symbols against one codebook,
 one row of ``R = ceil(block_size*max_len/32) + 1`` words per stream
@@ -42,6 +42,7 @@ card for one chunk: it packs with `gather_pack` or with `hufenc_blocks`
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -55,20 +56,48 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _SUMS_ARGS = [_P, _P, _P, _I64, _I64, _I64, _I64, _P, _P]
 _PACK_ARGS = [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _I64, _P, _P]
-_GATHER_ARGS = [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P, _P, _P]
+_GATHER_ARGS = [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P, _P, _P,
+                _I64, _P]
 _BLOCKS_ARGS = [_P, _I64, _P, _P, _I64, _I64, _I64, _P, _P, _P]
 _STITCH_ARGS = [_P, _P, _P, _I64, _I64, _I64, _P, _P]
 
 # Chunks of at most this many values pack in ONE `gather_pack` launch
-# (one CTA walks the chunk, carrying its bit offset); larger ones pack
-# one stream block per CTA across the card (`hufenc_blocks`, the FPGA's
-# N pipelines) and are stitched — the small-chunk / large-chunk split
-# that the reference's hufenc/kernel.py:86-92 draws between its kernels.
-GATHER_PACK_MAX_VALUES = 1 << 16
+# (a CTA a 4096-symbol tile, bit offsets by look-back); larger ones pack
+# one stream block per CTA (`hufenc_blocks`, the FPGA's N pipelines) and
+# are stitched — the small-chunk / large-chunk split that the
+# reference's hufenc/kernel.py:86-92 draws between its kernels. Both give
+# the same bits. On the H100 `gather_pack` is the faster op at 2^15,
+# 2^16 and 2^23 values (PERF.md section 6), so the line only keeps the
+# per-block packer on the route: at 2^22 it sends the default 32 MB
+# chunks (T.A's 6.48 M values, T.E's 2^23) through it.
+GATHER_PACK_MAX_VALUES = 1 << 22
 
 
 def _nblocks(cv: int, block_size: int) -> int:
     return max(1, -(-cv // block_size))
+
+
+@functools.lru_cache(maxsize=None)
+def gather_pack_tile() -> int:
+    """The symbols of a row that one CTA of `gather_pack` packs
+    (csrc/hufenc.cu GP_TILE), read from the built kernel library."""
+    return _build.function("ceaz_gather_pack_tile", [])()
+
+
+def gather_pack_plan(C: int, cv: int, nblocks: int, w32: int, tile: int):
+    """The `gather_pack` launch for C rows of cv symbols, `tile` symbols
+    a CTA: (tiles a row, int64 words of its one buffer, which the C entry
+    zeroes, and the int64-word offsets of block_nbits and of the
+    look-back scratch in it).
+
+    The buffer holds, in order: words (C*w32 int32), block_nbits
+    (C*nblocks int32), each padded to a whole int64 word; then the
+    scratch the kernel reads as one 64-bit status word a tile (C*tiles)
+    and one int32 ticket a row (C). The grid is C*tiles CTAs."""
+    tiles = -(-cv // tile)
+    at_nbits = -(-C * w32 // 2)
+    at_scratch = at_nbits + -(-C * nblocks // 2)
+    return tiles, at_scratch + C * tiles + -(-C // 2), at_nbits, at_scratch
 
 
 def encode_pack_plain(codes2: torch.Tensor, valid2: torch.Tensor,
@@ -149,21 +178,29 @@ def encode_pack_cuda(codes2: torch.Tensor, valid2: torch.Tensor,
 def gather_pack_cuda(codes2: torch.Tensor, valid2: torch.Tensor,
                      lengths_tbl: torch.Tensor, cwords_tbl: torch.Tensor,
                      block_size: int, w32: int):
-    """csrc/hufenc.cu gather_pack_kernel: one CTA per chunk row, one
-    launch."""
+    """csrc/hufenc.cu gather_pack_kernel: one CTA a 4096-symbol tile of
+    a row, the tiles' bit offsets by decoupled look-back; one launch.
+    words, block_nbits and the kernel's scratch share one allocation
+    (gather_pack_plan), zeroed by one memset in the C entry."""
     _check_pack_args("gather_pack", codes2, valid2, lengths_tbl, cwords_tbl)
     C, cv = codes2.shape
     dev = codes2.device
     nblocks = _nblocks(cv, block_size)
-    block_nbits = torch.zeros((C, nblocks), dtype=torch.int32, device=dev)
-    words = torch.zeros((C, w32), dtype=torch.int32, device=dev)
     if C == 0 or cv == 0:
-        return words, block_nbits
+        return (torch.zeros((C, w32), dtype=torch.int32, device=dev),
+                torch.zeros((C, nblocks), dtype=torch.int32, device=dev))
+    _, size, at_nbits, at_scratch = gather_pack_plan(
+        C, cv, nblocks, w32, gather_pack_tile())
+    buf = torch.empty(2 * size, dtype=torch.int32, device=dev)
+    words = buf.as_strided((C, w32), (w32, 1))
+    block_nbits = buf.as_strided((C, nblocks), (nblocks, 1), 2 * at_nbits)
+    at = buf.data_ptr()
     dispatch.count_launch("gather_pack")
     rc = _build.function("ceaz_gather_pack", _GATHER_ARGS)(
         codes2.data_ptr(), valid2.data_ptr(), lengths_tbl.data_ptr(),
-        cwords_tbl.data_ptr(), C, cv, block_size, nblocks, w32,
-        words.data_ptr(), block_nbits.data_ptr(), dispatch.stream_handle())
+        cwords_tbl.data_ptr(), C, cv, block_size, nblocks, w32, at,
+        at + 8 * at_nbits, at + 8 * at_scratch, 8 * size,
+        dispatch.stream_handle())
     _build.check(rc, "gather_pack")
     return words, block_nbits
 
@@ -290,30 +327,30 @@ def encode_device(codes: torch.Tensor, cb, block_size: int, freqs=None,
     if freqs is None:
         hist = dispatch.resolve("histogram", kernel_impl, dev)
         with dispatch.measure("histogram", kernel_impl, dev):
-            freqs = hist(codes.reshape(1, n),
-                         torch.ones((1, n), dtype=torch.bool, device=dev))
+            freqs = hist(codes.reshape(1, n), dispatch.all_valid(n, dev))
         freqs = freqs[0].cpu().numpy()
     lengths = np.asarray(cb.lengths).astype(np.int64)
     freqs = np.asarray(freqs).astype(np.int64)
     if np.any((freqs > 0) & (lengths == 0)):
         raise ValueError("codebook does not cover all present symbols")
     total = int(freqs @ lengths)
-    ln = torch.from_numpy(lengths.astype(np.int32)).to(dev)
-    cw = torch.from_numpy(np.asarray(cb.codes).astype(np.uint32)
-                          .view(np.int32)).to(dev)
+    # both tables in one host-to-device copy
+    tables = torch.from_numpy(np.stack([
+        lengths.astype(np.int32),
+        np.asarray(cb.codes).astype(np.uint32).view(np.int32)])).to(dev)
     if n <= GATHER_PACK_MAX_VALUES:
         pack = dispatch.resolve("gather_pack", kernel_impl, dev)
         with dispatch.measure("gather_pack", kernel_impl, dev):
             words, nbits = pack(
-                codes.reshape(1, n),
-                torch.ones((1, n), dtype=torch.bool, device=dev),
-                ln[None], cw[None], block_size, _stream_words32(total))
+                codes.reshape(1, n), dispatch.all_valid(n, dev),
+                tables[0:1], tables[1:2], block_size, _stream_words32(total))
         words, nbits = words[0], nbits[0]
     else:
         blocks = dispatch.resolve("hufenc_blocks", kernel_impl, dev)
         stitch = dispatch.resolve("hufenc_stitch", kernel_impl, dev)
         with dispatch.measure("hufenc_blocks", kernel_impl, dev):
-            rows, nbits = blocks(codes, ln, cw, block_size, int(cb.max_len))
+            rows, nbits = blocks(codes, tables[0], tables[1], block_size,
+                                 int(cb.max_len))
             words = stitch(rows, nbits, total)
     return (u32_to_u64(words.cpu().numpy().view(np.uint32)),
             nbits.cpu().numpy().astype(np.int64), total)

@@ -546,3 +546,102 @@ def test_compress_batch_on_card_matches_per_shard(dev, kw):
             assert np.array_equal(x.words, y.words)
             assert np.array_equal(x.outlier_idx, y.outlier_idx)
         assert np.array_equal(a.literal_idx, b.literal_idx)
+
+
+def _gp_tables(book, C):
+    """(lengths, cwords) rows of C chunks: a one-symbol book (code 512,
+    one 0 bit), a two-symbol book of 1-bit codes (512 -> 1, 100 -> 0),
+    or a 16-bit book (lengths 2..16 around 512)."""
+    if book == "16bit":
+        f = np.maximum(1, (2.0 ** np.maximum(
+            0, 40 - np.abs(np.arange(1024) - 512))).astype(np.int64))
+        cb = Codebook.from_freqs(f, max_len=16)
+        assert cb.lengths.max() == 16
+        ln, cw = cb.lengths.astype(np.int32), cb.codes.astype(np.int32)
+    else:
+        ln = np.zeros(1024, np.int32)
+        cw = np.zeros(1024, np.int32)
+        ln[512] = 1
+        if book == "two_1bit":
+            ln[100], cw[512] = 1, 1
+    return np.stack([ln] * C), np.stack([cw] * C)
+
+
+def _gp_codes(rng, book, C, cv):
+    if book == "16bit":
+        return np.clip(rng.normal(512, 12, (C, cv)), 0, 1023).astype(np.int32)
+    if book == "two_1bit":
+        return np.where(rng.random((C, cv)) < 0.5, 512, 100).astype(np.int32)
+    return np.full((C, cv), 512, np.int32)
+
+
+def _gp_check(dev, codes, valid, ln, cw, bs, w32s):
+    """gather_pack bitwise against its plain version at each capacity,
+    and the same call twice bitwise (look-back and atomics are
+    order-free)."""
+    args = [torch.from_numpy(a).to(dev) for a in (codes, valid, ln, cw)]
+    for w32 in w32s:
+        got = HE.gather_pack_cuda(*args, bs, w32)
+        _eq(got, HE.encode_pack_plain(*args, bs, w32))
+        _eq(got, HE.gather_pack_cuda(*args, bs, w32))
+
+
+@pytest.mark.parametrize("bs", [1000, 16, 3])
+@pytest.mark.parametrize("book", ["one_symbol", "two_1bit", "16bit"])
+def test_gather_pack_many_tiles(dev, book, bs):
+    """A row of 2^20+3 values (257 tiles, the look-back reaching back
+    over many of them) beside a short row; blocks of 1000, 16 and 3
+    symbols, none dividing the 4096-symbol tile (3: more blocks a tile
+    than the shared sums hold, so runs add to the output directly);
+    capacities that truncate in mid-tile and the full one."""
+    rng = np.random.default_rng(bs)
+    cv = (1 << 20) + 3
+    codes = _gp_codes(rng, book, 2, cv)
+    valid = rng.random((2, cv)) < 0.97
+    valid[1, 5000:] = False
+    ln, cw = _gp_tables(book, 2)
+    full = 2 * (16 * cv // 64 + 1)
+    _gp_check(dev, codes, valid, ln, cw, bs,
+              (full, 128 * 37 + 50, full // 3 + 7))
+
+
+def test_gather_pack_many_short_rows(dev):
+    """C=70000 rows of 5 values: a grid of one tile a row, every row its
+    own look-back and tickets; 16-symbol blocks; a capacity of 1 and 3
+    words."""
+    rng = np.random.default_rng(70000)
+    C = 70000
+    codes = _gp_codes(rng, "16bit", C, 5)
+    valid = rng.random((C, 5)) < 0.9
+    ln, cw = _gp_tables("16bit", C)
+    _gp_check(dev, codes, valid, ln, cw, 16, (1, 3))
+
+
+@pytest.mark.parametrize("C,n,case", [
+    (1, (1 << 22) + 5, "one_code"), (5, 4099, "odd_rows"),
+    (4, 10000, "invalid_rows"), (3, 9001, "offset_views")])
+def test_histogram_kernel_regimes(dev, C, n, case):
+    """One long row of a single code (each thread's run never breaks),
+    odd n with several rows (rows start off the 16-byte grain), rows
+    that are all invalid, and views whose flags are not 4-byte aligned
+    (the scalar path); the same call twice bitwise."""
+    rng = np.random.default_rng(n)
+    codes = np.clip(rng.normal(512, 3, (C, n)), -2, 1030).astype(np.int32)
+    valid = rng.random((C, n)) < 0.9
+    if case == "one_code":
+        codes[:] = 512
+        valid[:] = True
+    if case == "invalid_rows":
+        valid[1::2] = False
+    c, v = torch.from_numpy(codes).to(dev), torch.from_numpy(valid).to(dev)
+    if case == "offset_views":
+        c = torch.cat([c.reshape(-1)[:3], c.reshape(-1)])[3:].reshape(C, n)
+        v = torch.cat([v.reshape(-1)[:1], v.reshape(-1)])[1:].reshape(C, n)
+        assert v.data_ptr() % 4 == 1
+    got = HG.histogram_cuda(c, v)
+    _eq(got, HG.histogram_plain(c, v))
+    _eq(got, HG.histogram_cuda(c, v))
+    if case == "one_code":
+        assert int(got[0, 512]) == n and int(got.sum()) == n
+    if case == "invalid_rows":
+        assert int(got[1::2].sum()) == 0

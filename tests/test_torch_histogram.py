@@ -69,3 +69,38 @@ def test_cuda_impl_refuses_cpu_tensors():
     z = torch.zeros((1, 8), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         TH.histogram_cuda(z, z.bool())
+
+
+@pytest.mark.parametrize("C,n,per,ctas", [
+    (1, 1, 4096, 1), (1, 1 << 15, 4096, 8), (1, (1 << 15) + 1, 4096, 9),
+    (1, 1 << 17, 4096, 32), (1, 1 << 23, 16384, 512),
+    (64, 1 << 17, 16384, 512), (1, 6480000, 12288, 528),
+    (70000, 3, 4096, 65535)])
+def test_histogram_grid(C, n, per, ctas):
+    """The kernel's grid on a 132-SM card: at least 4096 values a CTA, a
+    multiple of 1024, about 4 CTAs an SM where the data allows; past
+    65535 rows the grid's CTAs stride over the rows."""
+    got_per, grid_y = TH.histogram_grid(C, n, 132)
+    assert (got_per, -(-n // got_per) * grid_y) == (per, ctas)
+    assert got_per % 1024 == 0 and got_per >= TH.MIN_PER_CTA
+    assert grid_y == min(C, TH.MAX_GRID_Y)
+    if C * n >= 4 * 132 * TH.MIN_PER_CTA:        # the card is filled
+        assert -(-n // got_per) * C >= 4 * 132 * 0.9
+
+
+def test_all_valid_mask_is_one_cached_mask():
+    """The all-true (1, n) mask the single-row callers pass: views of one
+    mask a device, grown when a longer row asks."""
+    a = dispatch.all_valid(5, "cpu")
+    b = dispatch.all_valid(3, "cpu")
+    assert a.shape == (1, 5) and b.shape == (1, 3)
+    assert a.dtype == torch.bool and bool(a.all()) and b.is_contiguous()
+    assert a.data_ptr() == b.data_ptr()
+    c = dispatch.all_valid(1 << 15, "cpu")
+    assert c.shape == (1, 1 << 15) and bool(c.all())
+    assert dispatch.all_valid(7, "cpu").data_ptr() == c.data_ptr()
+    codes = torch.arange(7, dtype=torch.int32).reshape(1, 7)
+    np.testing.assert_array_equal(
+        _port(codes.numpy(), dispatch.all_valid(7, "cpu").numpy()),
+        _expect(codes.numpy(), np.ones((1, 7), bool)))
+

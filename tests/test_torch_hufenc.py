@@ -170,17 +170,17 @@ def _encode_both(codes, cb, bs):
 
 @pytest.mark.parametrize("max_len", [12, 16])
 @pytest.mark.parametrize("bs", [16, 1024, 4096])
-@pytest.mark.parametrize("n", [1, 4097, 3 * 4096, TO.GATHER_PACK_MAX_VALUES,
-                               TO.GATHER_PACK_MAX_VALUES + 1, 70001])
+@pytest.mark.parametrize("n", [1, 4097, 3 * 4096, 1 << 16, (1 << 16) + 1,
+                               70001])
 def test_encode_device_matches_huffman_encode(n, bs, max_len):
-    """n = 1, odd n, exact multiples of every block size, and both sides
-    of the gather_pack / hufenc_blocks rule."""
+    """n = 1, odd n, exact multiples of every block size and of the
+    gather_pack tile, 2^16 and 2^16+1 values."""
     rng = np.random.default_rng(n + bs)
     codes = np.clip(rng.normal(512, 40, n), 0, 1023).astype(np.int32)
     _encode_both(codes, _book(codes, max_len), bs)
 
 
-@pytest.mark.parametrize("n", [1, 999, TO.GATHER_PACK_MAX_VALUES + 7])
+@pytest.mark.parametrize("n", [1, 999, (1 << 16) + 7])
 def test_encode_device_one_symbol_book(n):
     """1-bit codes: with 16-symbol blocks an output word gathers the bits
     of two blocks."""
@@ -211,3 +211,50 @@ def test_new_cuda_impls_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         TO.gather_pack_cuda(z.reshape(1, 8), z.reshape(1, 8).bool(),
                             t.reshape(1, -1), t.reshape(1, -1), 4, 4)
+
+
+@pytest.mark.parametrize("n", [1, 1 << 15, (1 << 15) + 1, 70001])
+def test_encode_device_packers_agree_on_each_side_of_the_rule(
+        n, monkeypatch):
+    """With the rule's constant put at n, then at n - 1, the same chunk
+    packs through `gather_pack`, then through `hufenc_blocks` +
+    `hufenc_stitch` (their plain versions here): the same (words,
+    block_nbits, total) as ``huffman.encode`` both times."""
+    rng = np.random.default_rng(n)
+    codes = np.clip(rng.normal(512, 40, n), 0, 1023).astype(np.int32)
+    cb = _book(codes, 16)
+    resolve, asked = TO.dispatch.resolve, []
+
+    def spy(op, *a):
+        asked.append(op)
+        return resolve(op, *a)
+    monkeypatch.setattr(TO.dispatch, "resolve", spy)
+    outs = []
+    for limit, packer in ((n, "gather_pack"), (n - 1, "hufenc_blocks")):
+        monkeypatch.setattr(TO, "GATHER_PACK_MAX_VALUES", limit)
+        asked.clear()
+        outs.append(_encode_both(codes, cb, 16))
+        assert packer in asked
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("C,cv,tiles", [(1, 1, 1), (1, 1 << 15, 8),
+                                        (1, (1 << 15) + 1, 9),
+                                        (1, 1 << 23, 2048),
+                                        (70000, 3, 1), (3, 70001, 18)])
+def test_gather_pack_plan(C, cv, tiles):
+    """The one zeroed buffer of a `gather_pack` launch: words, then
+    block_nbits, each from an int64 boundary, then one 64-bit status word
+    a tile and one int32 ticket a row, nothing overlapping."""
+    for bs, w32 in ((16, 1), (4096, 2 * (16 * cv // 64 + 1))):
+        nblocks = max(1, -(-cv // bs))
+        got_tiles, size, at_nbits, at_scratch = TO.gather_pack_plan(
+            C, cv, nblocks, w32, 4096)
+        assert got_tiles == tiles == -(-cv // 4096)
+        assert 2 * at_nbits >= C * w32 and 2 * at_nbits - C * w32 < 2
+        assert 2 * (at_scratch - at_nbits) >= C * nblocks
+        assert 2 * (at_scratch - at_nbits) - C * nblocks < 2
+        assert size - at_scratch == C * tiles + -(-C // 2)
+        assert 2 * (size - at_scratch - C * tiles) >= C
+
