@@ -104,10 +104,11 @@ called on the inputs the main path gave it and held BITWISE against its
 plain PyTorch version on the card (integer outputs: tolerance 0), and
 timed (CUDA events around one call, median after warm-up: warm, and at
 small shapes mostly the wrapper's host time). `histogram` and both
-staged packers also get their kernels' own device time, L2-cold
-(``cold_device_ms``: torch.profiler's record of each launch, a 256 MB
-buffer written before every call), beside their bound and an empty
-launch through the same binding (the floor). The script prints the card
+staged packers also get their device time, L2-cold: their kernels and
+the zeroing of their outputs (``cold_device_ms``: torch.profiler's
+record of each launch, a 256 MB buffer written before every call),
+beside their bound and an empty launch through the same binding (the
+floor). The script prints the card
 (nvidia-smi name and power limit), the build time, per-kernel results,
 compress/decompress throughput, one JSON line of kernels and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit
@@ -260,35 +261,45 @@ def cuda_ms(fn, reps=5, warmup=2):
 L2_FLUSH_BYTES = 256 << 20       # 5x the H100's 50 MB L2
 
 
+# device events that zero an op's outputs: cudaMemsetAsync in a C entry,
+# the fill kernel of torch.zeros
+ZEROING = ("Memset", "FillFunctor")
+
+
 def cold_device_ms(fn, names, reps=10):
-    """Device ms of one call of fn spent in the kernels whose names hold
-    one of `names`, with a cold L2: torch.profiler's record of each
-    launch, over `reps` calls, each after a 256 MB buffer is written, so
-    that every call reads its inputs from device memory and not from the
-    L2 the last call left them in (the write is none of `names`). The
-    median launch of each named kernel, summed over the names; None where
-    the profiler recorded none of a name."""
+    """Device ms of one call of fn with a cold L2: the kernels whose names
+    hold one of `names` plus the call's zeroing of its outputs (ZEROING),
+    from torch.profiler's record of `reps` calls, each after a 256 MB
+    buffer is written (an add kernel, neither named nor zeroing), so that
+    every call reads its inputs from device memory and not from the L2
+    the last call left them in. The median launch of each named kernel,
+    summed over the names, plus the zeroing's mean a call; None where the
+    profiler recorded none of a name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            flush.zero_()
+            flush.add_(1)
             fn()
         torch.cuda.synchronize()
     durs = {n: [] for n in names}
+    zeroing_us = 0.0
     for e in prof.events():
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
             for n in names:
                 if n in e.name:
                     durs[n].append(e.time_range.elapsed_us())
+            if any(z in e.name for z in ZEROING):
+                zeroing_us += e.time_range.elapsed_us()
     del flush
     if not all(durs.values()):
         return None
-    return sum(statistics.median(d) for d in durs.values()) / 1e3
+    return (sum(statistics.median(d) for d in durs.values())
+            + zeroing_us / reps) / 1e3
 
 
 def host_call_ms(fn, reps=100):
@@ -517,8 +528,8 @@ def add_row(rows, name, cuda_fn, plain_fn, in_bytes, out_bytes, ops,
             extra=None, library_ms=None, device_kernels=None):
     """One kernel's row: bitwise against its plain version, timed, with
     its bound from the bytes and operations of these inputs (and, given
-    the names of its CUDA kernels, their L2-cold device time and the
-    bound's share of it)."""
+    the names of its CUDA kernels, the L2-cold device time of those and
+    of the call's zeroing, and the bound's share of it)."""
     import torch
     got = cuda_fn()
     want = plain_fn()
@@ -1299,11 +1310,11 @@ def staged_kernel_rows(inputs, rows):
     values) and of G.off (2^17), each beside the torch.bincount call it
     replaces; `gather_pack` at T.G's chunk; `hufenc` (+ its stitch) at
     T.A's chunk; both packers held against each other and timed at 2^15,
-    2^16 and 2^23 of T.E's codes, the two sides of encode_device's rule;
-    an empty launch, the floor under the one-row cases. Every case of
-    `histogram` and the packers has ms (events, warm, host included),
-    device_ms (the kernels alone, L2-cold) and host_ms (the wrapper's
-    host side) beside its bound."""
+    2^16, 2^22, 2^22+1 and 2^23 of T.E's codes, the two sides of
+    encode_device's rule; an empty launch, the floor under the one-row
+    cases. Every case of `histogram` and the packers has ms (events,
+    warm, host included), device_ms (its kernels and zeroing, L2-cold)
+    and host_ms (the wrapper's host side) beside its bound."""
     import torch
     from repro_torch.kernels.histogram import ops as HG
     from repro_torch.kernels.hufenc import ops as HE
@@ -1358,7 +1369,7 @@ def staged_kernel_rows(inputs, rows):
 
     codes, ln, cw, bs, max_len = inputs["T.E"]["hufenc_blocks"][0]
     crossover = []
-    for n in (1 << 15, 1 << 16, codes.numel()):
+    for n in (1 << 15, 1 << 16, 1 << 22, (1 << 22) + 1, codes.numel()):
         c = codes[:n]
         _, nb = HE.hufenc_blocks_cuda(c, ln, cw, bs, max_len)
         tot = int(nb.sum())

@@ -528,15 +528,16 @@ extern "C" int ceaz_hufenc_pack(const void* codes, const void* valid,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The symbols of a row that one CTA of gather_pack packs: the wrapper
-// sizes the look-back scratch with it.
-extern "C" int ceaz_gather_pack_tile() { return GP_TILE; }
+// Bytes of gather_pack's look-back scratch for C rows of cv symbols: one
+// 64-bit status word a tile (C*tiles, tiles = ceil(cv / GP_TILE)), then
+// one int32 ticket a row (C). The wrapper sizes its buffer with it.
+extern "C" int64_t ceaz_gather_pack_scratch_bytes(int64_t C, int64_t cv) {
+  return 8 * C * ((cv + GP_TILE - 1) / GP_TILE) + 4 * C;
+}
 
 // words (C, w32), block_nbits (C, nblocks) and the 8-byte aligned
-// scratch — one 64-bit look-back status word a tile (C*tiles, tiles =
-// ceil(cv / GP_TILE)), then one int32 ticket a row (C) — lie in one
-// buffer of `bytes` bytes from `words` on, which this entry zeroes on the
-// stream before the launch.
+// scratch (its layout above) lie in one buffer of `bytes` bytes from
+// `words` on, which this entry zeroes on the stream before the launch.
 extern "C" int ceaz_gather_pack(const void* codes, const void* valid,
                                 const void* lengths, const void* cwords,
                                 int64_t C, int64_t cv, int64_t bs,

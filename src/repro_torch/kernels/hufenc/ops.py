@@ -66,10 +66,12 @@ _STITCH_ARGS = [_P, _P, _P, _I64, _I64, _I64, _P, _P]
 # one stream block per CTA (`hufenc_blocks`, the FPGA's N pipelines) and
 # are stitched — the small-chunk / large-chunk split that the
 # reference's hufenc/kernel.py:86-92 draws between its kernels. Both give
-# the same bits. On the H100 `gather_pack` is the faster op at 2^15,
-# 2^16 and 2^23 values (PERF.md section 6), so the line only keeps the
-# per-block packer on the route: at 2^22 it sends the default 32 MB
-# chunks (T.A's 6.48 M values, T.E's 2^23) through it.
+# the same bits. On the H100 there is no crossover: `gather_pack` is the
+# faster op at every size measured, 2^15 to 2^23 (PERF.md section 6). So
+# the line is a coverage rule, not a speed rule: at 2^22 it keeps the
+# per-block packer on the route of the default 32 MB chunks (T.A's
+# 6.48 M values, T.E's 2^23), at the cost per chunk that PERF.md
+# section 6 gives.
 GATHER_PACK_MAX_VALUES = 1 << 22
 
 
@@ -77,27 +79,27 @@ def _nblocks(cv: int, block_size: int) -> int:
     return max(1, -(-cv // block_size))
 
 
-@functools.lru_cache(maxsize=None)
-def gather_pack_tile() -> int:
-    """The symbols of a row that one CTA of `gather_pack` packs
-    (csrc/hufenc.cu GP_TILE), read from the built kernel library."""
-    return _build.function("ceaz_gather_pack_tile", [])()
+@functools.lru_cache(maxsize=256)
+def gather_pack_scratch_bytes(C: int, cv: int) -> int:
+    """Bytes of the look-back scratch of a `gather_pack` launch over C
+    rows of cv symbols, from the built kernel library (csrc/hufenc.cu
+    owns its layout)."""
+    fn = _build.function("ceaz_gather_pack_scratch_bytes", [_I64, _I64])
+    fn.restype = _I64
+    return fn(C, cv)
 
 
-def gather_pack_plan(C: int, cv: int, nblocks: int, w32: int, tile: int):
-    """The `gather_pack` launch for C rows of cv symbols, `tile` symbols
-    a CTA: (tiles a row, int64 words of its one buffer, which the C entry
-    zeroes, and the int64-word offsets of block_nbits and of the
-    look-back scratch in it).
+def gather_pack_plan(C: int, nblocks: int, w32: int, scratch_bytes: int):
+    """The one buffer of a `gather_pack` launch, which the C entry
+    zeroes: (its size in int64 words, and the int64-word offsets of
+    block_nbits and of the kernel's scratch in it).
 
-    The buffer holds, in order: words (C*w32 int32), block_nbits
-    (C*nblocks int32), each padded to a whole int64 word; then the
-    scratch the kernel reads as one 64-bit status word a tile (C*tiles)
-    and one int32 ticket a row (C). The grid is C*tiles CTAs."""
-    tiles = -(-cv // tile)
+    The buffer holds, in order: words (C*w32 int32) and block_nbits
+    (C*nblocks int32), each from an int64 boundary, then the scratch of
+    scratch_bytes bytes."""
     at_nbits = -(-C * w32 // 2)
     at_scratch = at_nbits + -(-C * nblocks // 2)
-    return tiles, at_scratch + C * tiles + -(-C // 2), at_nbits, at_scratch
+    return at_scratch + -(-scratch_bytes // 8), at_nbits, at_scratch
 
 
 def encode_pack_plain(codes2: torch.Tensor, valid2: torch.Tensor,
@@ -189,8 +191,8 @@ def gather_pack_cuda(codes2: torch.Tensor, valid2: torch.Tensor,
     if C == 0 or cv == 0:
         return (torch.zeros((C, w32), dtype=torch.int32, device=dev),
                 torch.zeros((C, nblocks), dtype=torch.int32, device=dev))
-    _, size, at_nbits, at_scratch = gather_pack_plan(
-        C, cv, nblocks, w32, gather_pack_tile())
+    size, at_nbits, at_scratch = gather_pack_plan(
+        C, nblocks, w32, gather_pack_scratch_bytes(C, cv))
     buf = torch.empty(2 * size, dtype=torch.int32, device=dev)
     words = buf.as_strided((C, w32), (w32, 1))
     block_nbits = buf.as_strided((C, nblocks), (nblocks, 1), 2 * at_nbits)

@@ -213,16 +213,12 @@ def test_new_cuda_impls_refuse_cpu_tensors():
                             t.reshape(1, -1), t.reshape(1, -1), 4, 4)
 
 
-@pytest.mark.parametrize("n", [1, 1 << 15, (1 << 15) + 1, 70001])
-def test_encode_device_packers_agree_on_each_side_of_the_rule(
-        n, monkeypatch):
+def _encode_through_both_packers(codes, cb, bs, monkeypatch):
     """With the rule's constant put at n, then at n - 1, the same chunk
     packs through `gather_pack`, then through `hufenc_blocks` +
     `hufenc_stitch` (their plain versions here): the same (words,
     block_nbits, total) as ``huffman.encode`` both times."""
-    rng = np.random.default_rng(n)
-    codes = np.clip(rng.normal(512, 40, n), 0, 1023).astype(np.int32)
-    cb = _book(codes, 16)
+    n = codes.size
     resolve, asked = TO.dispatch.resolve, []
 
     def spy(op, *a):
@@ -233,10 +229,37 @@ def test_encode_device_packers_agree_on_each_side_of_the_rule(
     for limit, packer in ((n, "gather_pack"), (n - 1, "hufenc_blocks")):
         monkeypatch.setattr(TO, "GATHER_PACK_MAX_VALUES", limit)
         asked.clear()
-        outs.append(_encode_both(codes, cb, 16))
+        outs.append(_encode_both(codes, cb, bs))
         assert packer in asked
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
+    return outs[0]
+
+
+@pytest.mark.parametrize("max_len", [12, 16])
+@pytest.mark.parametrize("bs", [16, 1024, 4096])
+@pytest.mark.parametrize("n", [1, 4097, 3 * 4096, 1 << 15, (1 << 15) + 1,
+                               1 << 16, (1 << 16) + 1, 70001])
+def test_encode_device_packers_agree_on_each_side_of_the_rule(
+        n, bs, max_len, monkeypatch):
+    """Both packers at every block size and length limit, on n = 1, odd
+    n and exact multiples of every block size and of the gather_pack
+    tile."""
+    rng = np.random.default_rng(n + bs)
+    codes = np.clip(rng.normal(512, 40, n), 0, 1023).astype(np.int32)
+    _encode_through_both_packers(codes, _book(codes, max_len), bs,
+                                 monkeypatch)
+
+
+@pytest.mark.parametrize("n", [1, 999, (1 << 16) + 7])
+def test_encode_device_packers_agree_on_a_one_symbol_book(n, monkeypatch):
+    """1-bit codes in 16-symbol blocks through both packers: a stitched
+    output word gathers the bits of two blocks."""
+    codes = np.full(n, 512, np.int32)
+    cb = _book(codes, one_symbol=True)
+    words, nbits, total = _encode_through_both_packers(codes, cb, 16,
+                                                       monkeypatch)
+    assert total == n and nbits[0] == min(n, 16)
 
 
 @pytest.mark.parametrize("C,cv,tiles", [(1, 1, 1), (1, 1 << 15, 8),
@@ -245,16 +268,18 @@ def test_encode_device_packers_agree_on_each_side_of_the_rule(
                                         (70000, 3, 1), (3, 70001, 18)])
 def test_gather_pack_plan(C, cv, tiles):
     """The one zeroed buffer of a `gather_pack` launch: words, then
-    block_nbits, each from an int64 boundary, then one 64-bit status word
-    a tile and one int32 ticket a row, nothing overlapping."""
+    block_nbits, each from an int64 boundary, then the kernel's scratch
+    (here the size csrc/hufenc.cu gives C rows of `tiles` 4096-symbol
+    tiles: a 64-bit status word a tile, an int32 ticket a row), nothing
+    overlapping."""
+    assert tiles == -(-cv // 4096)
+    scratch = 8 * C * tiles + 4 * C
     for bs, w32 in ((16, 1), (4096, 2 * (16 * cv // 64 + 1))):
         nblocks = max(1, -(-cv // bs))
-        got_tiles, size, at_nbits, at_scratch = TO.gather_pack_plan(
-            C, cv, nblocks, w32, 4096)
-        assert got_tiles == tiles == -(-cv // 4096)
+        size, at_nbits, at_scratch = TO.gather_pack_plan(C, nblocks, w32,
+                                                         scratch)
         assert 2 * at_nbits >= C * w32 and 2 * at_nbits - C * w32 < 2
         assert 2 * (at_scratch - at_nbits) >= C * nblocks
         assert 2 * (at_scratch - at_nbits) - C * nblocks < 2
-        assert size - at_scratch == C * tiles + -(-C // 2)
-        assert 2 * (size - at_scratch - C * tiles) >= C
-
+        assert 8 * (size - at_scratch) >= scratch
+        assert 8 * (size - at_scratch) - scratch < 8
