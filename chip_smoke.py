@@ -103,12 +103,17 @@ the reconstruction must hold the error bound. Every kernel is then
 called on the inputs the main path gave it and held BITWISE against its
 plain PyTorch version on the card (integer outputs: tolerance 0), and
 timed (CUDA events around one call, median after warm-up: warm, and at
-small shapes mostly the wrapper's host time). `histogram` and both
-staged packers also get their device time, L2-cold: their kernels and
-the zeroing of their outputs (``cold_device_ms``: torch.profiler's
-record of each launch, a 256 MB buffer written before every call),
-beside their bound and an empty launch through the same binding (the
-floor). The script prints the card
+small shapes mostly the wrapper's host time). Every kernel also gets
+its device time, L2-cold: everything one call puts on the device —
+kernels, torch glue, the zeroing of its outputs (``cold_device_ms``:
+torch.profiler's record, a 256 MB buffer written before every call) —
+beside its bound, its wrapper's host time and an empty launch through
+the same binding (the floor). The two decode walks (``hufdec_tiles``,
+the decode megakernel) are held and timed at every phase where they
+launch and on garbage and bit-flipped streams; after each decode phase
+the script prints their counters (blocks kept from the fast path,
+blocks walked by the serial walk, most sync rounds), and no block of a
+valid stream may take the serial walk. The script prints the card
 (nvidia-smi name and power limit), the build time, per-kernel results,
 compress/decompress throughput, one JSON line of kernels and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit
@@ -261,20 +266,24 @@ def cuda_ms(fn, reps=5, warmup=2):
 L2_FLUSH_BYTES = 256 << 20       # 5x the H100's 50 MB L2
 
 
-# device events that zero an op's outputs: cudaMemsetAsync in a C entry,
-# the fill kernel of torch.zeros
-ZEROING = ("Memset", "FillFunctor")
+def _device_events(prof):
+    """The device-side events (kernels, memsets, copies) of a profile, in
+    start order."""
+    ev = [e for e in prof.events()
+          if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return sorted(ev, key=lambda e: e.time_range.start)
 
 
-def cold_device_ms(fn, names, reps=10):
-    """Device ms of one call of fn with a cold L2: the kernels whose names
-    hold one of `names` plus the call's zeroing of its outputs (ZEROING),
-    from torch.profiler's record of `reps` calls, each after a 256 MB
-    buffer is written (an add kernel, neither named nor zeroing), so that
-    every call reads its inputs from device memory and not from the L2
-    the last call left them in. The median launch of each named kernel,
-    summed over the names, plus the zeroing's mean a call; None where the
-    profiler recorded none of a name."""
+def cold_device_ms(fn, reps=10):
+    """Device ms of one call of fn with a cold L2: everything the call put
+    on the device — its kernels, its torch glue, the zeroing of its
+    outputs — from torch.profiler's record of `reps` calls, each after a
+    256 MB buffer is written, so that every call reads its inputs from
+    device memory and not from the L2 the last call left them in. A
+    marker kernel (torch.cuda._sleep's spin_kernel, which no op launches)
+    follows each flush: a call is the events after a marker, less the
+    next call's flush. The median call; None where the profiler recorded
+    no call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -284,22 +293,20 @@ def cold_device_ms(fn, names, reps=10):
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             flush.add_(1)
+            torch.cuda._sleep(1)
             fn()
         torch.cuda.synchronize()
-    durs = {n: [] for n in names}
-    zeroing_us = 0.0
-    for e in prof.events():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            for n in names:
-                if n in e.name:
-                    durs[n].append(e.time_range.elapsed_us())
-            if any(z in e.name for z in ZEROING):
-                zeroing_us += e.time_range.elapsed_us()
+    calls = []
+    for e in _device_events(prof):
+        if "spin_kernel" in e.name:
+            if calls and calls[-1]:
+                calls[-1].pop()          # this call's flush
+            calls.append([])
+        elif calls:
+            calls[-1].append(e.time_range.elapsed_us())
     del flush
-    if not all(durs.values()):
-        return None
-    return (sum(statistics.median(d) for d in durs.values())
-            + zeroing_us / reps) / 1e3
+    calls = [sum(c) for c in calls if c]
+    return statistics.median(calls) / 1e3 if calls else None
 
 
 def host_call_ms(fn, reps=100):
@@ -418,11 +425,15 @@ def run_phase(name, x, kw, offline, dispatch, CEAZ, CEAZConfig, captured):
     c_gpu = gpu.compress(x)
     import torch
     torch.cuda.synchronize()
+    counters = walk_counters()
+    if counters:
+        counters[0]()
     t0 = time.perf_counter()
     y_gpu = gpu.decompress(c_gpu)
     torch.cuda.synchronize()
     counted_dec_s = time.perf_counter() - t0
     counts = dispatch.launches()
+    check_walk_counters(name, counts, counters)
     spec = om.diff(om.snapshot(), before)
     for k in PHASE_KERNELS[name]:
         check(counts.get(k, 0) > 0,
@@ -525,11 +536,12 @@ def run_split_phase(name, c, y_mega, kw, offline, dispatch, CEAZ, CEAZConfig,
 
 
 def add_row(rows, name, cuda_fn, plain_fn, in_bytes, out_bytes, ops,
-            extra=None, library_ms=None, device_kernels=None):
+            extra=None, library_ms=None, time_plain=True):
     """One kernel's row: bitwise against its plain version, timed, with
-    its bound from the bytes and operations of these inputs (and, given
-    the names of its CUDA kernels, the L2-cold device time of those and
-    of the call's zeroing, and the bound's share of it)."""
+    its bound from the bytes and operations of these inputs, the L2-cold
+    device time of everything one call puts on the device
+    (``cold_device_ms``) and the bound's share of it, and the wrapper's
+    host side."""
     import torch
     got = cuda_fn()
     want = plain_fn()
@@ -537,27 +549,23 @@ def add_row(rows, name, cuda_fn, plain_fn, in_bytes, out_bytes, ops,
     check(same_outputs(got, want),
           f"kernel {name} disagrees with its plain version")
     ms = cuda_ms(cuda_fn)
-    plain_ms = cuda_ms(plain_fn, reps=3, warmup=1)
+    plain_ms = cuda_ms(plain_fn, reps=3, warmup=1) if time_plain else None
     t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
-    rows[name] = dict(
+    device_ms = cold_device_ms(cuda_fn)
+    rows[name] = r = dict(
         name=name, route="cuda", source=SOURCES[name],
         replaces=REPLACES[name], launches=0, max_abs_err=0,
         ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=library_ms, **(extra or {}))
-    cold = ""
-    if device_kernels:
-        r = rows[name]
-        r["device_ms"] = cold_device_ms(cuda_fn, device_kernels)
-        r["pct_of_bound"] = pct_of_bound(r["bound_ms"], r["device_ms"])
-        r["host_ms"] = host_call_ms(cuda_fn)
-        cold = (f" device_ms(L2-cold)={r['device_ms']} "
-                f"pct_of_bound={r['pct_of_bound']} host_ms={r['host_ms']}")
+        library_ms=library_ms, device_ms=device_ms,
+        pct_of_bound=pct_of_bound(max(t_bytes, t_ops), device_ms),
+        host_ms=host_call_ms(cuda_fn), **(extra or {}))
     print(f"kernel {name}: bitwise == plain: True  ms={ms} "
-          f"plain_ms={plain_ms} bound_ms={rows[name]['bound_ms']} "
-          f"({rows[name]['bound_by']}; {in_bytes + out_bytes} B, "
-          f"{ops} ops) library_ms={library_ms}{cold}")
+          f"plain_ms={plain_ms} bound_ms={r['bound_ms']} "
+          f"({r['bound_by']}; {in_bytes + out_bytes} B, {ops} ops) "
+          f"library_ms={library_ms} device_ms(L2-cold)={r['device_ms']} "
+          f"pct_of_bound={r['pct_of_bound']} host_ms={r['host_ms']}")
 
 
 def kernel_rows(inputs):
@@ -592,26 +600,9 @@ def kernel_rows(inputs):
             out_bytes=4 * C * (w32 + nblocks),
             ops=int(valid2.sum()) * 8,
             extra=dict(phase=phase))
-
-    for name, dec, wrapper, plain, ops_per_symbol in (
-            ("hufdec_tiles", inputs_a["ceaz_chunk_dec"][0],
-             lambda d: HD.hufdec_tiles_cuda(*d[:6], d[10]),
-             lambda d: HD.hufdec_tiles_plain(*d[:6], d[10]), 12),
-            ("ceaz_chunk_dec_fused", inputs_b["ceaz_chunk_dec"][0],
-             lambda d: MK.ceaz_chunk_dec_fused_cuda(*d),
-             lambda d: MK.ceaz_chunk_dec_plain(*d), 20)):
-        words2, nbits2, counts = dec[:3]
-        bs = dec[10]
-        C, NB = nbits2.shape
-        # the walk's inputs (the fused kernel also reads the patch/inverse
-        # metadata); its output is every (chunk, block) lane's q row
-        n_in = 6 if name == "hufdec_tiles" else 10
-        q_like = torch.zeros((C, NB * bs), dtype=torch.int32,
-                             device=words2.device)
-        row(name, lambda: wrapper(dec), lambda: plain(dec),
-            in_bytes=nbytes(*dec[:n_in]), out_bytes=4 * C * NB * bs,
-            ops=ops_per_symbol * int(counts.sum()),
-            extra=dict(cumsum_ms=cuda_ms(lambda: torch.cumsum(q_like, 1))))
+        if phase == "B":
+            case_b = {k: rows["gather_pack_tiled"][k] for k in CASE_KEYS}
+    rows["gather_pack_tiled"]["cases"] = [case_b]
 
     # -- the bank encode (phases C, D, E) ---------------------------------
     # prequantize is ~12 f32 operations a value; the Lorenzo kernel runs
@@ -700,6 +691,128 @@ def kernel_rows(inputs):
         out_bytes=13 * C * cv + 4 * NUM_SYMBOLS * C, ops=4 * C * cv,
         extra=dict(phase="E.bank"))
     return rows
+
+
+# the two warp walks: kernel -> (main phase, inputs it reads of the op's
+# 11 arguments, ops a symbol)
+WALKS = {"hufdec_tiles": ("A", 6, 12), "ceaz_chunk_dec_fused": ("B", 10, 20)}
+CASE_KEYS = ("phase", "ms", "device_ms", "pct_of_bound", "host_ms",
+             "plain_ms", "bound_ms")
+
+
+def walk_fns(name):
+    """(card, plain) of a walk kernel on the `ceaz_chunk_dec` op's 11
+    arguments. The decode megakernel's plain version at any shape: the
+    walk with one window a row, then the plain patch and inverse (what
+    ceaz_chunk_dec_plain computes up to 2^17 values a row)."""
+    from repro_torch.kernels.hufdec import ops as HD
+    from repro_torch.kernels.megakernel import ops as MK
+    if name == "hufdec_tiles":
+        return (lambda d: HD.hufdec_tiles_cuda(*d[:6], d[10]),
+                lambda d: HD.hufdec_tiles_plain(*d[:6], d[10]))
+
+    def plain(d):
+        codes = HD.walk_plain(*d[:6], d[10], d[1].shape[1], d[0].shape[1])
+        return MK.patch_and_inverse(codes, d[2], *d[6:10])
+    return (lambda d: MK.ceaz_chunk_dec_fused_cuda(*d)), plain
+
+
+def walk_counters():
+    """(reset, read) of the imported package's warp-walk counters (blocks
+    kept from the fast path, blocks walked by walk_lane, most sync
+    rounds), or None for a tree without them (a parent's, under --src)."""
+    from repro_torch.kernels.hufdec import ops as HD
+    if not hasattr(HD, "walk_stats"):
+        return None
+    return HD.reset_walk_stats, lambda: {n: HD.walk_stats(n) for n in WALKS}
+
+
+def check_walk_counters(phase, launches, counters):
+    """After a phase's counted decode of a valid stream: print the warp
+    walks' counters and require that no block took walk_lane."""
+    if not any(launches.get(n, 0) for n in WALKS):
+        return
+    if counters is None:
+        print(f"phase {phase} warp-walk counters: not in this tree")
+        return
+    got = {n: v for n, v in counters[1]().items() if launches.get(n, 0)}
+    print(f"phase {phase} warp-walk counters (blocks kept from the fast "
+          f"path, blocks walked by walk_lane, most sync rounds): {got}")
+    check(all(v["exact_blocks"] == 0 and v["fast_blocks"] > 0
+              for v in got.values()),
+          f"phase {phase}: a block of a valid stream took walk_lane ({got})")
+
+
+def walk_rows(inputs, rows):
+    """Rows 4 and 5: held bitwise against the plain version and timed at
+    every phase where they launch (the main phase's numbers are the row's;
+    the others are its cases; the plain version timed at the main phase
+    only)."""
+    for name, (main, n_in, ops) in WALKS.items():
+        cuda, plain = walk_fns(name)
+        cases = []
+        for phase in [main] + [p for p, ks in PHASE_KERNELS.items()
+                               if name in ks and p != main]:
+            dec = inputs[phase]["ceaz_chunk_dec"][0]
+            C, NB = dec[1].shape
+            bs = dec[10]
+            add_row(rows, name, lambda: cuda(dec), lambda: plain(dec),
+                    in_bytes=nbytes(*dec[:n_in]), out_bytes=4 * C * NB * bs,
+                    ops=ops * int(dec[2].sum()),
+                    extra=dict(phase=phase, shape=[C, NB, bs]),
+                    time_plain=phase == main)
+            cases.append(dict(rows[name]))
+        rows[name] = dict(cases[0], cases=[
+            {k: c[k] for k in CASE_KEYS + ("shape",)} for c in cases[1:]])
+
+
+def walk_garbage_checks(inputs):
+    """Rows 4 and 5 on corrupted inputs, bitwise against their plain
+    versions: garbage at small shapes (random words, random tables with
+    length-0 entries, random bit counts and counts, as
+    tests/test_torch_gpu.py::_garbage) through both, and bit flips in the
+    streams of phase A (hufdec_tiles) and B (the decode megakernel). With
+    the counters, corrupted blocks must have taken walk_lane."""
+    import numpy as np
+    import torch
+    counters = walk_counters()
+    rng = np.random.default_rng(2)
+    cases = []
+    for C, NB, bs in ((3, 6, 256), (2, 600, 256), (5, 40, 32)):
+        W = int(rng.integers(3, 40))
+        g = [rng.integers(-2**31, 2**31, (C, W)),
+             rng.integers(0, 1 << 12, (C, NB)),
+             rng.integers(0, NB * bs + 1, C),
+             rng.integers(0, 1024, 1 << 17), rng.integers(0, 17, 1 << 17),
+             rng.integers(0, 2, C), rng.integers(-999, 999, (C, 4)),
+             rng.integers(-5, 6, C), np.zeros(C), rng.integers(0, 2, C)]
+        d = [torch.from_numpy(a.astype(np.int32)).cuda() for a in g]
+        cases.append((f"garbage {C}x{NB}x{bs}", tuple(WALKS), d + [bs]))
+    for phase, name in (("A", "hufdec_tiles"), ("B", "ceaz_chunk_dec_fused")):
+        d = list(inputs[phase]["ceaz_chunk_dec"][0])
+        w = d[0].clone()
+        used = (d[1].to(torch.int64).sum(1) + 31) // 32     # payload words
+        for c in range(0, w.shape[0], max(1, w.shape[0] // 4)):
+            for k in (1, 2):                 # a third and two thirds in
+                w[c, int(used[c]) * k // 3] ^= 1 << (7 * (c + k) % 31)
+        cases.append((f"bitflips in {phase}'s stream", (name,), [w] + d[1:]))
+    exact = {}
+    for what, names, d in cases:
+        for name in names:
+            cuda, plain = walk_fns(name)
+            if counters:
+                counters[0]()
+            got = cuda(d)
+            check(same_outputs(got, cuda(d)) and same_outputs(got, plain(d)),
+                  f"kernel {name} disagrees with its plain version on {what}")
+            st = counters[1]()[name] if counters else "not in this tree"
+            if counters:
+                exact[name] = exact.get(name, 0) + st["exact_blocks"]
+            print(f"kernel {name} on {what}: twice bitwise == plain: True; "
+                  f"counters {st}")
+    if counters:
+        check(all(exact.get(n, 0) > 0 for n in WALKS),
+              f"no corrupted block took walk_lane: {exact}")
 
 
 def window_checks(inputs, rows):
@@ -1194,20 +1307,25 @@ def wire_kernel_rows(inputs, rows):
                 plain_ms = cuda_ms(lambda: plain_fn(*a), reps=3, warmup=1)
                 nbytes_ = 4 * n + n * bits // 8
                 bound = nbytes_ / HBM_BYTES_PER_S * 1e3
+                dev = cold_device_ms(lambda: cuda_fn(*a))
                 cases.append(dict(phase=phase, layout=layout, values=n,
                                   bits=bits, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=bound, max_abs_err=0))
+                                  bound_ms=bound, max_abs_err=0,
+                                  device_ms=dev,
+                                  pct_of_bound=pct_of_bound(bound, dev),
+                                  host_ms=host_call_ms(lambda: cuda_fn(*a))))
                 print(f"kernel {kernel} {layout} layout at {phase} ({n} "
-                      f"values, {bits} bits): bitwise == plain: True ms={ms} "
-                      f"plain_ms={plain_ms} bound_ms={bound} (bytes; "
-                      f"{nbytes_} B)")
+                      f"values, {bits} bits): bitwise == plain: True "
+                      f"{cases[-1]} (bytes; {nbytes_} B)")
         main = cases[0]
         rows[kernel] = dict(
             name=kernel, route="cuda", source=SOURCES[kernel],
             replaces=REPLACES[kernel], launches=0, max_abs_err=0,
             ms=main["ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by="bytes", library_ms=None,
-            phase="Q", layout="words", cases=cases[1:])
+            device_ms=main["device_ms"], pct_of_bound=main["pct_of_bound"],
+            host_ms=main["host_ms"], phase="Q", layout="words",
+            cases=cases[1:])
 
 
 # -- the staged route and compress_batch (phases T, BATCH) ---------------------
@@ -1242,9 +1360,13 @@ def run_batch_phases(field, offline, dispatch, CEAZ, CEAZConfig, captured):
         torch.cuda.synchronize()
         dispatch.reset_launches()
         c_gpu = gpu.compress_batch(shards)
+        counters = walk_counters()
+        if counters:
+            counters[0]()
         y_gpu = gpu.decompress_batch(c_gpu)
         torch.cuda.synchronize()
         counts[name] = dispatch.launches()
+        check_walk_counters(name, counts[name], counters)
         inputs[name] = dict(captured)
         want = PHASE_KERNELS[name] + (staged_packers(shards[0].size)
                                       if name == "BATCH.staged" else ())
@@ -1300,7 +1422,7 @@ def launch_floor():
     def call():
         _build.check(fn(dispatch.stream_handle()), "empty launch")
     return dict(ms=cuda_ms(call),
-                device_ms=cold_device_ms(call, ("empty_kernel",)),
+                device_ms=cold_device_ms(call),
                 host_ms=host_call_ms(call))
 
 
@@ -1333,7 +1455,7 @@ def staged_kernel_rows(inputs, rows):
                 lambda: HG.histogram_plain(codes2, valid2),
                 in_bytes=nbytes(codes2, valid2), out_bytes=4 * C * NUM_SYMBOLS,
                 ops=2 * C * n, extra=dict(phase=phase, shape=[C, n]),
-                library_ms=lib, device_kernels=("histogram_kernel",))
+                library_ms=lib)
         cases.append(dict(rows["histogram"]))
     keep = ("phase", "shape", "ms", "device_ms", "pct_of_bound", "host_ms",
             "plain_ms", "bound_ms", "library_ms")
@@ -1347,8 +1469,7 @@ def staged_kernel_rows(inputs, rows):
             in_bytes=nbytes(codes2, valid2, ln, cw),
             out_bytes=4 * (w32 + -(-codes2.shape[1] // bs)),
             ops=8 * codes2.numel(),
-            extra=dict(phase="T.G", values=codes2.shape[1]),
-            device_kernels=("gather_pack_kernel",))
+            extra=dict(phase="T.G", values=codes2.shape[1]))
 
     blocks = inputs["T.A"]["hufenc_blocks"][0]
     stitch = inputs["T.A"]["hufenc_stitch"][0]
@@ -1389,12 +1510,11 @@ def staged_kernel_rows(inputs, rows):
             "values")
         bound = (nbytes(c, one, ln, cw) + 4 * (n32 + nb.numel())) \
             / HBM_BYTES_PER_S * 1e3
-        gp_dev = cold_device_ms(gp, ("gather_pack_kernel",))
+        gp_dev = cold_device_ms(gp)
         crossover.append(dict(
             values=n, gather_pack_ms=cuda_ms(gp), hufenc_ms=cuda_ms(hb),
             gather_pack_device_ms=gp_dev,
-            hufenc_device_ms=cold_device_ms(
-                hb, ("blocks_pack_kernel", "stitch_kernel")),
+            hufenc_device_ms=cold_device_ms(hb),
             gather_pack_host_ms=host_call_ms(gp),
             hufenc_host_ms=host_call_ms(hb),
             bound_ms=bound, pct_of_bound=pct_of_bound(bound, gp_dev)))
@@ -1564,6 +1684,8 @@ def main():
               f"pack/unpack inputs of phase {p} not captured")
 
     rows = kernel_rows(inputs)
+    walk_rows(inputs, rows)
+    walk_garbage_checks(inputs)
     staged_kernel_rows(inputs, rows)
     window_checks(inputs, rows)
     nonfinite_check()

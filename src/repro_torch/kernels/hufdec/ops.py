@@ -31,13 +31,20 @@ steps.
     words in int64, as CPU ``torch.uint32`` has no shifts);
     :func:`hufdec_plain` and :func:`hufdec_tiles_plain` are its two
     layouts;
-  * :func:`hufdec_cuda` and :func:`hufdec_tiles_cuda` — csrc/hufdec.cu,
-    one thread per lane.
+  * :func:`hufdec_cuda` — csrc/hufdec.cu ``ceaz_hufdec``, one thread
+    per lane;
+  * :func:`hufdec_tiles_cuda` — csrc/hufdec.cu ``ceaz_hufdec_tiles``, the
+    warp walk (csrc/warp_walk.cuh): a warp per block, self-synchronising
+    segments against the decode table held whole in shared memory as
+    16-bit entries (:func:`packed_table16`), each block kept only under
+    the exact acceptance rule stated there and otherwise walked by
+    ``walk_lane`` in the same kernel. :func:`walk_stats` reads how many
+    blocks took each path.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
@@ -46,13 +53,17 @@ from .. import dispatch
 
 MAX_CODE_BITS = 16
 TBL = 1 << MAX_CODE_BITS
+SYM_BITS = 10                  # symbols < NUM_SYMBOLS in a 16-bit entry
+NUM_SYMBOLS = 1 << SYM_BITS
 TILE_VALUES = 1 << 15          # values per tile of the word-tiled walk
 _M32 = 0xFFFFFFFF
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
-_WALK_ARGS = [_P, _I64, _I64, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _P]
+_WALK_ARGS = [_P, _I64, _I64, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+              _P, _P, _P, _P]
+_PACK_ARGS = [_P, _P, _I64, _P, _P, _P, _P]
 _HUFDEC_ARGS = [_P, _I64, _I64, _P, _P, _P, _P, _I64, _I64, _P, _P]
-_MAX_ROWS = 65535                 # gridDim.y of the walk kernels
+_MAX_ROWS = 65535                 # gridDim.y of ceaz_hufdec
 
 
 def tile_geometry(block_size: int) -> Tuple[int, int]:
@@ -154,9 +165,98 @@ def packed_table(sym_flat: torch.Tensor, len_flat: torch.Tensor):
             | sym_flat.to(torch.int32)).contiguous()
 
 
+def packed_table16(sym_flat: torch.Tensor, len_flat: torch.Tensor):
+    """(len << 10) | sym as int16: the warp walk's shared-memory entry,
+    exact for sym in [0, 1024) and len in [0, 16]; raises ValueError on an
+    entry outside those ranges. (The plain version of the table half of
+    ``ceaz_pack_tables``; on a CUDA tensor its check syncs.)"""
+    sym = sym_flat.to(torch.int32)
+    ln = len_flat.to(torch.int32)
+    bad = (sym < 0) | (sym >= NUM_SYMBOLS) | (ln < 0) | (ln > MAX_CODE_BITS)
+    if bool(bad.any()):
+        raise ValueError("decode table: an entry has a symbol outside "
+                         f"[0, {NUM_SYMBOLS}) or a length outside [0, "
+                         f"{MAX_CODE_BITS}]")
+    return ((ln << SYM_BITS) | sym).to(torch.int16).contiguous()
+
+
+# the warp walks' counters, one int32 tensor per (kernel, device), added
+# to by every launch (as dispatch's launch counts): blocks walked by
+# walk_lane, blocks kept from the fast path, the most sync rounds one
+# block took
+_STATS: Dict[Tuple[str, int], torch.Tensor] = {}
+_STAT_KEYS = ("exact_blocks", "fast_blocks", "max_sync_rounds")
+
+
+def stats_tensor(name: str, device) -> torch.Tensor:
+    device = torch.device(device)
+    key = (name, device.index if device.index is not None
+           else torch.cuda.current_device())
+    t = _STATS.get(key)
+    if t is None:
+        t = _STATS[key] = torch.zeros(len(_STAT_KEYS), dtype=torch.int32,
+                                      device=device)
+    return t
+
+
+def walk_stats(name: str) -> Dict[str, int]:
+    """The counters of kernel `name` (``hufdec_tiles`` or
+    ``ceaz_chunk_dec_fused``) since the last :func:`reset_walk_stats`,
+    over every device (syncs)."""
+    out = dict.fromkeys(_STAT_KEYS, 0)
+    for (n, _), t in _STATS.items():
+        if n == name:
+            exact, fast, rounds = t.tolist()
+            out["exact_blocks"] += exact
+            out["fast_blocks"] += fast
+            out["max_sync_rounds"] = max(out["max_sync_rounds"], rounds)
+    return out
+
+
+def reset_walk_stats() -> None:
+    for t in _STATS.values():
+        t.zero_()
+
+
+def pack_tables_cuda(name: str, sym_flat, len_flat
+                     ) -> Tuple[torch.Tensor, torch.Tensor, Callable]:
+    """csrc/hufdec.cu ``ceaz_pack_tables``: -> (t32, t16, check), the
+    32-bit entries of :func:`packed_table` (walk_lane's) and the 16-bit
+    ones of :func:`packed_table16`, in one pass. Call ``check()`` once
+    the walk is launched, or its launch failed: it waits for the packer
+    alone and raises ValueError if an entry was out of range (the packer
+    sets a flag in pinned host memory, which the card writes at its host
+    address)."""
+    if sym_flat.numel() != len_flat.numel() or sym_flat.numel() % TBL \
+            or sym_flat.numel() == 0:
+        raise ValueError(f"{name}: sym_flat/len_flat must hold K >= 1 "
+                         f"tables of {TBL} entries")
+    sym = sym_flat.to(torch.int32).contiguous()
+    ln = len_flat.to(torch.int32).contiguous()
+    t32 = torch.empty(sym.numel(), dtype=torch.int32, device=sym.device)
+    t16 = torch.empty(sym.numel(), dtype=torch.int16, device=sym.device)
+    flag = torch.zeros(1, dtype=torch.int32, pin_memory=True)
+    rc = _build.function("ceaz_pack_tables", _PACK_ARGS)(
+        sym.data_ptr(), ln.data_ptr(), sym.numel(), t32.data_ptr(),
+        t16.data_ptr(), flag.data_ptr(), dispatch.stream_handle())
+    _build.check(rc, f"{name} table pack")
+    done = torch.cuda.Event()
+    done.record()
+
+    def check() -> None:
+        done.synchronize()
+        if int(flag[0]):
+            raise ValueError(f"{name}: a decode table entry has a symbol "
+                             f"outside [0, {NUM_SYMBOLS}) or a length "
+                             f"outside [0, {MAX_CODE_BITS}]")
+    return t32, t16, check
+
+
 def hufdec_tiles_cuda(words2, nbits2, counts, sym_flat, len_flat, cb_idx,
                       block_size: int) -> torch.Tensor:
-    """csrc/hufdec.cu: one thread per (chunk, block) lane."""
+    """csrc/hufdec.cu ``ceaz_hufdec_tiles``: the warp walk, one warp a
+    (chunk, block) lane; first cursors and tile windows found in the
+    kernel; any row count."""
     dispatch.require_cuda("hufdec_tiles", words2, nbits2, counts, sym_flat,
                           len_flat, cb_idx)
     C, W = words2.shape
@@ -164,18 +264,24 @@ def hufdec_tiles_cuda(words2, nbits2, counts, sym_flat, len_flat, cb_idx,
     if words2.dtype != torch.int32:
         raise ValueError("hufdec_tiles: words2 must be int32 u32 bits")
     tb, win = tile_geometry(block_size)
-    lane_start, lane_foff = lane_layout(nbits2, tb, win, W)
-    table = packed_table(sym_flat, len_flat)
-    counts = counts.to(torch.int32).contiguous()
-    cb_idx = cb_idx.to(torch.int32).contiguous()
+    i32 = lambda t: t.to(torch.int32).contiguous()
+    words2, nbits2, counts, cb_idx = map(i32, (words2, nbits2, counts,
+                                               cb_idx))
+    t32, t16, check = pack_tables_cuda("hufdec_tiles", sym_flat, len_flat)
     out = torch.empty((C, NB * block_size), dtype=torch.int32,
                       device=words2.device)
+    ticket = torch.empty(1, dtype=torch.int32, device=words2.device)
     dispatch.count_launch("hufdec_tiles")
-    rc = _build.function("ceaz_hufdec_tiles", _WALK_ARGS)(
-        words2.data_ptr(), C, W, lane_start.data_ptr(), lane_foff.data_ptr(),
-        counts.data_ptr(), table.data_ptr(), cb_idx.data_ptr(), NB,
-        block_size, win, out.data_ptr(), dispatch.stream_handle())
-    _build.check(rc, "hufdec_tiles")
+    try:
+        rc = _build.function("ceaz_hufdec_tiles", _WALK_ARGS)(
+            words2.data_ptr(), C, W, nbits2.data_ptr(), counts.data_ptr(),
+            t32.data_ptr(), t16.data_ptr(), cb_idx.data_ptr(), NB,
+            block_size, tb, win, out.data_ptr(),
+            stats_tensor("hufdec_tiles", words2.device).data_ptr(),
+            ticket.data_ptr(), dispatch.stream_handle())
+        _build.check(rc, "hufdec_tiles")
+    finally:
+        check()
     return out
 
 

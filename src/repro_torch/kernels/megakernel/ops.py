@@ -57,7 +57,9 @@ Two regimes behind one signature, the switch of the reference's
 ``megakernel/ops.py:110-140``:
 
   * rows of at most ``DEC_FUSE_LIMIT`` values — the fused kernel
-    (csrc/decode_fused.cu), walk + patch + inverse;
+    (csrc/decode_fused.cu), walk + patch + inverse in one launch: the
+    warp walk of kernels/hufdec, then each block's escape ranks and its
+    segment prefix from two decoupled look-backs, q written once;
   * larger rows — the word-tiled walk kernel (kernels/hufdec) and the
     plain :func:`patch_and_inverse` tail on the card.
 
@@ -66,6 +68,7 @@ Two regimes behind one signature, the switch of the reference's
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -83,9 +86,8 @@ DEC_FUSE_LIMIT = 1 << 17
 _MAX_ROWS = 65535                 # gridDim.y of the row-major kernels
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
-_ROWS_ARGS = [_P, _I64, _I64, _P, _P, _P, _P, _P, _I64, _P, _P, _I64, _I64,
-              _P, _P, _P, _P]
-_ADD_ARGS = [_P, _P, _P, _P, _I64, _I64, _I64, _P, _P]
+_DEC_ARGS = [_P, _I64, _I64, _P, _P, _P, _P, _P, _P, _I64, _P, _P, _P,
+             _I64, _I64, _P, _P, _I64, _P, _P]
 _LOR_ARGS = [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P, _P]
 _VQ_ARGS = [_P, _P, _I64, _I64, _P, _P]
 _VF_ARGS = [_P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P, _P]
@@ -356,10 +358,22 @@ def ceaz_chunk_dec_plain(words2, nbits2, counts, sym_flat, len_flat, cb_idx,
     return patch_and_inverse(codes, counts, odelta2, base, seg0, islor)
 
 
+@functools.lru_cache(maxsize=256)
+def dec_fused_scratch_bytes(C: int, NB: int) -> int:
+    """Bytes of the look-back scratch of a fused decode launch over C rows
+    of NB blocks, from the built kernel library (csrc/decode_fused.cu owns
+    its layout)."""
+    fn = _build.function("ceaz_dec_fused_scratch_bytes", [_I64, _I64])
+    fn.restype = _I64
+    return fn(C, NB)
+
+
 def ceaz_chunk_dec_fused_cuda(words2, nbits2, counts, sym_flat, len_flat,
                               cb_idx, odelta2, base, seg0, islor,
                               block_size: int) -> torch.Tensor:
-    """csrc/decode_fused.cu: rows kernel, torch segment carry, add."""
+    """csrc/decode_fused.cu: one launch (after the table packer), any row
+    count. seg0[c] must lie in [0, c] (a segment's rows are contiguous
+    and ascending)."""
     args = (words2, nbits2, counts, sym_flat, len_flat, cb_idx, odelta2,
             base, seg0, islor)
     dispatch.require_cuda("ceaz_chunk_dec_fused", *args)
@@ -368,27 +382,31 @@ def ceaz_chunk_dec_fused_cuda(words2, nbits2, counts, sym_flat, len_flat,
     Ko = odelta2.shape[1]
     if words2.dtype != torch.int32 or odelta2.dtype != torch.int32:
         raise ValueError("ceaz_chunk_dec_fused: words2/odelta2 must be int32")
+    if W < 2 or Ko < 1:
+        raise ValueError("ceaz_chunk_dec_fused: at least 2 words and one "
+                         "outlier slot a row")
     dev = words2.device
-    lane_start, _ = hufdec.lane_layout(nbits2, NB, W, W)
-    table = hufdec.packed_table(sym_flat, len_flat)
     i32 = lambda t: t.to(torch.int32).contiguous()
-    counts, cb_idx, base, islor = map(i32, (counts, cb_idx, base, islor))
+    words2, nbits2, counts, cb_idx, odelta2, base, seg0, islor = map(
+        i32, (words2, nbits2, counts, cb_idx, odelta2, base, seg0, islor))
+    t32, t16, check = hufdec.pack_tables_cuda("ceaz_chunk_dec_fused",
+                                              sym_flat, len_flat)
     out = torch.empty((C, NB * block_size), dtype=torch.int32, device=dev)
-    scratch = torch.empty((C, 2 * NB), dtype=torch.int32, device=dev)
-    row_sum = torch.empty(C, dtype=torch.int32, device=dev)
-    stream = dispatch.stream_handle()
+    nbytes = dec_fused_scratch_bytes(C, NB)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     dispatch.count_launch("ceaz_chunk_dec_fused")
-    rc = _build.function("ceaz_dec_rows", _ROWS_ARGS)(
-        words2.data_ptr(), C, W, lane_start.data_ptr(), counts.data_ptr(),
-        table.data_ptr(), cb_idx.data_ptr(), odelta2.data_ptr(), Ko,
-        base.data_ptr(), islor.data_ptr(), NB, block_size, out.data_ptr(),
-        scratch.data_ptr(), row_sum.data_ptr(), stream)
-    _build.check(rc, "ceaz_chunk_dec_fused rows")
-    carry = segment_carry(row_sum, seg0).to(torch.int32)
-    rc = _build.function("ceaz_dec_add", _ADD_ARGS)(
-        counts.data_ptr(), islor.data_ptr(), scratch.data_ptr(),
-        carry.data_ptr(), C, NB, block_size, out.data_ptr(), stream)
-    _build.check(rc, "ceaz_chunk_dec_fused add")
+    try:
+        rc = _build.function("ceaz_dec_fused", _DEC_ARGS)(
+            words2.data_ptr(), C, W, nbits2.data_ptr(), counts.data_ptr(),
+            t32.data_ptr(), t16.data_ptr(), cb_idx.data_ptr(),
+            odelta2.data_ptr(), Ko, base.data_ptr(), seg0.data_ptr(),
+            islor.data_ptr(), NB, block_size, out.data_ptr(),
+            scratch.data_ptr(), nbytes,
+            hufdec.stats_tensor("ceaz_chunk_dec_fused", dev).data_ptr(),
+            dispatch.stream_handle())
+        _build.check(rc, "ceaz_chunk_dec_fused")
+    finally:
+        check()
     return out
 
 

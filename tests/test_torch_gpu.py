@@ -645,3 +645,211 @@ def test_histogram_kernel_regimes(dev, C, n, case):
         assert int(got[0, 512]) == n and int(got.sum()) == n
     if case == "invalid_rows":
         assert int(got[1::2].sum()) == 0
+
+
+# ---------------------------------------------------------------------------
+# The warp walks (csrc/warp_walk.cuh): hufdec_tiles and the decode
+# megakernel, each call twice and bitwise against the plain version
+# ---------------------------------------------------------------------------
+
+def _fused_plain(args, bs):
+    """The decode megakernel's function at any shape: the walk with one
+    window a row, then the plain patch and inverse (what
+    ceaz_chunk_dec_plain computes up to 2^17 values a row)."""
+    words2, nbits2 = args[:2]
+    codes = HD.walk_plain(*args[:6], bs, nbits2.shape[1], words2.shape[1])
+    return MK.patch_and_inverse(codes, args[2], *args[6:])
+
+
+def _dec_meta_rows(dev, rng, C, Ko):
+    """Lorenzo rows chained in segments of up to 3 rows; every fourth row
+    a value row (its own segment) with a base."""
+    seg0 = np.arange(C, dtype=np.int32)
+    islor = np.ones(C, np.int32)
+    base = np.zeros(C, np.int32)
+    head = 0
+    for c in range(C):
+        if c % 4 == 3:
+            islor[c], base[c], head = 0, rng.integers(-600, 600), c + 1
+            continue
+        head = c if c - head >= 3 else head
+        seg0[c] = head
+    odelta2 = rng.integers(-2**31, 2**31, (C, Ko)).astype(np.int32)
+    return [torch.from_numpy(a).to(dev) for a in (odelta2, base, seg0, islor)]
+
+
+def _walks_twice(walk, bs, meta=None):
+    """hufdec_tiles (and, given the decode metadata, the decode
+    megakernel) on `walk`, each twice, bitwise against the plain version
+    -> their counters."""
+    HD.reset_walk_stats()
+    want = HD.hufdec_tiles_plain(*walk, bs)
+    for _ in range(2):
+        _eq(HD.hufdec_tiles_cuda(*walk, bs), want)
+    stats = {"hufdec_tiles": HD.walk_stats("hufdec_tiles")}
+    if meta is not None:
+        want = _fused_plain(walk + meta, bs)
+        for _ in range(2):
+            _eq(MK.ceaz_chunk_dec_fused_cuda(*walk, *meta, bs), want)
+        stats["ceaz_chunk_dec_fused"] = HD.walk_stats("ceaz_chunk_dec_fused")
+    return stats
+
+
+@pytest.mark.parametrize("counts,bs", [
+    ([1800 * 3600], 4096),               # phase A: one 6.48 M-value row
+    ([1 << 17] * 64, 4096),              # phase B: 64 rows of 2^17
+    ([100000, 65536, 3], 256),           # bs 256, tail blocks
+    ([70000, 123457, 1], 1000)])         # bs not a power of two
+def test_warp_walks_on_valid_streams(dev, counts, bs):
+    """Valid streams, each row its own book: every block with symbols
+    takes the fast path (no exact block), tail blocks and rows past
+    their count included."""
+    walk = _valid_walk_args(dev, counts, bs, len(counts))
+    meta = _dec_meta_rows(dev, np.random.default_rng(1), len(counts), 64)
+    for name, s in _walks_twice(walk, bs, meta).items():
+        assert s["exact_blocks"] == 0 and s["fast_blocks"] > 0, (name, s)
+
+
+def test_warp_walks_mix_valid_and_corrupted_rows(dev):
+    """One launch of five rows: valid rows beside a row with flipped
+    payload bits, one with garbage bit counts and one whose count runs
+    past its bits; only the corrupted rows' blocks take walk_lane."""
+    walk = _valid_walk_args(dev, [20000, 20000, 20000, 9000, 20000], 512, 4)
+    w, nb, counts = (t.clone() for t in walk[:3])
+    w[1, 100:400:37] ^= 0x10204081
+    nb[2] = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 1 << 13, nb.shape[1]).astype(np.int32))
+    counts[3] = 20000
+    walk = [w, nb, counts] + walk[3:]
+    meta = _dec_meta_rows(dev, np.random.default_rng(2), 5, 16)
+    for name, s in _walks_twice(walk, 512, meta).items():
+        assert s["exact_blocks"] > 0 and s["fast_blocks"] > 0, (name, s)
+
+
+def _book_walk_args(dev, book, counts, bs, seed):
+    """Rows under one shared hard book: 16-bit codes, one symbol (a one-bit
+    code; windows starting with a 1 have length 0) or 1024 codes of 10
+    bits (segment guesses never resynchronise)."""
+    from repro_torch.core.huffman import _canonize, encode
+    from repro_torch.runtime.fused_decode import _u64_to_u32
+    rng = np.random.default_rng(seed)
+    if book == "16bit":
+        f = np.maximum(1, (2.0 ** np.maximum(
+            0, 40 - np.abs(np.arange(1024) - 512))).astype(np.int64))
+        cb = Codebook.from_freqs(f, max_len=16)
+        assert cb.lengths.max() == 16
+        draw = lambda n: np.clip(rng.normal(512, 12, n), 0, 1023)
+    elif book == "one_symbol":
+        ln = np.zeros(1024, np.uint8)
+        ln[512] = 1
+        cb = Codebook(lengths=ln, codes=_canonize(ln.astype(np.int64)))
+        draw = lambda n: np.full(n, 512)
+    else:
+        cb = Codebook.from_freqs(np.ones(1024, np.int64))
+        assert set(cb.lengths.tolist()) == {10}
+        draw = lambda n: rng.integers(0, 1024, n)
+    rows = [encode(draw(n).astype(np.int64), cb, bs) for n in counts]
+    C = len(counts)
+    words2 = np.zeros((C, max(2 * len(r[0]) for r in rows) + 2), np.uint32)
+    nbits2 = np.zeros((C, max(len(r[1]) for r in rows)), np.int32)
+    for i, (w64, bnb, _) in enumerate(rows):
+        w = _u64_to_u32(w64)
+        words2[i, :len(w)] = w
+        nbits2[i, :len(bnb)] = bnb
+    sym, ln = cb.tables()
+    arrays = (words2.view(np.int32), nbits2, np.asarray(counts, np.int32),
+              sym.astype(np.int32), ln.astype(np.int32), np.zeros(C, np.int32))
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+
+@pytest.mark.parametrize("bs", [4096, 500])
+@pytest.mark.parametrize("book", ["16bit", "one_symbol", "equal_length"])
+def test_warp_walks_on_hard_books(dev, book, bs):
+    """16-bit codes, a one-symbol book and equal-length codes (up to 31
+    sync rounds): every block kept from the fast path, bitwise."""
+    walk = _book_walk_args(dev, book, [3 * bs + 17, 2 * bs, 5], bs, 5)
+    meta = _dec_meta_rows(dev, np.random.default_rng(6), 3, 8)
+    for name, s in _walks_twice(walk, bs, meta).items():
+        assert s["exact_blocks"] == 0, (name, s)
+        if book == "equal_length" and bs == 500:
+            assert s["max_sync_rounds"] >= 8, (name, s)
+
+
+def test_warp_walks_over_65535_rows(dev):
+    """C = 70000 rows (more than a grid's y dimension holds): identical
+    valid rows of 300 values in 256-value blocks, chained segments."""
+    one = _valid_walk_args(dev, [300], 256, 9)
+    C = 70000
+    walk = [t.expand(C, *t.shape[1:]).contiguous() if t.ndim == 2
+            else t.expand(C).contiguous() for t in one[:3]]
+    walk += [one[3], one[4], torch.zeros(C, dtype=torch.int32, device=dev)]
+    meta = _dec_meta_rows(dev, np.random.default_rng(10), C, 2)
+    for name, s in _walks_twice(walk, 256, meta).items():
+        assert s["exact_blocks"] == 0 and s["fast_blocks"] == 2 * 2 * C, \
+            (name, s)
+
+
+def test_warp_walks_on_the_fuzz_corpus(dev):
+    """The decode fuzz corpus: its garbage cases (random words, tables
+    with length-0 entries, random bit counts; the fused regime and one
+    word-tiled row) and its bitflips on a valid three-row stream: both
+    kernels agree with their plain versions, and corrupted blocks take
+    walk_lane."""
+    import json
+    import os
+    corpus = json.load(open(os.path.join(os.path.dirname(__file__), "corpus",
+                                         "decode_fuzz_corpus.json")))
+    g = corpus["garbage"]
+    rng = np.random.default_rng(g["seed"])
+    shapes = [(int(rng.integers(1, 4)), int(rng.integers(1, 7)), 32)
+              for _ in range(g["cases"])] + [(1, (1 << 17) // 256 + 8, 256)]
+    exact = 0
+    for C, NB, bs in shapes:
+        W = int(rng.integers(3, 24))
+        arrays = [rng.integers(0, 1 << 32, size=(C, W), dtype=np.uint32)
+                  .view(np.int32),
+                  rng.integers(0, 1 << 12, size=(C, NB)).astype(np.int32),
+                  rng.integers(0, NB * bs + 1, size=C).astype(np.int32),
+                  rng.integers(0, 1024, size=1 << 16).astype(np.int32),
+                  rng.integers(0, 17, size=1 << 16).astype(np.int32),
+                  np.zeros(C, np.int32)]
+        walk = [torch.from_numpy(a).to(dev) for a in arrays]
+        meta = _dec_meta_rows(dev, rng, C, 4)
+        s = _walks_twice(walk, bs, meta)
+        exact += sum(v["exact_blocks"] for v in s.values())
+    assert exact > 0
+    walk = _valid_walk_args(dev, [4096, 3000, 1500], 512, 3)
+    meta = _dec_meta_rows(dev, np.random.default_rng(4), 3, 32)
+    cases = [c for c in corpus["cases"] if c["kind"] == "bitflip"]
+    r = np.random.default_rng(corpus["random"]["seed"])
+    cases += [{"record": int(r.integers(3)), "rel_off": int(r.integers(1 << 16)),
+               "bit": int(r.integers(8))}
+              for _ in range(corpus["random"]["n_bitflips"])]
+    exact = 0
+    for case in cases:
+        words = walk[0].cpu().numpy().copy()
+        row = case["record"] % words.shape[0]
+        payload = words[row].view(np.uint8)
+        payload[case["rel_off"] % payload.size] ^= 1 << (case["bit"] & 7)
+        s = _walks_twice([torch.from_numpy(words).to(dev)] + walk[1:], 512,
+                         meta)
+        exact += sum(v["exact_blocks"] for v in s.values())
+    assert exact > 0
+
+
+@pytest.mark.parametrize("bad", [("sym", 1024), ("sym", -1), ("len", 17)])
+def test_warp_walks_raise_on_tables_out_of_range(dev, bad):
+    """A decode table entry with a symbol outside [0, 1024) or a length
+    over 16 does not fit the 16-bit shared-memory entry: both wrappers
+    raise."""
+    walk = _valid_walk_args(dev, [5000], 512, 11)
+    which, v = bad
+    k = 3 if which == "sym" else 4
+    t = walk[k].clone()
+    t[12345] = v
+    walk[k] = t
+    meta = _dec_meta_rows(dev, np.random.default_rng(12), 1, 4)
+    with pytest.raises(ValueError):
+        HD.hufdec_tiles_cuda(*walk, 512)
+    with pytest.raises(ValueError):
+        MK.ceaz_chunk_dec_fused_cuda(*walk, *meta, 512)
