@@ -112,8 +112,9 @@ the same binding (the floor). The two decode walks (``hufdec_tiles``,
 the decode megakernel) are held and timed at every phase where they
 launch and on garbage and bit-flipped streams; after each decode phase
 the script prints their counters (blocks kept from the fast path,
-blocks walked by the serial walk, most sync rounds), and no block of a
-valid stream may take the serial walk. The script prints the card
+blocks walked by the serial walk, most sync rounds); no block of a
+valid stream may take the serial walk, and some of each walk's garbage
+blocks must. The script prints the card
 (nvidia-smi name and power limit), the build time, per-kernel results,
 compress/decompress throughput, one JSON line of kernels and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit
@@ -772,7 +773,9 @@ def walk_garbage_checks(inputs):
     length-0 entries, random bit counts and counts, as
     tests/test_torch_gpu.py::_garbage) through both, and bit flips in the
     streams of phase A (hufdec_tiles) and B (the decode megakernel). With
-    the counters, corrupted blocks must have taken walk_lane."""
+    the counters, some garbage blocks of each kernel must have taken
+    walk_lane; a bit-flipped block may pass the exact rule, so the bit
+    flips' counters are printed, not checked."""
     import numpy as np
     import torch
     counters = walk_counters()
@@ -796,23 +799,24 @@ def walk_garbage_checks(inputs):
             for k in (1, 2):                 # a third and two thirds in
                 w[c, int(used[c]) * k // 3] ^= 1 << (7 * (c + k) % 31)
         cases.append((f"bitflips in {phase}'s stream", (name,), [w] + d[1:]))
-    exact = {}
+    exact = {}                   # walk_lane blocks on the garbage alone
     for what, names, d in cases:
         for name in names:
             cuda, plain = walk_fns(name)
             if counters:
                 counters[0]()
             got = cuda(d)
+            # the counters of this one call, before the second
+            st = counters[1]()[name] if counters else "not in this tree"
             check(same_outputs(got, cuda(d)) and same_outputs(got, plain(d)),
                   f"kernel {name} disagrees with its plain version on {what}")
-            st = counters[1]()[name] if counters else "not in this tree"
-            if counters:
+            if counters and what.startswith("garbage"):
                 exact[name] = exact.get(name, 0) + st["exact_blocks"]
             print(f"kernel {name} on {what}: twice bitwise == plain: True; "
-                  f"counters {st}")
+                  f"counters of one call {st}")
     if counters:
         check(all(exact.get(n, 0) > 0 for n in WALKS),
-              f"no corrupted block took walk_lane: {exact}")
+              f"no garbage block took walk_lane: {exact}")
 
 
 def window_checks(inputs, rows):

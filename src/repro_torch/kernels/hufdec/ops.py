@@ -39,7 +39,10 @@ steps.
     16-bit entries (:func:`packed_table16`), each block kept only under
     the exact acceptance rule stated there and otherwise walked by
     ``walk_lane`` in the same kernel. :func:`walk_stats` reads how many
-    blocks took each path.
+    blocks took each path. The wrapper raises on a table entry outside
+    the 16-bit entry's ranges: it waits on the card for that unless the
+    caller checked the tables on the host (:func:`mark_ranges_checked`),
+    as the decode pass does.
 """
 from __future__ import annotations
 
@@ -165,18 +168,41 @@ def packed_table(sym_flat: torch.Tensor, len_flat: torch.Tensor):
             | sym_flat.to(torch.int32)).contiguous()
 
 
+def check_table_ranges(sym, ln) -> None:
+    """Raise ValueError unless every symbol lies in [0, 1024) and every
+    length in [0, 16], the ranges of the 16-bit entry. numpy arrays or
+    tensors (on a CUDA tensor it waits for the card)."""
+    if bool(((sym < 0) | (sym >= NUM_SYMBOLS)).any()
+            | ((ln < 0) | (ln > MAX_CODE_BITS)).any()):
+        raise ValueError("decode table: an entry has a symbol outside "
+                         f"[0, {NUM_SYMBOLS}) or a length outside [0, "
+                         f"{MAX_CODE_BITS}]")
+
+
+def mark_ranges_checked(*tables: torch.Tensor) -> None:
+    """Mark decode tables whose ranges the caller checked where it built
+    them (on the host, :func:`check_table_ranges`): the warp walks'
+    wrappers then skip their own check, which waits for the card. A
+    later in-place change drops the mark. (Inference tensors keep no
+    version, so they are never marked.)"""
+    for t in tables:
+        if not t.is_inference():
+            t._ceaz_ranges_checked = t._version
+
+
+def ranges_checked(t: torch.Tensor) -> bool:
+    return (not t.is_inference()
+            and getattr(t, "_ceaz_ranges_checked", None) == t._version)
+
+
 def packed_table16(sym_flat: torch.Tensor, len_flat: torch.Tensor):
     """(len << 10) | sym as int16: the warp walk's shared-memory entry,
     exact for sym in [0, 1024) and len in [0, 16]; raises ValueError on an
     entry outside those ranges. (The plain version of the table half of
-    ``ceaz_pack_tables``; on a CUDA tensor its check syncs.)"""
+    ``ceaz_pack_tables``.)"""
     sym = sym_flat.to(torch.int32)
     ln = len_flat.to(torch.int32)
-    bad = (sym < 0) | (sym >= NUM_SYMBOLS) | (ln < 0) | (ln > MAX_CODE_BITS)
-    if bool(bad.any()):
-        raise ValueError("decode table: an entry has a symbol outside "
-                         f"[0, {NUM_SYMBOLS}) or a length outside [0, "
-                         f"{MAX_CODE_BITS}]")
+    check_table_ranges(sym, ln)
     return ((ln << SYM_BITS) | sym).to(torch.int16).contiguous()
 
 
@@ -223,23 +249,29 @@ def pack_tables_cuda(name: str, sym_flat, len_flat
     """csrc/hufdec.cu ``ceaz_pack_tables``: -> (t32, t16, check), the
     32-bit entries of :func:`packed_table` (walk_lane's) and the 16-bit
     ones of :func:`packed_table16`, in one pass. Call ``check()`` once
-    the walk is launched, or its launch failed: it waits for the packer
-    alone and raises ValueError if an entry was out of range (the packer
-    sets a flag in pinned host memory, which the card writes at its host
-    address)."""
+    the walk is launched, or its launch failed: for tables not marked by
+    :func:`mark_ranges_checked` it waits for the packer alone and raises
+    ValueError if an entry was out of range (the packer sets a flag in
+    pinned host memory, which the card writes at its host address); for
+    marked tables it does nothing."""
     if sym_flat.numel() != len_flat.numel() or sym_flat.numel() % TBL \
             or sym_flat.numel() == 0:
         raise ValueError(f"{name}: sym_flat/len_flat must hold K >= 1 "
                          f"tables of {TBL} entries")
+    checked = ranges_checked(sym_flat) and ranges_checked(len_flat)
     sym = sym_flat.to(torch.int32).contiguous()
     ln = len_flat.to(torch.int32).contiguous()
     t32 = torch.empty(sym.numel(), dtype=torch.int32, device=sym.device)
     t16 = torch.empty(sym.numel(), dtype=torch.int16, device=sym.device)
-    flag = torch.zeros(1, dtype=torch.int32, pin_memory=True)
+    # marked tables set no flag: one on the card, never read
+    flag = (torch.empty(1, dtype=torch.int32, device=sym.device) if checked
+            else torch.zeros(1, dtype=torch.int32, pin_memory=True))
     rc = _build.function("ceaz_pack_tables", _PACK_ARGS)(
         sym.data_ptr(), ln.data_ptr(), sym.numel(), t32.data_ptr(),
         t16.data_ptr(), flag.data_ptr(), dispatch.stream_handle())
     _build.check(rc, f"{name} table pack")
+    if checked:
+        return t32, t16, lambda: None
     done = torch.cuda.Event()
     done.record()
 

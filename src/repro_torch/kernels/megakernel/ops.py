@@ -347,6 +347,9 @@ def segment_carry(row_sum: torch.Tensor, seg0: torch.Tensor) -> torch.Tensor:
 
 def ceaz_chunk_dec_plain(words2, nbits2, counts, sym_flat, len_flat, cb_idx,
                          odelta2, base, seg0, islor, block_size: int):
+    """The op in plain PyTorch (any device). Its contract has seg0[c] in
+    [0, c]: :func:`segment_carry` sums row_sum[seg0[c]:c] for any seg0,
+    while the fused kernel clamps seg0[c] into [0, c]."""
     C, W = words2.shape
     NB = nbits2.shape[1]
     if NB * block_size <= DEC_FUSE_LIMIT:

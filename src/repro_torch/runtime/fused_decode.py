@@ -35,6 +35,7 @@ import torch
 from ..core import dualquant as core_dq
 from ..core.huffman import DEFAULT_MAX_LEN, Codebook, replay_codebooks
 from ..kernels import dispatch
+from ..kernels.hufdec import ops as hufdec
 from .fused import target_device
 
 MAX_CODE_BITS = DEFAULT_MAX_LEN
@@ -176,15 +177,25 @@ class _ChunkBatch:
         islor[:C] = self.islor
         seg0 = np.arange(c_cap, dtype=np.int32)    # padding: own segment
         seg0[:C] = self.seg0
+        if (seg0 < 0).any() or (seg0 > np.arange(c_cap)).any():
+            raise ValueError("ceaz_chunk_dec: a row's segment head seg0[c] "
+                             "must lie in [0, c]")
+        # a book's table holds its used symbols and their lengths
+        # (Codebook.tables): checked here, the op need not wait on the card
+        for book in {b.id: b for b in self.books}.values():
+            hufdec.check_table_ranges(np.flatnonzero(book.lengths),
+                                      book.lengths)
         base = np.zeros(c_cap, np.int32)           # value-direct centres
         base[:C] = np.asarray(self.base, np.int64).astype(np.int32)
         dev = self.device
         t = lambda a: torch.from_numpy(a).to(dev)
+        tables = t(sym_flat), t(len_flat)
+        hufdec.mark_ranges_checked(*tables)
         fn = dispatch.resolve("ceaz_chunk_dec", self.kernel_impl, dev)
         with dispatch.measure("ceaz_chunk_dec", self.kernel_impl, dev):
             return fn(t(words2.view(np.int32)), t(nbits2), t(counts),
-                      t(sym_flat), t(len_flat), t(cb_idx), t(odelta2),
-                      t(base), t(seg0), t(islor), self.block_size)
+                      *tables, t(cb_idx), t(odelta2), t(base), t(seg0),
+                      t(islor), self.block_size)
 
 
 # ---------------------------------------------------------------------------

@@ -680,17 +680,21 @@ def _dec_meta_rows(dev, rng, C, Ko):
 
 def _walks_twice(walk, bs, meta=None):
     """hufdec_tiles (and, given the decode metadata, the decode
-    megakernel) on `walk`, each twice, bitwise against the plain version
-    -> their counters."""
+    megakernel) on `walk`, each twice, bitwise against the plain version:
+    once with the tables checked on the card, once with copies marked as
+    checked on the host (no wait) -> their counters."""
+    marked = list(walk)
+    marked[3], marked[4] = walk[3].clone(), walk[4].clone()
+    HD.mark_ranges_checked(marked[3], marked[4])
     HD.reset_walk_stats()
     want = HD.hufdec_tiles_plain(*walk, bs)
-    for _ in range(2):
-        _eq(HD.hufdec_tiles_cuda(*walk, bs), want)
+    for w in (walk, marked):
+        _eq(HD.hufdec_tiles_cuda(*w, bs), want)
     stats = {"hufdec_tiles": HD.walk_stats("hufdec_tiles")}
     if meta is not None:
         want = _fused_plain(walk + meta, bs)
-        for _ in range(2):
-            _eq(MK.ceaz_chunk_dec_fused_cuda(*walk, *meta, bs), want)
+        for w in (walk, marked):
+            _eq(MK.ceaz_chunk_dec_fused_cuda(*w, *meta, bs), want)
         stats["ceaz_chunk_dec_fused"] = HD.walk_stats("ceaz_chunk_dec_fused")
     return stats
 
@@ -841,11 +845,13 @@ def test_warp_walks_on_the_fuzz_corpus(dev):
 def test_warp_walks_raise_on_tables_out_of_range(dev, bad):
     """A decode table entry with a symbol outside [0, 1024) or a length
     over 16 does not fit the 16-bit shared-memory entry: both wrappers
-    raise."""
+    raise, also on tables marked as checked on the host and changed in
+    place since."""
     walk = _valid_walk_args(dev, [5000], 512, 11)
     which, v = bad
     k = 3 if which == "sym" else 4
     t = walk[k].clone()
+    HD.mark_ranges_checked(t)
     t[12345] = v
     walk[k] = t
     meta = _dec_meta_rows(dev, np.random.default_rng(12), 1, 4)

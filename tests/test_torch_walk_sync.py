@@ -2,32 +2,30 @@
 
 ``csrc/warp_walk.cuh`` decodes a block by 64 self-synchronising segments
 and keeps the result only under an exact acceptance rule; every other
-block is walked by ``walk_lane``. The kernels run only on the card, so
-this file models their arithmetic in numpy — the first cursors and tile
-windows found in the kernel, the lanes' word readers, the sync
-rounds, the acceptance rule, the decode megakernel's escape ranks and
-look-back prefixes — and holds the model against ``walk_plain`` and
-``ceaz_chunk_dec_plain`` (the versions the card's kernels are held
-against) on valid streams, the decode fuzz corpus's bitflips, garbage
-words, tables and bit counts, and books that are hard for the rule: 16-bit
-codes, one symbol, and equal-length codes that never resynchronise.
-Where the rule accepts, the symbols must be the walk's; where the fast
-path's symbols would differ, the rule must reject. All outputs are
-integers: tolerance 0."""
+block is walked by ``walk_lane``. The kernels run only on the card
+(``tests/test_torch_gpu.py`` holds them bitwise against their plain
+versions there), so this file models what only a model can show here:
+the segments, the sync rounds and the acceptance rule, held against
+``walk_plain`` on valid streams, the decode fuzz corpus's bitflips,
+garbage words, tables and bit counts, and books that are hard for the
+rule: 16-bit codes, one symbol, and equal-length codes that never
+resynchronise. Where the rule accepts, the symbols must be the walk's;
+where the fast path's symbols would differ, the rule must reject. It
+also covers the 16-bit table packer and the decode pass's host checks
+of its tables and segments. All outputs are integers: tolerance 0."""
 import json
 
 import numpy as np
 import pytest
 import torch
 
-from test_torch_decode import CORPUS, _dec_meta, _garbage_cases, _stage, \
-    _torch
+from test_torch_decode import CORPUS, _garbage_cases, _stage, _torch
 from repro_torch.core.huffman import Codebook, _canonize, encode
 from repro_torch.kernels.hufdec import ops as TH
 from repro_torch.kernels.megakernel import ops as TM
-from repro_torch.runtime.fused_decode import _u64_to_u32
+from repro_torch.runtime import fused_decode as fd
+from repro_torch.runtime.fused_decode import _ChunkBatch, _u64_to_u32
 
-M32 = (1 << 32) - 1
 LANES = 32
 SEGS = 2 * LANES               # segments a block: two chains a lane
 MAP_AFTER = 3                  # sync rounds before the candidate maps
@@ -40,13 +38,8 @@ def _maps_fit(bs):
 KEYS = ("words2", "nbits2", "counts", "sym_flat", "len_flat", "cb_idx")
 
 
-def _i32(v):
-    v &= M32
-    return v - (1 << 32) if v >> 31 else v
-
-
 # ---------------------------------------------------------------------------
-# The model (warp_walk.cuh, hufdec.cu, decode_fused.cu)
+# The model (warp_walk.cuh)
 # ---------------------------------------------------------------------------
 
 def _segment(row, W, p, stop, tbl16, out=None):
@@ -128,16 +121,6 @@ def _by_maps(row, W, S, lo, hi, tbl16):
     return starts, res
 
 
-def _geometry(nbits_row, b, tb, win, W):
-    """The kernel's first cursor of block b: (rel, foff), uint32 sums
-    reinterpreted as the reference's int32 cumsum."""
-    nb = [int(v) for v in nbits_row]
-    excl = sum(nb[:b]) & M32
-    g0 = _i32(excl - sum(nb[b // tb * tb:b]))
-    foff = min(max(g0 >> 5, 0), max(W, win) - win)
-    return _i32(excl - foff * 32), foff
-
-
 def _model_walk(arrays, bs, tb, win):
     """The walk kernel's blocks -> (codes (C, NB*bs) where each block is
     the fast path's when accepted and walk_plain's otherwise, per-block
@@ -146,6 +129,8 @@ def _model_walk(arrays, bs, tb, win):
     words = arrays["words2"].view(np.uint32)
     C, W = words.shape
     NB = arrays["nbits2"].shape[1]
+    lane_start, lane_foff = TH.lane_layout(_torch(arrays["nbits2"]), tb,
+                                           win, W)
     walk = TH.walk_plain(*(_torch(arrays[k]) for k in KEYS), bs, tb,
                          win).numpy().reshape(C, NB, bs)
     tbl16 = TH.packed_table16(_torch(arrays["sym_flat"]),
@@ -161,7 +146,7 @@ def _model_walk(arrays, bs, tb, win):
             if cnt == 0:
                 verdict[c, b] = "empty"
                 continue
-            rel, foff = _geometry(arrays["nbits2"][c], b, tb, win, W)
+            rel, foff = int(lane_start[c, b]), int(lane_foff[c, b])
             N = int(arrays["nbits2"][c, b])
             if not (cnt <= N <= 16 * cnt and rel >= 0
                     and rel + N - 1 <= cmax):
@@ -196,67 +181,6 @@ def _check_walk(arrays, bs, tiled=True):
     for cb in differs:
         assert verdict[cb] == "exact", cb
     return verdict, rounds
-
-
-def _model_dec(arrays, bs):
-    """decode_fused.cu's composition over the walk's codes: each block's
-    escape count and code sum, its first rank Z by look-back over its row,
-    its delta sum from the range [Z, Z + z) of stored deltas, its prefix D
-    by look-back over the segment's tiles, then q eight codes a lane."""
-    C, NB = arrays["nbits2"].shape
-    W = arrays["words2"].shape[1]
-    codes = _model_walk(arrays, bs, NB, W)[0].reshape(C, NB, bs)
-    od = arrays["odelta2"].astype(np.int64)
-    Ko = od.shape[1]
-    z = np.zeros((C, NB), np.int64)
-    d = np.zeros((C, NB), np.int64)
-    q = np.zeros((C, NB, bs), np.int64)
-    for c in range(C):
-        for b in range(NB):
-            cnt = int(np.clip(int(arrays["counts"][c]) - b * bs, 0, bs))
-            v = codes[c, b, :cnt].astype(np.int64)
-            z[c, b] = int((v == 0).sum())
-            Z = int(z[c, :b].sum())
-            esc = od[c, np.minimum(np.arange(Z, Z + z[c, b]), Ko - 1)]
-            d[c, b] = (int(v.sum()) - 512 * (cnt - z[c, b])
-                       + int(esc.sum())) & M32
-    for c in range(C):
-        s0 = min(max(int(arrays["seg0"][c]), 0), c)
-        for b in range(NB):
-            cnt = int(np.clip(int(arrays["counts"][c]) - b * bs, 0, bs))
-            rank = int(z[c, :b].sum())
-            run = (int(d[s0:c].sum()) + int(d[c, :b].sum())) & M32
-            v = codes[c, b]
-            for i00 in range(0, bs, 8 * LANES):
-                lane_sums, lane_q = [], []
-                for lane in range(LANES):
-                    i0 = i00 + 8 * lane
-                    loc, qs = 0, []
-                    for k in range(8):
-                        i = i0 + k
-                        if i >= cnt:
-                            qs.append(0)
-                            continue
-                        if v[i] == 0:
-                            dk = int(od[c, min(rank, Ko - 1)])
-                            rank += 1
-                        else:
-                            dk = int(v[i]) - 512
-                        loc = (loc + dk) & M32
-                        qs.append(loc if arrays["islor"][c]
-                                  else (dk + int(arrays["base"][c])) & M32)
-                    lane_sums.append(loc)
-                    lane_q.append(qs)
-                for lane in range(LANES):
-                    pre = (run + sum(lane_sums[:lane])) & M32
-                    for k in range(8):
-                        i = i00 + 8 * lane + k
-                        if i < cnt:
-                            q[c, b, i] = ((lane_q[lane][k] + pre) & M32
-                                          if arrays["islor"][c]
-                                          else lane_q[lane][k])
-                run = (run + sum(lane_sums)) & M32
-    return np.vectorize(_i32)(q).astype(np.int32).reshape(C, NB * bs)
 
 
 # ---------------------------------------------------------------------------
@@ -387,62 +311,9 @@ def test_model_on_garbage():
     assert n_exact > 0
 
 
-def test_kernel_geometry_matches_lane_layout():
-    """The first cursors and windows the kernels compute (uint32 sums at
-    a block, less the tile's earlier blocks) equal lane_layout's torch
-    cumsum, which they replace, with wrapping sums and windows clamped at
-    both ends of the row."""
-    rng = np.random.default_rng(11)
-    C, NB, W = 3, 70, 50
-    nbits2 = rng.integers(0, 1 << 12, (C, NB)).astype(np.int32)
-    nbits2[1] = rng.integers(-2**31, 2**31, NB)          # wraps
-    for tb, win in ((8, 13), (3, 60), (NB, W), (16, 4)):
-        start, foff = TH.lane_layout(torch.from_numpy(nbits2), tb, win, W)
-        for c in range(C):
-            for b in range(NB):
-                assert _geometry(nbits2[c], b, tb, win, W) == (
-                    int(start[c, b]), int(foff[c, b])), (tb, win, c, b)
-
-
-@pytest.mark.parametrize("counts,bs,Ko", [
-    ([4096, 4096, 1000, 3000, 17], 512, 64),
-    ([512, 512, 512, 100, 512], 32, 4),
-    ([1000, 999, 3, 700, 1000], 300, 8)])
-def test_model_of_the_fused_decode_matches_plain(counts, bs, Ko):
-    """The decode megakernel's composition (look-back ranks and prefixes,
-    escape deltas as a range sum, eight codes a lane) equals
-    ceaz_chunk_dec_plain: chained Lorenzo rows, a value row with base,
-    clamped ranks, tail blocks, bs not a power of two."""
-    rng = np.random.default_rng(len(counts) * bs + Ko)
-    arrays, _ = _stage(rng, counts, bs, zero_p=0.05)
-    arrays.update(_dec_meta(rng, len(counts), Ko))
-    keys = KEYS + ("odelta2", "base", "seg0", "islor")
-    want = TM.ceaz_chunk_dec_plain(*(_torch(arrays[k]) for k in keys), bs)
-    np.testing.assert_array_equal(_model_dec(arrays, bs), want.numpy())
-
-
-def test_model_of_the_fused_decode_on_garbage():
-    rng = np.random.default_rng(5)
-    C, NB, bs = 3, 4, 64
-    arrays = dict(
-        words2=rng.integers(0, 1 << 32, (C, 20), dtype=np.uint32),
-        nbits2=rng.integers(0, 1 << 10, (C, NB)).astype(np.int32),
-        counts=rng.integers(0, NB * bs + 1, C).astype(np.int32),
-        sym_flat=rng.integers(0, 4, 1 << 16).astype(np.int32),
-        len_flat=rng.integers(0, 17, 1 << 16).astype(np.int32),
-        cb_idx=np.zeros(C, np.int32),
-        odelta2=rng.integers(-999, 999, (C, 4)).astype(np.int32),
-        base=rng.integers(-5, 6, C).astype(np.int32),
-        seg0=np.array([0, 0, 2], np.int32),
-        islor=np.array([1, 1, 0], np.int32))
-    keys = KEYS + ("odelta2", "base", "seg0", "islor")
-    want = TM.ceaz_chunk_dec_plain(*(_torch(arrays[k]) for k in keys), bs)
-    np.testing.assert_array_equal(_model_dec(arrays, bs), want.numpy())
-
-
 def test_packed_table16_decodes_like_packed_table():
     """The 16-bit entry holds the 32-bit one's symbol and length for every
-    entry in range, and the packer raises on one out of range."""
+    entry in range."""
     rng = np.random.default_rng(12)
     sym = torch.from_numpy(rng.integers(0, 1024, 1 << 17).astype(np.int32))
     ln = torch.from_numpy(rng.integers(0, 17, 1 << 17).astype(np.uint8))
@@ -450,8 +321,87 @@ def test_packed_table16_decodes_like_packed_table():
     t16 = TH.packed_table16(sym, ln).to(torch.int32)
     assert torch.equal(t16 & 1023, t32 & 0xFFFF)
     assert torch.equal(t16 >> 10, t32 >> 16)
-    for bad_sym, bad_len in ((1024, 3), (-1, 3), (5, 17), (5, -1)):
-        s, l = sym.clone(), ln.to(torch.int32)
-        s[77], l[77] = bad_sym, bad_len
+
+
+@pytest.mark.parametrize("bad_sym,bad_len", [(1024, 3), (-1, 3), (5, 17),
+                                             (5, -1)])
+def test_table_ranges_raise_out_of_range(bad_sym, bad_len):
+    """One entry outside sym [0, 1024) or len [0, 16]: the 16-bit packer
+    raises, and so does the range check on the host's numpy tables."""
+    rng = np.random.default_rng(13)
+    sym = rng.integers(0, 1024, 1 << 16).astype(np.int32)
+    ln = rng.integers(0, 17, 1 << 16).astype(np.int32)
+    TH.check_table_ranges(sym, ln)
+    sym[77], ln[77] = bad_sym, bad_len
+    with pytest.raises(ValueError):
+        TH.packed_table16(torch.from_numpy(sym), torch.from_numpy(ln))
+    with pytest.raises(ValueError):
+        TH.check_table_ranges(sym, ln)
+
+
+def test_marked_tables_lose_the_mark_when_changed():
+    """A table the caller checked on the host keeps its mark until it is
+    changed in place; an unmarked table, or an inference tensor, has
+    none."""
+    sym = torch.zeros(TH.TBL, dtype=torch.int32)
+    ln = torch.zeros(TH.TBL, dtype=torch.int32)
+    TH.mark_ranges_checked(sym, ln)
+    assert TH.ranges_checked(sym) and TH.ranges_checked(ln)
+    ln[3] = 17
+    assert TH.ranges_checked(sym) and not TH.ranges_checked(ln)
+    assert not TH.ranges_checked(torch.zeros(TH.TBL, dtype=torch.int32))
+    with torch.inference_mode():
+        t = torch.zeros(TH.TBL, dtype=torch.int32)
+        TH.mark_ranges_checked(t)
+        assert not TH.ranges_checked(t)
+
+
+def _two_row_batch(book, seg0, bs=256):
+    """-> (a _ChunkBatch of two Lorenzo rows encoded with `book`, no
+    escapes; their codes)."""
+    rng = np.random.default_rng(4)
+    batch = _ChunkBatch(bs, "cpu")
+    rows = [rng.integers(1, 1024, n) for n in (700, 300)]
+    for codes, head in zip(rows, seg0):
+        n = len(codes)
+        w64, bnb, _ = encode(codes, book, bs)
+        batch.words.append(_u64_to_u32(w64))
+        batch.nbits.append(np.asarray(bnb, np.int64))
+        batch.counts.append(n)
+        batch.books.append(book)
+        batch.odelta.append(np.zeros(0, np.int32))
+        batch.base.append(0)
+        batch.islor.append(1)
+        batch.seg0.append(head)
+    batch.spans.append((0, 2))
+    return batch, rows
+
+
+@pytest.mark.parametrize("fault", ["none", "symbol_1024", "seg0_after_row"])
+def test_decode_pass_checks_tables_and_segments_on_the_host(fault,
+                                                            monkeypatch):
+    """The decode pass checks each book's table ranges and each row's
+    segment head on the host and hands the op tables marked as checked
+    (so the warp walks' wrappers need not wait on the card); a book with
+    a symbol >= 1024 or a head past its row raises before the op."""
+    book = Codebook.from_freqs(np.ones(1025 if fault == "symbol_1024"
+                                       else 1024, np.int64))
+    batch, rows = _two_row_batch(book, [0, 2] if fault == "seg0_after_row"
+                                 else [0, 0])
+    seen = []
+
+    def op(*args):
+        seen.append(TH.ranges_checked(args[3]) and TH.ranges_checked(args[4]))
+        return TM.ceaz_chunk_dec_plain(*args)
+    monkeypatch.setattr(fd.dispatch, "resolve", lambda *a: op)
+    if fault != "none":
         with pytest.raises(ValueError):
-            TH.packed_table16(s, l)
+            batch.run_mega()
+        assert not seen
+        return
+    q = batch.run_mega().numpy()
+    assert seen == [True]
+    # one Lorenzo chain over both rows: q is the running sum of code - 512
+    want = np.cumsum(np.concatenate(rows) - 512)
+    np.testing.assert_array_equal(q[0, :700], want[:700])
+    np.testing.assert_array_equal(q[1, :300], want[700:])
