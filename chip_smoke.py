@@ -108,13 +108,16 @@ its device time, L2-cold: everything one call puts on the device —
 kernels, torch glue, the zeroing of its outputs (``cold_device_ms``:
 torch.profiler's record, a 256 MB buffer written before every call) —
 beside its bound, its wrapper's host time and an empty launch through
-the same binding (the floor). The two decode walks (``hufdec_tiles``,
-the decode megakernel) are held and timed at every phase where they
-launch and on garbage and bit-flipped streams; after each decode phase
-the script prints their counters (blocks kept from the fast path,
-blocks walked by the serial walk, most sync rounds); no block of a
-valid stream may take the serial walk, and some of each walk's garbage
-blocks must. The script prints the card
+the same binding (the floor). The pass-2 pack (``gather_pack_tiled``) is
+held and timed at every (C, cv, w32) where the counted runs launched it,
+from a census of its launches printed before the kernels line. The
+three warp walks (``hufdec_tiles``, the split route's ``hufdec``, the
+decode megakernel) are held and timed at every phase where they launch
+and on garbage and bit-flipped streams; after each decode phase the
+script prints their counters (blocks kept from the fast path, blocks
+walked by the serial walk, most sync rounds); no block of a valid
+stream may take the serial walk, and some of each walk's garbage blocks
+must. The script prints the card
 (nvidia-smi name and power limit), the build time, per-kernel results,
 compress/decompress throughput, one JSON line of kernels and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit
@@ -412,7 +415,8 @@ def span_breakdown(fn, dispatch):
     return {k: round(v, 3) for k, v in sorted(totals.items())}
 
 
-def run_phase(name, x, kw, offline, dispatch, CEAZ, CEAZConfig, captured):
+def run_phase(name, x, kw, offline, dispatch, CEAZ, CEAZConfig, captured,
+              census):
     """Counted main-path run on the card + the CPU run it must equal."""
     import numpy as np
     from repro_torch.core.dualquant import value_range
@@ -423,6 +427,7 @@ def run_phase(name, x, kw, offline, dispatch, CEAZ, CEAZConfig, captured):
     fallbacks = om.counter(om.BANK_FALLBACKS).value()
     before = om.snapshot()
     dispatch.reset_launches()
+    census.start(name)
     c_gpu = gpu.compress(x)
     import torch
     torch.cuda.synchronize()
@@ -434,6 +439,7 @@ def run_phase(name, x, kw, offline, dispatch, CEAZ, CEAZConfig, captured):
     torch.cuda.synchronize()
     counted_dec_s = time.perf_counter() - t0
     counts = dispatch.launches()
+    census.stop(counts)
     check_walk_counters(name, counts, counters)
     spec = om.diff(om.snapshot(), before)
     for k in PHASE_KERNELS[name]:
@@ -516,10 +522,14 @@ def run_split_phase(name, c, y_mega, kw, offline, dispatch, CEAZ, CEAZConfig,
     split = CEAZ(CEAZConfig(device="cuda", decode_megakernel="split", **kw),
                  offline_codebook=offline)
     captured.clear()
+    counters = walk_counters()
+    if counters:
+        counters[0]()
     dispatch.reset_launches()
     y = split.decompress(c)
     torch.cuda.synchronize()
     counts = dispatch.launches()
+    check_walk_counters(name, counts, counters)
     check(counts.get("hufdec", 0) > 0,
           f"phase {name}: kernel hufdec was not launched ({counts})")
     for k in SPLIT_FORBIDDEN:
@@ -573,8 +583,6 @@ def kernel_rows(inputs):
     """Each kernel on its main-path inputs: bitwise vs plain, timed."""
     import torch
     from repro_torch.kernels.dualquant import ops as DQ
-    from repro_torch.kernels.hufdec import ops as HD
-    from repro_torch.kernels.hufenc import ops as HE
     from repro_torch.kernels.megakernel import ops as MK
     rows = {}
     inputs_a, inputs_b = inputs["A"], inputs["B"]
@@ -589,21 +597,6 @@ def kernel_rows(inputs):
             lambda: DQ.dual_quantize_plain(work, eb, ndim, n_out),
             in_bytes=4 * n, out_bytes=9 * n_out + 4 * n,
             ops=(4 if ndim == 2 else 2) * 12 * n)
-
-    for phase, inp in (("B", inputs_b), ("A", inputs_a)):
-        args = inp["hufenc"][0]
-        codes2, valid2, ln, cw, bs, w32 = args
-        C, cv = codes2.shape
-        nblocks = -(-cv // bs)
-        row("gather_pack_tiled", lambda: HE.encode_pack_cuda(*args),
-            lambda: HE.encode_pack_plain(*args),
-            in_bytes=nbytes(codes2, valid2, ln, cw),
-            out_bytes=4 * C * (w32 + nblocks),
-            ops=int(valid2.sum()) * 8,
-            extra=dict(phase=phase))
-        if phase == "B":
-            case_b = {k: rows["gather_pack_tiled"][k] for k in CASE_KEYS}
-    rows["gather_pack_tiled"]["cases"] = [case_b]
 
     # -- the bank encode (phases C, D, E) ---------------------------------
     # prequantize is ~12 f32 operations a value; the Lorenzo kernel runs
@@ -646,32 +639,6 @@ def kernel_rows(inputs):
         out_bytes=hists_c.shape[0] * (8 + 8 * NUM_SYMBOLS),
         ops=2 * K * NUM_SYMBOLS * hists_c.shape[0], extra=dict(phase="C"))
 
-    # -- the split route's walk (phase S), at every stream's shapes ---------
-    for phase in SPLIT_PHASES.values():
-        args = inputs[phase]["hufdec"][0]
-        words2, nbits2, counts = args[:3]
-        bs = args[6]
-        row_bits = nbits2.to(torch.int64).sum(1)
-        n_values = int(counts.to(torch.int64).sum())
-        if "hufdec" in rows:          # one table row (S.A); the others
-            got = HD.hufdec_cuda(*args)   # are held and timed beside it
-            check(same_outputs(got, HD.hufdec_plain(*args)),
-                  f"kernel hufdec disagrees with its plain version at "
-                  f"{phase}'s shapes")
-            rows["hufdec"]["streams"][phase] = dict(
-                shape=list(words2.shape) + [nbits2.shape[1], bs],
-                ms=cuda_ms(lambda: HD.hufdec_cuda(*args)),
-                plain_ms=(cuda_ms(lambda: HD.hufdec_plain(*args), reps=3,
-                                  warmup=1) if phase == "S.B" else None))
-            print(f"kernel hufdec at {phase}: bitwise == plain: True "
-                  f"{rows['hufdec']['streams'][phase]}")
-            continue
-        row("hufdec", lambda: HD.hufdec_cuda(*args),
-            lambda: HD.hufdec_plain(*args),
-            in_bytes=4 * int(((row_bits + 31) // 32).sum()) + nbytes(nbits2),
-            out_bytes=4 * n_values, ops=12 * n_values,
-            extra=dict(phase=phase, streams={}))
-
     work2, _, valid2, ebs = inputs["E.bank"]["ceaz_chunk"][0][:4]
     C, cv = work2.shape
     row("value_quant_tiles", lambda: MK.value_quant_cuda(work2, ebs),
@@ -694,11 +661,124 @@ def kernel_rows(inputs):
     return rows
 
 
-# the two warp walks: kernel -> (main phase, inputs it reads of the op's
-# 11 arguments, ops a symbol)
-WALKS = {"hufdec_tiles": ("A", 6, 12), "ceaz_chunk_dec_fused": ("B", 10, 20)}
+class PackCensus:
+    """Row 3's launches by shape (C, cv, w32) over the phases' counted
+    runs: every call of the `hufenc` op's kernel (the fused route's pass
+    2, the bank encode's pack, the bank passes and repacks) made between
+    start(phase) and stop(), with the first call's arguments at each
+    shape kept for its timed case."""
+
+    def __init__(self):
+        self.live, self.phase, self.by_phase, self.args = None, None, {}, {}
+
+    def wrap(self, fn):
+        def counted(*a):
+            if self.live is not None:
+                key = (a[0].shape[0], a[0].shape[1], a[5])
+                self.live[key] = self.live.get(key, 0) + 1
+                self.args.setdefault(key, (self.phase, a))
+            return fn(*a)
+        return counted
+
+    def start(self, phase):
+        self.live, self.phase = {}, phase
+
+    def stop(self, launches):
+        """End the phase's counted run; its census must hold every launch
+        the run counted."""
+        n = sum(self.live.values())
+        check(n == launches.get("gather_pack_tiled", 0),
+              f"phase {self.phase}: the pack census holds {n} launches, "
+              f"the run counted {launches.get('gather_pack_tiled', 0)}")
+        if n:
+            self.by_phase[self.phase] = self.live
+        self.live = None
+
+    def totals(self):
+        out = {}
+        for per in self.by_phase.values():
+            for k, n in per.items():
+                out[k] = out.get(k, 0) + n
+        return out
+
+
+def pack_rows(census, rows):
+    """Row 3 at every shape where the counted runs launched it (the
+    census), each held bitwise against encode_pack_plain and timed
+    L2-cold: phase A's shape is the row, the others its cases (the plain
+    version, and row 6's op on the same inputs, timed at A and B only);
+    beside them the launch-weighted device time and gap to the bound over
+    all the census's launches."""
+    from repro_torch.kernels.hufenc import ops as HE
+    totals = census.totals()
+    print("row 3 (gather_pack_tiled) census, (C, cv, w32) -> launches over "
+          f"the counted runs: {totals}; by phase: {census.by_phase}")
+    order = list(census.by_phase)
+    keys = sorted(totals, key=lambda k: order.index(census.args[k][0]))
+    cases, weighted, gap = [], 0.0, 0.0
+    for key in keys:
+        phase, args = census.args[key]
+        codes2, valid2, ln, cw, bs, w32 = args
+        C, cv = codes2.shape
+        add_row(rows, "gather_pack_tiled", lambda: HE.encode_pack_cuda(*args),
+                lambda: HE.encode_pack_plain(*args),
+                in_bytes=nbytes(codes2, valid2, ln, cw),
+                out_bytes=4 * C * (w32 + -(-cv // bs)),
+                ops=int(valid2.sum()) * 8,
+                extra=dict(phase=phase, shape=list(key),
+                           shape_launches=totals[key]),
+                time_plain=phase in ("A", "B"))
+        r = rows["gather_pack_tiled"]
+        if phase in ("A", "B"):
+            # row 6's op (the same kernel since the two share it; the
+            # one-program-per-chunk design in an earlier tree) on row 3's
+            # inputs
+            check(same_outputs(HE.gather_pack_cuda(*args),
+                               HE.encode_pack_plain(*args)),
+                  f"kernel gather_pack disagrees with its plain version at "
+                  f"{phase}'s pass-2 shapes")
+            r["gather_pack_device_ms"] = cold_device_ms(
+                lambda: HE.gather_pack_cuda(*args))
+            print(f"kernel gather_pack at {phase}'s pass-2 shapes: bitwise "
+                  f"== plain: True device_ms(L2-cold)="
+                  f"{r['gather_pack_device_ms']}")
+        cases.append(dict(r))
+        if r["device_ms"] is not None:
+            weighted += totals[key] * r["device_ms"]
+            gap += totals[key] * (r["device_ms"] - r["bound_ms"])
+    keep = CASE_KEYS + ("shape", "shape_launches", "gather_pack_device_ms")
+    rows["gather_pack_tiled"] = dict(
+        cases[0], cases=[{k: c.get(k) for k in keep} for c in cases[1:]],
+        launch_weighted_device_ms=weighted, launch_weighted_gap_ms=gap)
+    print(f"row 3 over its census: {sum(totals.values())} launches at "
+          f"{len(keys)} shapes, launch-weighted device ms {weighted}, "
+          f"launches x (device ms - bound) {gap}")
+
+
+# the warp walks: kernel -> (its phases, the main one first; the op whose
+# captured call it takes; inputs it reads of the `ceaz_chunk_dec` op's 11
+# arguments; ops a symbol). The split route's walk (`hufdec`, 7 arguments)
+# is held in the same 11-argument form (as_dec_args).
+WALKS = {
+    "hufdec_tiles": (("A",) + tuple(
+        p for p, ks in PHASE_KERNELS.items()
+        if "hufdec_tiles" in ks and p != "A"), "ceaz_chunk_dec", 6, 12),
+    "ceaz_chunk_dec_fused": (("B",) + tuple(
+        p for p, ks in PHASE_KERNELS.items()
+        if "ceaz_chunk_dec_fused" in ks and p != "B"), "ceaz_chunk_dec",
+        10, 20),
+    "hufdec": (tuple(SPLIT_PHASES.values()), "hufdec", 6, 12),
+}
 CASE_KEYS = ("phase", "ms", "device_ms", "pct_of_bound", "host_ms",
              "plain_ms", "bound_ms")
+
+
+def as_dec_args(op, args):
+    """A walk's captured call as the `ceaz_chunk_dec` op's 11 arguments:
+    the `hufdec` op's 7 (the walk's 6, then the block size) padded with
+    None where the decode metadata would be."""
+    return list(args) if op == "ceaz_chunk_dec" \
+        else list(args[:6]) + [None] * 4 + [args[6]]
 
 
 def walk_fns(name):
@@ -711,6 +791,9 @@ def walk_fns(name):
     if name == "hufdec_tiles":
         return (lambda d: HD.hufdec_tiles_cuda(*d[:6], d[10]),
                 lambda d: HD.hufdec_tiles_plain(*d[:6], d[10]))
+    if name == "hufdec":
+        return (lambda d: HD.hufdec_cuda(*d[:6], d[10]),
+                lambda d: HD.hufdec_plain(*d[:6], d[10]))
 
     def plain(d):
         codes = HD.walk_plain(*d[:6], d[10], d[1].shape[1], d[0].shape[1])
@@ -718,25 +801,41 @@ def walk_fns(name):
     return (lambda d: MK.ceaz_chunk_dec_fused_cuda(*d)), plain
 
 
+def counted_walks():
+    """The walks whose counters the imported package keeps (a parent's,
+    under --src, may keep fewer or none)."""
+    from repro_torch.kernels.hufdec import ops as HD
+    if not hasattr(HD, "walk_stats"):
+        return ()
+    kept = getattr(HD, "WARP_WALKS", ("hufdec_tiles", "ceaz_chunk_dec_fused"))
+    return tuple(n for n in WALKS if n in kept)
+
+
 def walk_counters():
     """(reset, read) of the imported package's warp-walk counters (blocks
     kept from the fast path, blocks walked by walk_lane, most sync
     rounds), or None for a tree without them (a parent's, under --src)."""
     from repro_torch.kernels.hufdec import ops as HD
-    if not hasattr(HD, "walk_stats"):
+    names = counted_walks()
+    if not names:
         return None
-    return HD.reset_walk_stats, lambda: {n: HD.walk_stats(n) for n in WALKS}
+    return HD.reset_walk_stats, lambda: {n: HD.walk_stats(n) for n in names}
 
 
 def check_walk_counters(phase, launches, counters):
     """After a phase's counted decode of a valid stream: print the warp
     walks' counters and require that no block took walk_lane."""
-    if not any(launches.get(n, 0) for n in WALKS):
+    launched = [n for n in WALKS if launches.get(n, 0)]
+    if not launched:
         return
-    if counters is None:
-        print(f"phase {phase} warp-walk counters: not in this tree")
+    kept = counters[1]() if counters else {}
+    missing = [n for n in launched if n not in kept]
+    if missing:
+        print(f"phase {phase} warp-walk counters of {missing}: not in this "
+              "tree")
+    got = {n: v for n, v in kept.items() if n in launched}
+    if not got:
         return
-    got = {n: v for n, v in counters[1]().items() if launches.get(n, 0)}
     print(f"phase {phase} warp-walk counters (blocks kept from the fast "
           f"path, blocks walked by walk_lane, most sync rounds): {got}")
     check(all(v["exact_blocks"] == 0 and v["fast_blocks"] > 0
@@ -745,37 +844,37 @@ def check_walk_counters(phase, launches, counters):
 
 
 def walk_rows(inputs, rows):
-    """Rows 4 and 5: held bitwise against the plain version and timed at
-    every phase where they launch (the main phase's numbers are the row's;
-    the others are its cases; the plain version timed at the main phase
-    only)."""
-    for name, (main, n_in, ops) in WALKS.items():
+    """Rows 4, 5 and 8: held bitwise against the plain version and timed
+    at every phase where they launch (the main phase's numbers are the
+    row's; the others are its cases; the plain version timed at the main
+    phase only)."""
+    for name, (phases, op, n_in, ops) in WALKS.items():
         cuda, plain = walk_fns(name)
         cases = []
-        for phase in [main] + [p for p, ks in PHASE_KERNELS.items()
-                               if name in ks and p != main]:
-            dec = inputs[phase]["ceaz_chunk_dec"][0]
+        for phase in phases:
+            dec = as_dec_args(op, inputs[phase][op][0])
             C, NB = dec[1].shape
             bs = dec[10]
             add_row(rows, name, lambda: cuda(dec), lambda: plain(dec),
                     in_bytes=nbytes(*dec[:n_in]), out_bytes=4 * C * NB * bs,
                     ops=ops * int(dec[2].sum()),
                     extra=dict(phase=phase, shape=[C, NB, bs]),
-                    time_plain=phase == main)
+                    time_plain=phase == phases[0])
             cases.append(dict(rows[name]))
         rows[name] = dict(cases[0], cases=[
             {k: c[k] for k in CASE_KEYS + ("shape",)} for c in cases[1:]])
 
 
 def walk_garbage_checks(inputs):
-    """Rows 4 and 5 on corrupted inputs, bitwise against their plain
+    """The walks on corrupted inputs, bitwise against their plain
     versions: garbage at small shapes (random words, random tables with
     length-0 entries, random bit counts and counts, as
-    tests/test_torch_gpu.py::_garbage) through both, and bit flips in the
-    streams of phase A (hufdec_tiles) and B (the decode megakernel). With
-    the counters, some garbage blocks of each kernel must have taken
-    walk_lane; a bit-flipped block may pass the exact rule, so the bit
-    flips' counters are printed, not checked."""
+    tests/test_torch_gpu.py::_garbage) through all three, and bit flips
+    in the streams of phase A (hufdec_tiles), B (the decode megakernel)
+    and S.A (hufdec). With the counters, some garbage blocks of each
+    counted walk must have taken walk_lane; a bit-flipped block may pass
+    the exact rule, so the bit flips' counters are printed, not
+    checked."""
     import numpy as np
     import torch
     counters = walk_counters()
@@ -791,8 +890,10 @@ def walk_garbage_checks(inputs):
              rng.integers(-5, 6, C), np.zeros(C), rng.integers(0, 2, C)]
         d = [torch.from_numpy(a.astype(np.int32)).cuda() for a in g]
         cases.append((f"garbage {C}x{NB}x{bs}", tuple(WALKS), d + [bs]))
-    for phase, name in (("A", "hufdec_tiles"), ("B", "ceaz_chunk_dec_fused")):
-        d = list(inputs[phase]["ceaz_chunk_dec"][0])
+    for phase, name in (("A", "hufdec_tiles"), ("B", "ceaz_chunk_dec_fused"),
+                        ("S.A", "hufdec")):
+        op = WALKS[name][1]
+        d = as_dec_args(op, inputs[phase][op][0])
         w = d[0].clone()
         used = (d[1].to(torch.int64).sum(1) + 31) // 32     # payload words
         for c in range(0, w.shape[0], max(1, w.shape[0] // 4)):
@@ -800,6 +901,7 @@ def walk_garbage_checks(inputs):
                 w[c, int(used[c]) * k // 3] ^= 1 << (7 * (c + k) % 31)
         cases.append((f"bitflips in {phase}'s stream", (name,), [w] + d[1:]))
     exact = {}                   # walk_lane blocks on the garbage alone
+    kept = counted_walks()
     for what, names, d in cases:
         for name in names:
             cuda, plain = walk_fns(name)
@@ -807,16 +909,15 @@ def walk_garbage_checks(inputs):
                 counters[0]()
             got = cuda(d)
             # the counters of this one call, before the second
-            st = counters[1]()[name] if counters else "not in this tree"
+            st = counters[1]()[name] if name in kept else "not in this tree"
             check(same_outputs(got, cuda(d)) and same_outputs(got, plain(d)),
                   f"kernel {name} disagrees with its plain version on {what}")
-            if counters and what.startswith("garbage"):
+            if name in kept and what.startswith("garbage"):
                 exact[name] = exact.get(name, 0) + st["exact_blocks"]
             print(f"kernel {name} on {what}: twice bitwise == plain: True; "
                   f"counters of one call {st}")
-    if counters:
-        check(all(exact.get(n, 0) > 0 for n in WALKS),
-              f"no garbage block took walk_lane: {exact}")
+    check(all(exact.get(n, 0) > 0 for n in kept),
+          f"no garbage block took walk_lane: {exact}")
 
 
 def window_checks(inputs, rows):
@@ -1181,7 +1282,7 @@ def run_exchange_phase(dispatch, captured, dev, seed):
     return counts, dict(captured), stats, mean
 
 
-def run_snapshot_phase(mean, dispatch, dev):
+def run_snapshot_phase(mean, dispatch, dev, census):
     """Phase Q.snap: five pod-mean leaves through snapshot_grads and
     restore_grad_snapshot on the card, against the CPU run."""
     import numpy as np
@@ -1193,10 +1294,12 @@ def run_snapshot_phase(mean, dispatch, dev):
     host = {k: v.cpu().numpy() for k, v in leaves.items()}
     torch.cuda.synchronize()
     dispatch.reset_launches()
+    census.start("Q.snap")
     snap = GC.snapshot_grads(leaves, device=dev)
     back = GC.restore_grad_snapshot(snap, device=dev)
     torch.cuda.synchronize()
     counts = dispatch.launches()
+    census.stop(counts)
     check(counts.get("gather_pack_tiled", 0) > 0
           and counts.get("hufdec_tiles", 0)
           + counts.get("ceaz_chunk_dec_fused", 0) > 0,
@@ -1346,7 +1449,8 @@ def staged_packers(n):
             else ("hufenc", "hufenc_stitch"))
 
 
-def run_batch_phases(field, offline, dispatch, CEAZ, CEAZConfig, captured):
+def run_batch_phases(field, offline, dispatch, CEAZ, CEAZConfig, captured,
+                     census):
     """BATCH (fused) and BATCH.staged: the field as N_SHARDS shards through
     ``compress_batch`` and ``decompress_batch`` on the card, counted; each
     shard's stream equals the CPU run's and its own ``compress``'s, the
@@ -1363,6 +1467,7 @@ def run_batch_phases(field, offline, dispatch, CEAZ, CEAZConfig, captured):
         captured.clear()
         torch.cuda.synchronize()
         dispatch.reset_launches()
+        census.start(name)
         c_gpu = gpu.compress_batch(shards)
         counters = walk_counters()
         if counters:
@@ -1370,6 +1475,7 @@ def run_batch_phases(field, offline, dispatch, CEAZ, CEAZConfig, captured):
         y_gpu = gpu.decompress_batch(c_gpu)
         torch.cuda.synchronize()
         counts[name] = dispatch.launches()
+        census.stop(counts[name])
         check_walk_counters(name, counts[name], counters)
         inputs[name] = dict(captured)
         want = PHASE_KERNELS[name] + (staged_packers(shards[0].size)
@@ -1600,6 +1706,9 @@ def main():
         if "registers" in line or line.startswith("=="):
             print("  ptxas:", line.strip())
 
+    from repro_torch.kernels.hufenc import ops as HE
+    census = PackCensus()
+    HE.encode_pack_cuda = census.wrap(HE.encode_pack_cuda)
     captured = {}
     for op in CAPTURED_OPS:
         fn = dispatch.resolve(op, "cuda", "cuda")
@@ -1630,7 +1739,7 @@ def main():
         kws[name] = {"mode": "rel", "eb": 1e-4, **kw}
         counts[name], inputs[name], thr[name], streams[name] = run_phase(
             name, fields[field], kws[name], offline, dispatch, CEAZ,
-            CEAZConfig, captured)
+            CEAZConfig, captured, census)
     assert_same_stream(streams["G.off"][0], streams["G"][0],
                        "phase G vs G.off")
     print("phase G stream == speculation 'off' stream on the card: True")
@@ -1644,7 +1753,7 @@ def main():
     print("staged streams == fused streams (T.A == A, T.E == E.exact, T.G "
           "== fused at its settings) on the card: True")
     c, i, t = run_batch_phases(fields["hacc"], offline, dispatch, CEAZ,
-                               CEAZConfig, captured)
+                               CEAZConfig, captured, census)
     counts.update(c)
     inputs.update(i)
     thr.update(t)
@@ -1681,13 +1790,14 @@ def main():
     inputs.update(i)
     counts["Q"], inputs["Q"], wire_stats["Q"], q_mean = run_exchange_phase(
         dispatch, captured, "cuda", args.seed)
-    counts["Q.snap"] = run_snapshot_phase(q_mean, dispatch, "cuda")
+    counts["Q.snap"] = run_snapshot_phase(q_mean, dispatch, "cuda", census)
     del q_mean
     for p in [n for n, _, _ in GATHER_PHASES] + ["Q"]:
         check(all(op in inputs[p] for op in WIRE_OPS),
               f"pack/unpack inputs of phase {p} not captured")
 
     rows = kernel_rows(inputs)
+    pack_rows(census, rows)
     walk_rows(inputs, rows)
     walk_garbage_checks(inputs)
     staged_kernel_rows(inputs, rows)
@@ -1698,6 +1808,9 @@ def main():
     wire_checks()
     for name, r in rows.items():
         r["launches"] = sum(c.get(name, 0) for c in counts.values())
+    check(rows["gather_pack_tiled"]["launches"]
+          == sum(census.totals().values()),
+          "row 3 launched outside the phases its census covers")
     rows["hufenc"]["stitch_launches"] = sum(c.get("hufenc_stitch", 0)
                                             for c in counts.values())
     for name, t in thr.items():

@@ -1,7 +1,7 @@
-// Block-parallel canonical-Huffman table walks: two entries, and the
-// packer of the decode tables they read.
+// Block-parallel canonical-Huffman table walks: one entry for two TPU
+// kernels, and the packer of the decode tables it reads.
 //
-// ceaz_hufdec_tiles replaces the TPU kernel
+// ceaz_hufdec_tiles replaces two TPU kernels. First
 // src/repro/kernels/megakernel/decode_kernel.py::hufdec_tiles (:246). It
 // decodes chunks too large for the decode megakernel (more than 2^17
 // values per row). Each (chunk, block) lane reads inside its tile's word
@@ -28,18 +28,15 @@
 // memory), and the table load, which 132 SMs share the L2's bandwidth
 // for.
 //
-// ceaz_hufdec replaces the TPU kernel src/repro/kernels/hufdec/kernel.py::
-// hufdec (:85), the walk of the split decode route. The TPU runs one
-// program per chunk with the chunk's blocks as vector lanes and the row
-// and its decode table in VMEM; here one thread per (chunk, block) lane
-// walks its block over the chunk's whole row (one window per row). A
-// warp per CTA takes 32 consecutive lanes of one row and computes their
-// first cursors itself: the exclusive prefix of the row's block bit
-// counts, summed in uint32 (the reference's int32 cumsum wraps), the
-// blocks before the warp by a strided sum + butterfly reduction, its own
-// by a shuffle scan. One launch, no scratch. Bound: latency, block_size
-// dependent steps a lane (peek, table load from L2, advance); the warp
-// walk above is the design it should take next.
+// The same entry replaces the TPU kernel src/repro/kernels/hufdec/
+// kernel.py::hufdec (:85), the walk of the split decode route, whose lanes
+// each walk inside their chunk's whole row: the wrapper (hufdec/ops.py::
+// row_geometry) gives it one window of the whole row (win = W) in tiles
+// of one block, so every window starts at word 0 (span = W - win = 0),
+// and a lane's cursor is its row-relative first bit, the exclusive
+// uint32 prefix of its row's block bit counts — the arguments the
+// split route's one-thread-a-lane walk handed walk_lane, which this
+// design replaced. The grid is persistent, so any row count.
 //
 // ceaz_pack_tables packs a stack of decode tables once a call: the
 // 32-bit (len << 16) | sym entries walk_lane reads and the 16-bit
@@ -52,8 +49,6 @@
 #include "warp_walk.cuh"
 
 namespace {
-
-constexpr int THREADS = 32;
 
 __global__ void ceaz_table_pack_kernel(const int32_t* __restrict__ sym,
                                        const int32_t* __restrict__ len,
@@ -198,60 +193,6 @@ extern "C" int ceaz_hufdec_tiles(const void* words, int64_t C, int64_t W,
         static_cast<const int32_t*>(cb_idx), NB, bs, tb, win, groups, tiles,
         cfg.area, static_cast<int32_t*>(out), static_cast<int32_t*>(stats),
         static_cast<int32_t*>(ticket));
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-namespace {
-
-__global__ void hufdec_kernel(const uint32_t* __restrict__ words, int64_t W,
-                              const int32_t* __restrict__ nbits,
-                              const int32_t* __restrict__ counts,
-                              const int32_t* __restrict__ table,
-                              const int32_t* __restrict__ cb_idx, int64_t NB,
-                              int32_t bs, int32_t* out) {
-  int64_t c = blockIdx.y;
-  int64_t first = static_cast<int64_t>(blockIdx.x) * THREADS;
-  int64_t lane = first + threadIdx.x;
-  const int32_t* nb = nbits + c * NB;
-  // bits of the row's blocks before this warp's first lane
-  uint32_t before = 0;
-  for (int64_t b = threadIdx.x; b < first; b += THREADS)
-    before += static_cast<uint32_t>(nb[b]);
-  for (int off = THREADS / 2; off > 0; off >>= 1)
-    before += __shfl_xor_sync(0xffffffffu, before, off);
-  // inclusive scan of the warp's own lanes
-  uint32_t own = lane < NB ? static_cast<uint32_t>(nb[lane]) : 0u;
-  uint32_t incl = own;
-  for (int off = 1; off < THREADS; off <<= 1) {
-    uint32_t v = __shfl_up_sync(0xffffffffu, incl, off);
-    if (threadIdx.x >= off) incl += v;
-  }
-  if (lane >= NB) return;
-  int32_t start = static_cast<int32_t>(before + incl - own);
-  int64_t cnt64 = static_cast<int64_t>(counts[c]) - lane * bs;
-  int32_t cnt = static_cast<int32_t>(cnt64 < 0 ? 0 : (cnt64 > bs ? bs : cnt64));
-  ceaz::walk_lane(words + c * W, W, 0, W, start,
-                  table + static_cast<int64_t>(cb_idx[c]) * ceaz::TBL, cnt, bs,
-                  out + (c * NB + lane) * bs);
-}
-
-}  // namespace
-
-extern "C" int ceaz_hufdec(const void* words, int64_t C, int64_t W,
-                           const void* nbits, const void* counts,
-                           const void* table, const void* cb_idx, int64_t NB,
-                           int64_t bs, void* out, void* stream) {
-  if (C > 0 && NB > 0) {
-    dim3 grid(static_cast<unsigned>((NB + THREADS - 1) / THREADS),
-              static_cast<unsigned>(C));
-    hufdec_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(words), W,
-        static_cast<const int32_t*>(nbits),
-        static_cast<const int32_t*>(counts),
-        static_cast<const int32_t*>(table),
-        static_cast<const int32_t*>(cb_idx), NB, static_cast<int32_t>(bs),
-        static_cast<int32_t*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,9 +4,10 @@
 // Replaces three TPU kernels of src/repro/kernels/hufenc/kernel.py:
 //
 //   * gather_pack_tiled (:267; block sums at :290, pack at :333), the
-//     fused route's pass 2 — block_sums_kernel + pack_kernel;
-//   * gather_pack (:164; pallas_call at :178), the same output with one
-//     program per chunk — gather_pack_kernel;
+//     fused route's pass 2, and gather_pack (:164; pallas_call at :178),
+//     the same function with one program per chunk: both are
+//     gather_pack_kernel, one launch (the wrappers count it under the
+//     TPU kernel each replaces);
 //   * hufenc (:344; pallas_call at :353), the serial per-block packer,
 //     one padded row per stream block — blocks_pack_kernel, with
 //     stitch_kernel laying the rows end to end into the host stream
@@ -16,56 +17,58 @@
 // The TPU kernels compose every OUTPUT word from a window of up to 33
 // candidate symbols found by a binary search over bit offsets (or, in
 // hufenc, walk a block's symbols one by one), because a TPU program
-// cannot scatter. Hopper can: here every SYMBOL places its own bits, and
-// since the bits of distinct symbols are disjoint, OR is order-free and
-// the result is deterministic whatever order the atomicOr's land in.
-// Each thread owns a run of consecutive symbols, a block-wide exclusive
-// scan of the runs' bit counts places each run, and the thread ORs
-// whole words it composed in a register into the zeroed payload
-// (pack_run); only words shared with a neighbouring run (or spanned by a
-// symbol) see more than one atomicOr.
+// cannot scatter. Hopper can: here every run of symbols places its own
+// bits, and since the bits of distinct symbols are disjoint, OR is
+// order-free and the result is deterministic whatever order the ORs land
+// in. Bits past w32*32 (a row's width) are dropped, as the reference
+// truncates its payload. Code lengths are those of a codebook, in
+// [0, 32].
 //
-//   gather_pack_tiled: (a) block_sums_kernel, one CTA per (chunk, block):
-//     the block's code bits over valid symbols; (b) torch glue in the
-//     wrapper: an exclusive int32 cumsum of those -> each block's first
-//     bit; (c) pack_kernel, one CTA per (chunk, block).
-//   gather_pack: one launch of C x ceil(cv/4096) CTAs, one a 4096-symbol
-//     tile of a row; the tiles' first bits come from a decoupled
+//   gather_pack_kernel: persistent CTAs take 4096-symbol tiles of the
+//     rows by ticket; each tile's first bit comes from a decoupled
 //     look-back over per-tile status words (below, before the kernel).
-//     The tile packs from shared memory into a shared buffer and writes
-//     it out coalesced: its own device functions (gp_*), the other
-//     kernels' pack_run untouched.
-//   hufenc: one CTA per stream block packs the block into its own row
-//     (the FPGA's N pipelines, one per block) and writes the block's bit
-//     count; the stitch kernel then ORs each row word into the output at
-//     the block's exclusive-cumsum bit offset (int64), so an output word
-//     may gather bits of any number of blocks.
-// Bits past w32*32 (a row's width) are dropped, as the reference
-// truncates its payload.
+//   blocks_pack_kernel: one CTA per stream block packs the block into its
+//     own row (the FPGA's N pipelines, one per block) and writes the
+//     block's bit count (pack_run); the stitch kernel then ORs each row
+//     word into the output at the block's exclusive-cumsum bit offset
+//     (int64), so an output word may gather bits of any number of blocks.
 //
-// Bound on the H100: bytes — each value is read once as a 4 B code (and
-// 1 B valid flag), and the payload (~2-16 bits a value) is written once
+// Bound on the H100: bytes — each value is read once as a 4 B code and a
+// 1 B valid flag, and the payload (~2-16 bits a value) is written once
 // (hufenc: written as rows, read and written again by the stitch); the
 // codebook rows (8 KB per chunk) sit in shared memory.
 //
-// gather_pack is the staged route's packer of one chunk (2^15-2^17
-// values), where that bound is well under a microsecond: there the launch
-// and the latency of one CTA's chain of steps bound it. What held the
-// first design (one CTA a row, walking it tile after tile at ~13 us a
-// tile on 1 SM of 132) and what this one does instead:
-//   * the grid: a tile a CTA, so a 2^15 chunk spans 8 SMs and a 2^23 one
-//     fills all 132, in one launch (no second pass for the prefix sum);
-//   * the loads: a tile's codes and flags are read once, as 16-byte code
-//     vectors and 4-byte flag words (scalar at an unaligned head and
-//     tail), into a shared table of (code, length) that the block counts
-//     and the pack both read: nothing is read from global memory twice;
-//   * the block counts: no division a symbol — a run steps its next
-//     block boundary; blocks of >= 16 symbols are summed in shared memory
-//     and added with one global atomicAdd a (tile, block);
-//   * the pack: a run's words wholly inside its bits are stored to the
-//     shared buffer, only words shared with a neighbouring run are ORed;
-//     the buffer goes out shifted to the tile's first bit, stores for the
-//     words wholly inside the tile and atomicOr for its two edge words.
+// What held gather_pack_kernel's first design back (a CTA a tile, each
+// thread's 16 symbols staged in a shared table, then counted, then packed
+// from it; warp 0 looking back 32 tiles a step while the others packed;
+// clock64 and globaltimer stamps in a scratch build on the main path's
+// pass-2 inputs): long serial phases a tile — the book reloaded by every
+// tile, the symbols read from global memory into the shared table and
+// from it twice more, a count loop that stepped block boundaries with
+// 64-bit positions a symbol, and a look-back that walked back a row of
+// ~1600 tiles 32 at a time. What this design does instead:
+//   * registers, not a shared table: each thread loads its own run of 16
+//     symbols (four 16-byte code vectors, one 16-byte flag vector) and
+//     keeps it in registers from the count to the pack, so a symbol is
+//     read once from global memory and its code length once from the
+//     book; the pack loop is unrolled, its 16 codeword lookups
+//     independent;
+//   * the stream blocks' bits from the runs' scanned first bits (a run
+//     lies in one block when the block size is a multiple of 16): one
+//     atomicAdd a (tile, block), nothing a symbol;
+//   * the whole CTA looks back, 512 tiles a step, after it has packed;
+//   * persistent CTAs: a CTA keeps the row's book while its next tile has
+//     the same row (the one-row phases load it once a CTA), and takes its
+//     next ticket while it packs.
+// What holds it back now (the same stamps): a tile still lives through
+// its phases in order — load and count, scan, pack, look-back, write —
+// and the CTAs on an SM move through them nearly in step, so the memory
+// system idles while they pack and look back, and the issue slots while
+// they load. Measured and slower on the card: staging the next tile's
+// symbols in shared memory by cp.async while packing the current one
+// (with and without counting it ahead), a control warp that looks back
+// while eight pack, CTAs of 64 and 128 threads, a 32-tile and a 128-tile
+// warp look-back, backoff in its spin (PERF.md section 6).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -104,29 +107,6 @@ __device__ int32_t block_exclusive_scan(int32_t v, int32_t* total) {
   int32_t before = warp > 0 ? warp_sums[warp - 1] : 0;
   *total = warp_sums[THREADS / 32 - 1];
   return before + x - v;
-}
-
-__global__ void block_sums_kernel(const int32_t* __restrict__ codes,
-                                  const uint8_t* __restrict__ valid,
-                                  const int32_t* __restrict__ lengths,
-                                  int64_t cv, int bs, int64_t nblocks,
-                                  int32_t* block_nbits) {
-  __shared__ int32_t ln[NUM_SYMBOLS];
-  int64_t b = blockIdx.x;
-  int64_t c = blockIdx.y;
-  for (int s = threadIdx.x; s < NUM_SYMBOLS; s += THREADS)
-    ln[s] = lengths[c * NUM_SYMBOLS + s];
-  __syncthreads();
-  const int32_t* crow = codes + c * cv;
-  const uint8_t* vrow = valid + c * cv;
-  int32_t sum = 0;
-  for (int i = threadIdx.x; i < bs; i += THREADS) {
-    int64_t p = b * bs + i;
-    if (p < cv && vrow[p]) sum += ln[clamp_code(crow[p])];
-  }
-  int32_t total;
-  block_exclusive_scan(sum, &total);
-  if (threadIdx.x == 0) block_nbits[c * nblocks + b] = total;
 }
 
 __device__ __forceinline__ void flush(uint32_t* row, int64_t w32, int64_t w,
@@ -188,72 +168,61 @@ __device__ __forceinline__ void load_tables(const int32_t* lengths,
   __syncthreads();
 }
 
-__global__ void pack_kernel(const int32_t* __restrict__ codes,
-                            const uint8_t* __restrict__ valid,
-                            const int32_t* __restrict__ lengths,
-                            const int32_t* __restrict__ cwords, int64_t cv,
-                            int bs, int64_t nblocks,
-                            const int32_t* __restrict__ block_base,
-                            int64_t w32, uint32_t* words) {
-  __shared__ int32_t ln[NUM_SYMBOLS];
-  __shared__ uint32_t cw[NUM_SYMBOLS];
-  int64_t b = blockIdx.x;
-  int64_t c = blockIdx.y;
-  load_tables(lengths + c * NUM_SYMBOLS, cwords + c * NUM_SYMBOLS, ln, cw);
-  const int32_t* crow = codes + c * cv;
-  const uint8_t* vrow = valid + c * cv;
-  int per = (bs + THREADS - 1) / THREADS;
-  int64_t p0 = b * bs + static_cast<int64_t>(threadIdx.x) * per;
-  int64_t p1 = min(b * bs + min(static_cast<int64_t>(threadIdx.x + 1) * per,
-                                static_cast<int64_t>(bs)),
-                   cv);
-  int32_t total;
-  int32_t before = block_exclusive_scan(run_bits(crow, vrow, p0, p1, ln),
-                                        &total);
-  // global bit offsets are int32 in the reference (its cumsum dtype)
-  int64_t bit = static_cast<int64_t>(block_base[c * nblocks + b]) + before;
-  pack_run(crow, vrow, p0, p1, ln, cw, bit, words + c * w32, w32);
-}
-
-// ---- gather_pack: one launch spread over the card --------------------------
+// ---- gather_pack_tiled and gather_pack: one launch, a look-back -----------
 //
-// A row of cv symbols is cut into tiles of GP_TILE symbols, one CTA a
-// tile, every row's tiles in one grid. A tile's first bit is the sum of
-// the bits of the row's tiles before it; the CTAs find it in one pass
-// with a decoupled look-back (Merrill & Garland, "Single-pass Parallel
-// Prefix Scan with Decoupled Look-back", 2016): a tile publishes its
-// aggregate as soon as it has counted its bits, then its inclusive prefix
-// once it knows it, each as one 64-bit status word (flag and value read
-// by one load). A tile takes its index from a per-row ticket, not from
-// blockIdx, so it only ever waits on tiles that are already running.
-// Meanwhile it packs its bits into shared memory from bit 0; the prefix
-// only shifts them on the way out.
+// A row of cv symbols is cut into tiles of GP_TILE symbols, every row's
+// tiles in one ticket order (row after row). A grid of persistent CTAs,
+// as many as fit on the card at once, takes the tiles one ticket at a
+// time: a CTA only ever waits on tiles whose tickets were taken before
+// its own, by CTAs that are running, so the grid needs no co-residency
+// guarantee. A tile's first bit is the sum of the bits of the row's tiles
+// before it, found in one pass by a decoupled look-back (Merrill and
+// Garland, "Single-pass Parallel Prefix Scan with Decoupled Look-back",
+// 2016): a tile publishes its aggregate as soon as it has counted its
+// bits, then its inclusive prefix once it knows it, each as one 64-bit
+// status word (flag and value read by one load).
+//
+// Prefixes are int64 here; the reference's are an int32 cumsum
+// (hufenc/kernel.py:304). The two agree while a row's bits stay below
+// 2^31. Only a prefix below w32*32 places a stored bit (a tile whose
+// first bit is at or past w32*32 writes nothing), and every caller's w32
+// is at most runtime/fused.py::words_capacity(cv), 16*cv/32 + 4 words, so
+// for a row of fewer than 2^27 - 8 values every prefix that places a bit
+// is below 2^31.
+//
+// Per tile, each thread owns a run of GP_PER consecutive symbols and
+// keeps it in registers from the load to the pack: it loads the run
+// itself (four 16-byte code vectors and one 16-byte flag vector where
+// aligned, symbol by symbol at a row's unaligned or short runs), looks
+// each code's length up in the row's book in shared memory, and sums the
+// run's bits; a block-wide scan places the runs; the tile publishes its
+// aggregate; each thread composes its run's codewords into whole words in
+// a register and stores them to the tile's shared buffer (ORed only where
+// a word is shared with a neighbouring run); then the whole CTA looks
+// back, THREADS * GP_LOOK tiles a step, for the tile's first bit; the
+// buffer goes out shifted to it, stored where a word lies wholly inside
+// the tile's bits, ORed at the tile's two edge words. A CTA keeps the
+// book while its next tile has the same row, and takes its next ticket
+// while it packs.
 constexpr int GP_PER = 16;                          // symbols a thread's run
 constexpr int GP_TILE = THREADS * GP_PER;           // 4096 symbols a tile
-constexpr int GP_SLOTS = GP_TILE + GP_TILE / GP_PER;  // a pad slot a run
 constexpr int GP_WORDS = GP_TILE;                   // <= 32 bits a symbol
-constexpr int GP_BLOCKS = GP_TILE / 16 + 2;         // blocks of >= 16 symbols
+constexpr int GP_LOOK = 2;                          // status words a thread
+constexpr int GP_CTAS_PER_SM = 4;                   // launch bounds below
 constexpr unsigned long long ST_AGG = 1ull << 62;   // aggregate published
 constexpr unsigned long long ST_PRE = 2ull << 62;   // inclusive prefix
 constexpr unsigned long long ST_VAL = ST_AGG - 1;
-
-// Shared slot of a tile's symbol: each thread's run of 16 consecutive
-// symbols sits 17 slots after the previous one, so the 32 runs a warp
-// walks at once fall in 32 distinct banks.
-__device__ __forceinline__ int gp_slot(int i) { return i + i / GP_PER; }
-
-// One symbol into the tile's shared table: its clamped code in the low
-// 16 bits, its code length (0 when invalid) above.
-__device__ __forceinline__ void gp_put(int32_t* sym, const int32_t* ln,
-                                       int i, int32_t code, uint32_t ok) {
-  const int k = clamp_code(code);
-  sym[gp_slot(i)] = k | ((ok ? ln[k] : 0) << 16);
-}
 
 __device__ __forceinline__ void gp_publish(unsigned long long* st,
                                            unsigned long long v) {
   __threadfence();
   *reinterpret_cast<volatile unsigned long long*>(st) = v;
+}
+
+// Tile i's status word, read past the caches.
+__device__ __forceinline__ unsigned long long gp_status(
+    const unsigned long long* st, int64_t i) {
+  return *reinterpret_cast<const volatile unsigned long long*>(st + i);
 }
 
 // A composed word of a run into the tile's buffer: stored when it lies
@@ -268,184 +237,233 @@ __device__ __forceinline__ void gp_emit(uint32_t* buf, int w, uint32_t acc,
     atomicOr(buf + w, acc);
 }
 
-// Packs the tile's symbols [r0, r1) into `buf` from tile bit `bit` on,
-// composing whole words in a register; `bits` is the run's bit count.
-__device__ void gp_compose(const int32_t* sym, const uint32_t* cw, int r0,
-                           int r1, int bit, int bits, uint32_t* buf) {
-  const int b0 = bit, b1 = bit + bits;
-  int cur = -1;
-  uint32_t acc = 0;
-  for (int i = r0; i < r1; ++i) {
-    const int32_t s = sym[gp_slot(i)];
-    const int len = s >> 16;
-    if (len <= 0) continue;
-    const uint32_t v = cw[s & 0xffff];
-    const int w = bit >> 5;
-    const int off = bit & 31;
-    bit += len;
-    if (w != cur) {
-      gp_emit(buf, cur, acc, b0, b1);
-      cur = w;
-      acc = 0;
+// The run's symbols from the row into sym[] (the clamped code), with
+// each symbol's length in the high half (0 when invalid or past the
+// tile's n symbols) -> the run's bits. g: the run's first symbol's global
+// index; i0: its index in the tile.
+__device__ __forceinline__ int32_t gp_load_run(
+    const int32_t* __restrict__ codes, const uint8_t* __restrict__ valid,
+    const int32_t* ln, int64_t g, int i0, int n, int32_t* sym) {
+  int32_t bits = 0;
+  if (i0 + GP_PER <= n
+      && ((reinterpret_cast<uintptr_t>(codes + g)
+           | reinterpret_cast<uintptr_t>(valid + g)) & 15) == 0) {
+    const int4* c4 = reinterpret_cast<const int4*>(codes + g);
+    const uint4 f = __ldg(reinterpret_cast<const uint4*>(valid + g));
+    const uint32_t fw[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+    for (int k = 0; k < GP_PER / 4; ++k) {
+      const int4 v = __ldg(c4 + k);
+      const int32_t cs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int code = clamp_code(cs[j]);
+        const int32_t l = (fw[k] >> (8 * j)) & 0xffu ? ln[code] : 0;
+        sym[4 * k + j] = code | (l << 16);
+        bits += l;
+      }
     }
-    if (off + len <= 32) {
-      acc |= v << (32 - off - len);
-    } else {
-      acc |= v >> (off + len - 32);
-      gp_emit(buf, cur, acc, b0, b1);
-      cur = w + 1;
-      acc = v << (64 - off - len);
+  } else {
+#pragma unroll
+    for (int i = 0; i < GP_PER; ++i) {
+      int32_t l = 0, code = 0;
+      if (i0 + i < n) {
+        code = clamp_code(codes[g + i]);
+        l = valid[g + i] ? ln[code] : 0;
+      }
+      sym[i] = code | (l << 16);
+      bits += l;
     }
   }
-  gp_emit(buf, cur, acc, b0, b1);
+  return bits;
 }
 
-__global__ void __launch_bounds__(THREADS)
+// Packs the run's symbols into `buf` from tile bit `bit` on, composing
+// whole words in a register: a codeword of len <= 32 bits at bit offset
+// off of word w is the 64-bit v << (64 - off - len), whose high half
+// goes to word w and low half to w + 1; `bits` is the run's bit count.
+__device__ __forceinline__ void gp_compose(const int32_t* sym,
+                                           const uint32_t* cw, int bit,
+                                           int bits, uint32_t* buf) {
+  const int b0 = bit, b1 = bit + bits;
+  int cur = bit >> 5;
+  uint32_t acc = 0, spill = 0;
+#pragma unroll
+  for (int i = 0; i < GP_PER; ++i) {
+    const int len = sym[i] >> 16;
+    const uint32_t v = cw[sym[i] & 0xffff];
+    const int w = bit >> 5;
+    const uint64_t x =
+        len > 0 ? static_cast<uint64_t>(v) << (64 - (bit & 31) - len) : 0;
+    bit += len;
+    if (w != cur) {                 // w == cur + 1: word cur is whole
+      gp_emit(buf, cur, acc, b0, b1);
+      acc = spill;
+      spill = 0;
+      cur = w;
+    }
+    acc |= static_cast<uint32_t>(x >> 32);
+    spill |= static_cast<uint32_t>(x);
+  }
+  gp_emit(buf, cur, acc, b0, b1);
+  gp_emit(buf, cur + 1, spill, b0, b1);
+}
+
+// The exclusive prefix of a row's tile `tile`, by the whole CTA: each
+// step reads the status words of the THREADS * GP_LOOK tiles before the
+// last one read (GP_LOOK a thread, all in flight at once, each spun on
+// until published) and adds their values from the nearest inclusive
+// prefix on; part and has hold two steps' (sum, has a prefix) for each
+// (word of the step, warp).
+__device__ __forceinline__ int64_t gp_look_back(const unsigned long long* st,
+                                                int64_t tile, int64_t* part,
+                                                unsigned* has) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int NW = THREADS / 32;
+  int64_t excl = 0;
+  for (int64_t j = tile - 1, step = 0; j >= 0;
+       j -= THREADS * GP_LOOK, ++step) {
+    unsigned long long s[GP_LOOK];
+#pragma unroll
+    for (int m = 0; m < GP_LOOK; ++m) {
+      const int64_t idx = j - THREADS * m - tid;
+      s[m] = idx >= 0 ? gp_status(st, idx) : ST_PRE;  // before the row: 0
+    }
+    int64_t* pt = part + (step & 1) * GP_LOOK * NW;
+    unsigned* ht = has + (step & 1) * GP_LOOK * NW;
+#pragma unroll
+    for (int m = 0; m < GP_LOOK; ++m) {
+      while ((s[m] >> 62) == 0) s[m] = gp_status(st, j - THREADS * m - tid);
+      const unsigned p = __ballot_sync(0xffffffffu, (s[m] >> 62) == 2);
+      const int stop = p ? __ffs(p) - 1 : 31;
+      int64_t v = lane <= stop ? static_cast<int64_t>(s[m] & ST_VAL) : 0;
+      for (int o = 16; o > 0; o >>= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (lane == 0) {
+        pt[m * NW + warp] = v;
+        ht[m * NW + warp] = p != 0;
+      }
+    }
+    __syncthreads();
+    bool found = false;
+    for (int q = 0; q < GP_LOOK * NW && !found; ++q) {
+      excl += pt[q];
+      found = ht[q] != 0;
+    }
+    if (found) break;
+  }
+  return excl;
+}
+
+__global__ void __launch_bounds__(THREADS, GP_CTAS_PER_SM)
 gather_pack_kernel(const int32_t* __restrict__ codes,
                    const uint8_t* __restrict__ valid,
                    const int32_t* __restrict__ lengths,
                    const int32_t* __restrict__ cwords, int64_t cv, int64_t bs,
-                   int64_t nblocks, int64_t tiles, int64_t w32,
-                   uint32_t* words, int32_t* block_nbits,
-                   unsigned long long* status, int32_t* tickets) {
+                   int64_t nblocks, int64_t tiles, int64_t total_tiles,
+                   int64_t w32, uint32_t* words, int32_t* block_nbits,
+                   unsigned long long* status, unsigned long long* ticket) {
   __shared__ int32_t ln[NUM_SYMBOLS];
   __shared__ uint32_t cw[NUM_SYMBOLS];
-  __shared__ int32_t sym[GP_SLOTS];
   __shared__ __align__(16) uint32_t buf[GP_WORDS];
-  __shared__ int32_t bsum[GP_BLOCKS];
-  __shared__ int64_t s_tile, s_prefix;
+  __shared__ int32_t pre[THREADS + 1];    // the runs' tile-local first bits
+  __shared__ int64_t s_next;
+  __shared__ int64_t part[2 * GP_LOOK * (THREADS / 32)];
+  __shared__ unsigned has[2 * GP_LOOK * (THREADS / 32)];
   const int tid = threadIdx.x;
-  const int64_t c = blockIdx.x / tiles;
-  if (tid == 0) s_tile = atomicAdd(tickets + c, 1);
-  for (int s = tid; s < NUM_SYMBOLS; s += THREADS) {
-    ln[s] = lengths[c * NUM_SYMBOLS + s];
-    cw[s] = static_cast<uint32_t>(cwords[c * NUM_SYMBOLS + s]);
-  }
-  for (int s = tid; s < GP_WORDS / 4; s += THREADS)
-    reinterpret_cast<uint4*>(buf)[s] = make_uint4(0, 0, 0, 0);
-  for (int s = tid; s < GP_BLOCKS; s += THREADS) bsum[s] = 0;
-  __syncthreads();
-  const int64_t tile = s_tile;
-  const int64_t t0 = tile * GP_TILE;                    // row-relative
-  const int n = static_cast<int>(min(static_cast<int64_t>(GP_TILE), cv - t0));
-
-  // the tile's codes and flags, read from global memory once: 4 codes as
-  // one 16-byte vector and their flags as one word where aligned, scalar
-  // at the head and tail (a row starts at 4*c*cv bytes)
-  const int64_t g0 = c * cv + t0, g1 = g0 + n;
-  const int64_t skew = (reinterpret_cast<uintptr_t>(codes + g0) >> 2) & 3;
-  const int64_t a0 = min(g0 + ((4 - skew) & 3), g1);
-  const int64_t a1 = a0 + ((g1 - a0) & ~static_cast<int64_t>(3));
-  if ((reinterpret_cast<uintptr_t>(valid + a0) & 3) == 0) {
-    if (tid < a0 - g0) gp_put(sym, ln, tid, codes[g0 + tid], valid[g0 + tid]);
-    if (tid < g1 - a1)
-      gp_put(sym, ln, static_cast<int>(a1 - g0) + tid, codes[a1 + tid],
-             valid[a1 + tid]);
-    const int4* c4 = reinterpret_cast<const int4*>(codes + a0);
-    const uint32_t* f4 = reinterpret_cast<const uint32_t*>(valid + a0);
-    const int i0 = static_cast<int>(a0 - g0);
-    const int nv = static_cast<int>((a1 - a0) >> 2);
-    for (int k = tid; k < nv; k += THREADS) {
-      const int4 v = __ldg(c4 + k);
-      const uint32_t f = __ldg(f4 + k);
-      const int i = i0 + 4 * k;
-      gp_put(sym, ln, i, v.x, f & 0xffu);
-      gp_put(sym, ln, i + 1, v.y, (f >> 8) & 0xffu);
-      gp_put(sym, ln, i + 2, v.z, (f >> 16) & 0xffu);
-      gp_put(sym, ln, i + 3, v.w, f >> 24);
-    }
-  } else {
-    for (int i = tid; i < n; i += THREADS)
-      gp_put(sym, ln, i, codes[g0 + i], valid[g0 + i]);
-  }
-  __syncthreads();
-
-  // each thread's run [r0, r1): its bits, and its share of each stream
-  // block, found by stepping a block boundary (no division a symbol);
-  // blocks of >= 16 symbols are summed in shared memory first, one global
-  // atomicAdd a (tile, block), smaller ones straight into the output
-  const int r0 = min(tid * GP_PER, n), r1 = min(r0 + GP_PER, n);
-  const int64_t fb = t0 / bs;
-  const int64_t nlb = (t0 + n - 1) / bs - fb + 1;
-  const bool smem_blocks = nlb <= GP_BLOCKS;
-  int32_t* nb = block_nbits + c * nblocks;
-  int32_t mybits = 0;
-  if (r0 < r1) {
-    int64_t p = t0 + r0;
-    int64_t blk = p / bs, nxt = (blk + 1) * bs;
-    int32_t bb = 0;
-    for (int i = r0; i < r1; ++i, ++p) {
-      if (p == nxt) {
-        if (bb) atomicAdd(smem_blocks ? bsum + (blk - fb) : nb + blk, bb);
-        ++blk;
-        nxt += bs;
-        bb = 0;
+  const int i0 = tid * GP_PER;
+  if (tid == 0) s_next = static_cast<int64_t>(atomicAdd(ticket, 1ull));
+  int64_t loaded = -1;                     // the row whose book is held
+  for (;;) {
+    __syncthreads();                       // the last tile is out
+    const int64_t k = s_next;
+    if (k >= total_tiles) break;
+    const int64_t c = k / tiles, tile = k % tiles;
+    unsigned long long next = 0;
+    if (tid == 0) next = atomicAdd(ticket, 1ull);
+    const int64_t t0 = tile * GP_TILE;     // row-relative
+    const int n = static_cast<int>(min(static_cast<int64_t>(GP_TILE),
+                                       cv - t0));
+    if (c != loaded) {
+      for (int s = tid; s < NUM_SYMBOLS; s += THREADS) {
+        ln[s] = lengths[c * NUM_SYMBOLS + s];
+        cw[s] = static_cast<uint32_t>(cwords[c * NUM_SYMBOLS + s]);
       }
-      const int32_t l = sym[gp_slot(i)] >> 16;
-      bb += l;
-      mybits += l;
+      loaded = c;
     }
-    if (bb) atomicAdd(smem_blocks ? bsum + (blk - fb) : nb + blk, bb);
-  }
-  int32_t total;
-  const int32_t before = block_exclusive_scan(mybits, &total);
-  unsigned long long* st = status + c * tiles;
-  if (tid == 0)
-    gp_publish(st + tile, (tile == 0 ? ST_PRE : ST_AGG)
-                              | static_cast<unsigned long long>(total));
+    for (int s = tid; s < GP_WORDS / 4; s += THREADS)
+      reinterpret_cast<uint4*>(buf)[s] = make_uint4(0, 0, 0, 0);
+    __syncthreads();                       // the book, the zeroed buffer
 
-  // warp 0 looks back over the row's earlier tiles, 32 at a time, for
-  // this tile's first bit (int64), and publishes its inclusive prefix
-  if (tid < 32) {
-    int64_t excl = 0;
-    if (tile > 0) {
-      for (int64_t j = tile - 1;; j -= 32) {
-        const int64_t idx = j - tid;
-        unsigned long long s = ST_PRE;           // before the row: prefix 0
-        if (idx >= 0) {
-          do {
-            s = *reinterpret_cast<volatile unsigned long long*>(st + idx);
-          } while ((s >> 62) == 0);
+    int32_t sym[GP_PER];
+    const int32_t mybits = gp_load_run(codes, valid, ln, c * cv + t0 + i0,
+                                       i0, n, sym);
+    int32_t total;
+    const int32_t before = block_exclusive_scan(mybits, &total);
+    pre[tid] = before;
+    if (tid == 0) pre[THREADS] = total;
+    unsigned long long* st = status + c * tiles;
+    if (tid == 0)
+      gp_publish(st + tile, (tile == 0 ? ST_PRE : ST_AGG)
+                                | static_cast<unsigned long long>(total));
+    gp_compose(sym, cw, before, mybits, buf);
+    if (tid == 0) s_next = static_cast<int64_t>(next);
+    __syncthreads();                       // the buffer, the runs' places
+    const int64_t s0 = gp_look_back(st, tile, part, has);
+    if (tid == 0 && tile > 0)
+      gp_publish(st + tile,
+                 ST_PRE | static_cast<unsigned long long>(s0 + total));
+
+    // the stream blocks' bits: with bs a multiple of GP_PER each run lies
+    // in one block, and a block's share of the tile is the difference of
+    // the first bits of its first run and of the next block's (one
+    // atomicAdd a (tile, block)); otherwise each run steps its block
+    // boundaries
+    int32_t* nb = block_nbits + c * nblocks;
+    if (i0 < n) {
+      const int64_t p0 = t0 + i0;
+      if (bs % GP_PER == 0) {
+        const int64_t blk = p0 / bs;
+        if (i0 == 0 || p0 % bs == 0) {
+          const int64_t end = min(static_cast<int64_t>(n),
+                                  (blk + 1) * bs - t0);
+          const int32_t v = pre[(end + GP_PER - 1) / GP_PER] - before;
+          if (v) atomicAdd(nb + blk, v);
         }
-        const unsigned pre = __ballot_sync(0xffffffffu, (s >> 62) == 2);
-        const int stop = pre ? __ffs(pre) - 1 : 31;
-        int64_t v = tid <= stop ? static_cast<int64_t>(s & ST_VAL) : 0;
-        for (int o = 16; o > 0; o >>= 1)
-          v += __shfl_xor_sync(0xffffffffu, v, o);
-        excl += v;
-        if (pre) break;
+      } else {
+        int64_t blk = p0 / bs, nxt = (blk + 1) * bs;
+        int32_t bb = 0;
+#pragma unroll
+        for (int i = 0; i < GP_PER; ++i) {
+          if (p0 + i == nxt) {
+            if (bb) atomicAdd(nb + blk, bb);
+            ++blk;
+            nxt += bs;
+            bb = 0;
+          }
+          bb += sym[i] >> 16;
+        }
+        if (bb) atomicAdd(nb + blk, bb);
       }
-      if (tid == 0)
-        gp_publish(st + tile,
-                   ST_PRE | static_cast<unsigned long long>(excl + total));
     }
-    if (tid == 0) s_prefix = excl;
-  }
-
-  gp_compose(sym, cw, r0, r1, before, mybits, buf);
-  __syncthreads();
-
-  if (smem_blocks)
-    for (int i = tid; i < nlb; i += THREADS)
-      if (bsum[i]) atomicAdd(nb + fb + i, bsum[i]);
-  if (total <= 0) return;
-  // out to the row at the tile's first bit, coalesced: a word wholly
-  // inside the tile's bits is stored, the two edge words (shared with the
-  // neighbouring tiles) are ORed; bits past w32 words are dropped
-  const int64_t s0 = s_prefix;
-  const int o = static_cast<int>(s0 & 31);
-  const int64_t w0 = s0 >> 5;
-  const int nbuf = (total + 31) >> 5;
-  const int nout = (o + total + 31) >> 5;
-  uint32_t* row = words + c * w32;
-  for (int j = tid; j < nout && w0 + j < w32; j += THREADS) {
-    const uint32_t hi = j < nbuf ? buf[j] : 0u;
-    uint32_t v = hi;
-    if (o != 0) v = (hi >> o) | (j > 0 ? buf[j - 1] << (32 - o) : 0u);
-    if (32 * j >= o && 32 * (j + 1) <= o + total)
-      row[w0 + j] = v;
-    else if (v != 0)
-      atomicOr(row + w0 + j, v);
+    if (total <= 0) continue;
+    // out to the row at the tile's first bit, coalesced: a word wholly
+    // inside the tile's bits is stored, the two edge words (shared with
+    // the neighbouring tiles) are ORed; bits past w32 words are dropped
+    const int o = static_cast<int>(s0 & 31);
+    const int64_t w0 = s0 >> 5;
+    const int nbuf = (total + 31) >> 5;
+    const int nout = (o + total + 31) >> 5;
+    uint32_t* row = words + c * w32;
+    for (int j = tid; j < nout && w0 + j < w32; j += THREADS) {
+      const uint32_t hi = j < nbuf ? buf[j] : 0u;
+      uint32_t v = hi;
+      if (o != 0) v = (hi >> o) | (j > 0 ? buf[j - 1] << (32 - o) : 0u);
+      if (32 * j >= o && 32 * (j + 1) <= o + total)
+        row[w0 + j] = v;
+      else if (v != 0)
+        atomicOr(row + w0 + j, v);
+    }
   }
 }
 
@@ -494,50 +512,39 @@ __global__ void stitch_kernel(const uint32_t* __restrict__ rows,
 
 }  // namespace
 
-// words must be zeroed by the caller; block_base is the exclusive cumsum
-// of block_nbits (computed between the two entries).
-extern "C" int ceaz_hufenc_block_sums(const void* codes, const void* valid,
-                                      const void* lengths, int64_t C,
-                                      int64_t cv, int64_t bs,
-                                      int64_t nblocks, void* block_nbits,
-                                      void* stream) {
-  if (C > 0 && nblocks > 0) {
-    dim3 grid(static_cast<unsigned>(nblocks), static_cast<unsigned>(C));
-    block_sums_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(codes), static_cast<const uint8_t*>(valid),
-        static_cast<const int32_t*>(lengths), cv, static_cast<int>(bs),
-        nblocks, static_cast<int32_t*>(block_nbits));
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int ceaz_hufenc_pack(const void* codes, const void* valid,
-                                const void* lengths, const void* cwords,
-                                int64_t C, int64_t cv, int64_t bs,
-                                int64_t nblocks, const void* block_base,
-                                int64_t w32, void* words, void* stream) {
-  if (C > 0 && nblocks > 0 && w32 > 0) {
-    dim3 grid(static_cast<unsigned>(nblocks), static_cast<unsigned>(C));
-    pack_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(codes), static_cast<const uint8_t*>(valid),
-        static_cast<const int32_t*>(lengths),
-        static_cast<const int32_t*>(cwords), cv, static_cast<int>(bs), nblocks,
-        static_cast<const int32_t*>(block_base), w32,
-        static_cast<uint32_t*>(words));
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Bytes of gather_pack's look-back scratch for C rows of cv symbols: one
+// Bytes of the pack's look-back scratch for C rows of cv symbols: one
 // 64-bit status word a tile (C*tiles, tiles = ceil(cv / GP_TILE)), then
-// one int32 ticket a row (C). The wrapper sizes its buffer with it.
+// the 64-bit ticket counter. The wrapper sizes its buffer with it.
 extern "C" int64_t ceaz_gather_pack_scratch_bytes(int64_t C, int64_t cv) {
-  return 8 * C * ((cv + GP_TILE - 1) / GP_TILE) + 4 * C;
+  return 8 * C * ((cv + GP_TILE - 1) / GP_TILE) + 8;
 }
 
-// words (C, w32), block_nbits (C, nblocks) and the 8-byte aligned
-// scratch (its layout above) lie in one buffer of `bytes` bytes from
-// `words` on, which this entry zeroes on the stream before the launch.
+// The CTAs of one launch: as many as fit on the card at once, or fewer
+// tiles.
+static int64_t gather_pack_ctas(int64_t total_tiles) {
+  static int64_t fit = 0;
+  if (fit == 0) {
+    int dev = 0, sms = 132, per = GP_CTAS_PER_SM;
+    if (cudaGetDevice(&dev) != cudaSuccess
+        || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
+               != cudaSuccess
+        || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &per, gather_pack_kernel, THREADS, 0) != cudaSuccess
+        || per < 1) {
+      sms = 132;
+      per = 1;
+    }
+    fit = static_cast<int64_t>(sms) * per;
+  }
+  return total_tiles < fit ? total_tiles : fit;
+}
+
+// The function of both TPU kernels, gather_pack_tiled and gather_pack, in
+// one launch. words (C, w32), block_nbits (C, nblocks) and the 8-byte
+// aligned scratch (its layout above) lie in one buffer of `bytes` bytes
+// from `words` on, which this entry zeroes on the stream before the
+// launch (the tiles' edge words and the blocks that span tiles are ORed
+// and added into it; the words past a row's payload stay zero).
 extern "C" int ceaz_gather_pack(const void* codes, const void* valid,
                                 const void* lengths, const void* cwords,
                                 int64_t C, int64_t cv, int64_t bs,
@@ -552,12 +559,13 @@ extern "C" int ceaz_gather_pack(const void* codes, const void* valid,
     cudaError_t err = cudaMemsetAsync(words, 0, bytes, st);
     if (err != cudaSuccess) return static_cast<int>(err);
     auto* status = static_cast<unsigned long long*>(scratch);
-    gather_pack_kernel<<<static_cast<unsigned>(C * tiles), THREADS, 0, st>>>(
+    gather_pack_kernel<<<static_cast<unsigned>(gather_pack_ctas(C * tiles)),
+                         THREADS, 0, st>>>(
         static_cast<const int32_t*>(codes), static_cast<const uint8_t*>(valid),
         static_cast<const int32_t*>(lengths),
-        static_cast<const int32_t*>(cwords), cv, bs, nblocks, tiles, w32,
-        static_cast<uint32_t*>(words), static_cast<int32_t*>(block_nbits),
-        status, reinterpret_cast<int32_t*>(status + C * tiles));
+        static_cast<const int32_t*>(cwords), cv, bs, nblocks, tiles,
+        C * tiles, w32, static_cast<uint32_t*>(words),
+        static_cast<int32_t*>(block_nbits), status, status + C * tiles);
   }
   return static_cast<int>(cudaGetLastError());
 }

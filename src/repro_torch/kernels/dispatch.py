@@ -24,8 +24,10 @@ Op calling conventions (tensors on one device):
       to n_out; q the flat prequantized field (n values)
   hufenc(codes2, valid2, lengths_tbl, cwords_tbl, block_size, w32)
       -> (words (C, w32) int32 holding u32 bits, block_nbits (C, nblocks))
-  gather_pack(...) the same call and output in one launch, one CTA a
-      4096-symbol tile of a row
+  gather_pack(...) the same call and output; on the card both are one
+      launch of one kernel (persistent CTAs taking 4096-symbol tiles by
+      ticket, bit offsets by look-back), counted under the TPU kernel each
+      op replaces (``gather_pack_tiled``, ``gather_pack``)
   hufenc_blocks(codes, lengths, cwords, block_size, max_len)
       -> (rows (nblocks, R) int32 holding u32 bits, nbits (nblocks,))
   hufenc_stitch(rows, nbits, total_bits) -> words (2*(nwords+1),) int32
@@ -39,7 +41,8 @@ Op calling conventions (tensors on one device):
       the decode megakernel op; see kernels/megakernel/ops.py
   hufdec(words2, nbits2, counts, sym_flat, len_flat, cb_idx, block_size)
       -> codes (C, NB*block_size) int32
-      the split decode route's table walk; see kernels/hufdec/ops.py
+      the split decode route's table walk: on the card the warp walk with
+      one window a row; see kernels/hufdec/ops.py
   ceaz_chunk(work2, prev2, valid2, ebs, bank_lengths, bank_cwords,
              block_size, w32, predictor) -> (q2, codes2, outl2, delta2,
              centers, hists, sel, totals, words, block_nbits)

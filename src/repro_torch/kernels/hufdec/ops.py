@@ -31,18 +31,19 @@ steps.
     words in int64, as CPU ``torch.uint32`` has no shifts);
     :func:`hufdec_plain` and :func:`hufdec_tiles_plain` are its two
     layouts;
-  * :func:`hufdec_cuda` — csrc/hufdec.cu ``ceaz_hufdec``, one thread
-    per lane;
-  * :func:`hufdec_tiles_cuda` — csrc/hufdec.cu ``ceaz_hufdec_tiles``, the
-    warp walk (csrc/warp_walk.cuh): a warp per block, self-synchronising
-    segments against the decode table held whole in shared memory as
-    16-bit entries (:func:`packed_table16`), each block kept only under
-    the exact acceptance rule stated there and otherwise walked by
-    ``walk_lane`` in the same kernel. :func:`walk_stats` reads how many
-    blocks took each path. The wrapper raises on a table entry outside
-    the 16-bit entry's ranges: it waits on the card for that unless the
-    caller checked the tables on the host (:func:`mark_ranges_checked`),
-    as the decode pass does.
+  * :func:`hufdec_tiles_cuda` and :func:`hufdec_cuda` — csrc/hufdec.cu
+    ``ceaz_hufdec_tiles``, the warp walk (csrc/warp_walk.cuh): a warp
+    per block, self-synchronising segments against the decode table held
+    whole in shared memory as 16-bit entries (:func:`packed_table16`),
+    each block kept only under the exact acceptance rule stated there and
+    otherwise walked by ``walk_lane`` in the same kernel. `hufdec_tiles`
+    launches it with the word-tiled windows (:func:`tile_geometry`),
+    `hufdec` with one window a row (:func:`row_geometry`). Both take any
+    row count. :func:`walk_stats` reads how many blocks took each path.
+    The wrappers raise on a table entry outside the 16-bit entry's
+    ranges: they wait on the card for that unless the caller checked the
+    tables on the host (:func:`mark_ranges_checked`), as both decode
+    routes do (``runtime/fused_decode.py``).
 """
 from __future__ import annotations
 
@@ -65,8 +66,6 @@ _I64 = ctypes.c_int64
 _WALK_ARGS = [_P, _I64, _I64, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
               _P, _P, _P, _P]
 _PACK_ARGS = [_P, _P, _I64, _P, _P, _P, _P]
-_HUFDEC_ARGS = [_P, _I64, _I64, _P, _P, _P, _P, _I64, _I64, _P, _P]
-_MAX_ROWS = 65535                 # gridDim.y of ceaz_hufdec
 
 
 def tile_geometry(block_size: int) -> Tuple[int, int]:
@@ -75,6 +74,15 @@ def tile_geometry(block_size: int) -> Tuple[int, int]:
     (start-bit skew, the second peek word, rounding)."""
     tb = max(1, TILE_VALUES // block_size)
     return tb, (tb * block_size * MAX_CODE_BITS) // 32 + 3
+
+
+def row_geometry(W: int) -> Tuple[int, int]:
+    """(blocks per tile, window words) that make the word-tiled walk the
+    split route's: one window of the whole row (W words), so every window
+    starts at word 0 and a lane's cursor is its row-relative first bit.
+    Tiles of one block: the tile's first block is the lane's own, so no
+    lane sums the bit counts of blocks before it in its tile."""
+    return 1, W
 
 
 def lane_layout(nbits2: torch.Tensor, tile_blocks: int, win: int, W: int):
@@ -152,7 +160,7 @@ def hufdec_plain(words2, nbits2, counts, sym_flat, len_flat, cb_idx,
     """The split route's walk: one window per row, the whole row."""
     _check_rows("hufdec", words2)
     return walk_plain(words2, nbits2, counts, sym_flat, len_flat, cb_idx,
-                      block_size, nbits2.shape[1], words2.shape[1])
+                      block_size, *row_geometry(words2.shape[1]))
 
 
 def hufdec_tiles_plain(words2, nbits2, counts, sym_flat, len_flat, cb_idx,
@@ -212,6 +220,8 @@ def packed_table16(sym_flat: torch.Tensor, len_flat: torch.Tensor):
 # block took
 _STATS: Dict[Tuple[str, int], torch.Tensor] = {}
 _STAT_KEYS = ("exact_blocks", "fast_blocks", "max_sync_rounds")
+# the kernels that keep them: the warp walk under each op that launches it
+WARP_WALKS = ("hufdec_tiles", "ceaz_chunk_dec_fused", "hufdec")
 
 
 def stats_tensor(name: str, device) -> torch.Tensor:
@@ -226,9 +236,8 @@ def stats_tensor(name: str, device) -> torch.Tensor:
 
 
 def walk_stats(name: str) -> Dict[str, int]:
-    """The counters of kernel `name` (``hufdec_tiles`` or
-    ``ceaz_chunk_dec_fused``) since the last :func:`reset_walk_stats`,
-    over every device (syncs)."""
+    """The counters of kernel `name` (one of :data:`WARP_WALKS`) since
+    the last :func:`reset_walk_stats`, over every device (syncs)."""
     out = dict.fromkeys(_STAT_KEYS, 0)
     for (n, _), t in _STATS.items():
         if n == name:
@@ -284,62 +293,54 @@ def pack_tables_cuda(name: str, sym_flat, len_flat
     return t32, t16, check
 
 
-def hufdec_tiles_cuda(words2, nbits2, counts, sym_flat, len_flat, cb_idx,
-                      block_size: int) -> torch.Tensor:
-    """csrc/hufdec.cu ``ceaz_hufdec_tiles``: the warp walk, one warp a
-    (chunk, block) lane; first cursors and tile windows found in the
-    kernel; any row count."""
-    dispatch.require_cuda("hufdec_tiles", words2, nbits2, counts, sym_flat,
-                          len_flat, cb_idx)
+def _warp_walk(name: str, words2, nbits2, counts, sym_flat, len_flat,
+               cb_idx, block_size: int, tb: int, win: int) -> torch.Tensor:
+    """csrc/hufdec.cu ``ceaz_hufdec_tiles`` in windows of `win` words
+    placed every `tb` blocks: the launch, counted under `name`, its
+    counters in ``walk_stats(name)``."""
+    dispatch.require_cuda(name, words2, nbits2, counts, sym_flat, len_flat,
+                          cb_idx)
     C, W = words2.shape
     NB = nbits2.shape[1]
     if words2.dtype != torch.int32:
-        raise ValueError("hufdec_tiles: words2 must be int32 u32 bits")
-    tb, win = tile_geometry(block_size)
+        raise ValueError(f"{name}: words2 must be int32 u32 bits")
     i32 = lambda t: t.to(torch.int32).contiguous()
     words2, nbits2, counts, cb_idx = map(i32, (words2, nbits2, counts,
                                                cb_idx))
-    t32, t16, check = pack_tables_cuda("hufdec_tiles", sym_flat, len_flat)
+    t32, t16, check = pack_tables_cuda(name, sym_flat, len_flat)
     out = torch.empty((C, NB * block_size), dtype=torch.int32,
                       device=words2.device)
     ticket = torch.empty(1, dtype=torch.int32, device=words2.device)
-    dispatch.count_launch("hufdec_tiles")
+    dispatch.count_launch(name)
     try:
         rc = _build.function("ceaz_hufdec_tiles", _WALK_ARGS)(
             words2.data_ptr(), C, W, nbits2.data_ptr(), counts.data_ptr(),
             t32.data_ptr(), t16.data_ptr(), cb_idx.data_ptr(), NB,
             block_size, tb, win, out.data_ptr(),
-            stats_tensor("hufdec_tiles", words2.device).data_ptr(),
+            stats_tensor(name, words2.device).data_ptr(),
             ticket.data_ptr(), dispatch.stream_handle())
-        _build.check(rc, "hufdec_tiles")
+        _build.check(rc, name)
     finally:
         check()
     return out
 
 
+def hufdec_tiles_cuda(words2, nbits2, counts, sym_flat, len_flat, cb_idx,
+                      block_size: int) -> torch.Tensor:
+    """The warp walk in the word-tiled windows (:func:`tile_geometry`),
+    one warp a (chunk, block) lane; first cursors and tile windows found
+    in the kernel; any row count."""
+    return _warp_walk("hufdec_tiles", words2, nbits2, counts, sym_flat,
+                      len_flat, cb_idx, block_size,
+                      *tile_geometry(block_size))
+
+
 def hufdec_cuda(words2, nbits2, counts, sym_flat, len_flat, cb_idx,
                 block_size: int) -> torch.Tensor:
-    """csrc/hufdec.cu ``ceaz_hufdec``: one thread per (chunk, block)
-    lane over the whole row; the lanes' first cursors are scanned in the
-    kernel."""
+    """The split route's walk on the card: the warp walk with one window
+    a row (:func:`row_geometry`); any row count."""
     dispatch.require_cuda("hufdec", words2, nbits2, counts, sym_flat,
                           len_flat, cb_idx)
     _check_rows("hufdec", words2)
-    C, W = words2.shape
-    NB = nbits2.shape[1]
-    if words2.dtype != torch.int32:
-        raise ValueError("hufdec: words2 must be int32 u32 bits")
-    if C > _MAX_ROWS:
-        raise ValueError(f"hufdec: at most {_MAX_ROWS} rows per launch")
-    i32 = lambda t: t.to(torch.int32).contiguous()
-    nbits2, counts, cb_idx = map(i32, (nbits2, counts, cb_idx))
-    table = packed_table(sym_flat, len_flat)
-    out = torch.empty((C, NB * block_size), dtype=torch.int32,
-                      device=words2.device)
-    dispatch.count_launch("hufdec")
-    rc = _build.function("ceaz_hufdec", _HUFDEC_ARGS)(
-        words2.data_ptr(), C, W, nbits2.data_ptr(), counts.data_ptr(),
-        table.data_ptr(), cb_idx.data_ptr(), NB, block_size, out.data_ptr(),
-        dispatch.stream_handle())
-    _build.check(rc, "hufdec")
-    return out
+    return _warp_walk("hufdec", words2, nbits2, counts, sym_flat, len_flat,
+                      cb_idx, block_size, *row_geometry(words2.shape[1]))

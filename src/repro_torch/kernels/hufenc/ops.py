@@ -13,9 +13,13 @@ bool, one codebook row per chunk: lengths_tbl / cwords_tbl (C, 1024)
 int32. The payload is the contiguous MSB-first bitstream of the
 reference's ``hufenc`` op (``src/repro/kernels/hufenc/ref.py::
 encode_pack``), cut at u32 grain and truncated at w32 words;
-block_nbits counts valid symbols' bits. `hufenc` is the word-tiled
-TPU kernel's port (three steps), `gather_pack` the one-program-per-chunk
-kernel's (one launch, one CTA a 4096-symbol tile of a row).
+block_nbits counts valid symbols' bits. `hufenc` is the port of the
+word-tiled TPU kernel (the fused route's pass 2), `gather_pack` of the
+one-program-per-chunk one (the staged route's packer); both compute the
+same function, so on the card both are one kernel, counted under the
+TPU kernel each replaces: one launch of persistent CTAs taking
+4096-symbol tiles of the rows by ticket, each tile's first bit found by
+a decoupled look-back.
 
 `hufenc_blocks` packs a flat stream of n symbols against one codebook,
 one row of ``R = ceil(block_size*max_len/32) + 1`` words per stream
@@ -33,7 +37,9 @@ words, the last one zero).
     the sum is the OR); u32 words ride in int64 because CPU
     ``torch.uint32`` has no shifts. :func:`stitch_plain` is a torch port
     of the reference's ``hufenc/ops.py::to_host_stream``.
-  * CUDA: the kernels of csrc/hufenc.cu.
+  * CUDA: the kernels of csrc/hufenc.cu (`hufenc` and `gather_pack`:
+    ``gather_pack_kernel``; `hufenc_blocks`: ``blocks_pack_kernel``;
+    `hufenc_stitch`: ``stitch_kernel``).
 
 :func:`encode_device` is the counterpart of ``huffman.encode`` on the
 card for one chunk: it packs with `gather_pack` or with `hufenc_blocks`
@@ -54,8 +60,6 @@ NUM_SYMBOLS = 1024
 _M32 = 0xFFFFFFFF
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
-_SUMS_ARGS = [_P, _P, _P, _I64, _I64, _I64, _I64, _P, _P]
-_PACK_ARGS = [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _I64, _P, _P]
 _GATHER_ARGS = [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P, _P, _P,
                 _I64, _P]
 _BLOCKS_ARGS = [_P, _I64, _P, _P, _I64, _I64, _I64, _P, _P, _P]
@@ -150,41 +154,15 @@ def _check_pack_args(name, codes2, valid2, lengths_tbl, cwords_tbl):
                          f"tables (C, {NUM_SYMBOLS}) expected")
 
 
-def encode_pack_cuda(codes2: torch.Tensor, valid2: torch.Tensor,
-                     lengths_tbl: torch.Tensor, cwords_tbl: torch.Tensor,
-                     block_size: int, w32: int):
-    """csrc/hufenc.cu: block sums, torch exclusive cumsum, pack."""
-    _check_pack_args("hufenc", codes2, valid2, lengths_tbl, cwords_tbl)
-    C, cv = codes2.shape
-    dev = codes2.device
-    nblocks = _nblocks(cv, block_size)
-    block_nbits = torch.empty((C, nblocks), dtype=torch.int32, device=dev)
-    words = torch.zeros((C, w32), dtype=torch.int32, device=dev)
-    stream = dispatch.stream_handle()
-    dispatch.count_launch("gather_pack_tiled")
-    rc = _build.function("ceaz_hufenc_block_sums", _SUMS_ARGS)(
-        codes2.data_ptr(), valid2.data_ptr(), lengths_tbl.data_ptr(), C, cv,
-        block_size, nblocks, block_nbits.data_ptr(), stream)
-    _build.check(rc, "gather_pack_tiled block sums")
-    # each block's first bit: exclusive int32 cumsum, as the reference
-    base = (torch.cumsum(block_nbits, 1, dtype=torch.int64)
-            - block_nbits).to(torch.int32)
-    rc = _build.function("ceaz_hufenc_pack", _PACK_ARGS)(
-        codes2.data_ptr(), valid2.data_ptr(), lengths_tbl.data_ptr(),
-        cwords_tbl.data_ptr(), C, cv, block_size, nblocks, base.data_ptr(),
-        w32, words.data_ptr(), stream)
-    _build.check(rc, "gather_pack_tiled pack")
-    return words, block_nbits
-
-
-def gather_pack_cuda(codes2: torch.Tensor, valid2: torch.Tensor,
-                     lengths_tbl: torch.Tensor, cwords_tbl: torch.Tensor,
-                     block_size: int, w32: int):
-    """csrc/hufenc.cu gather_pack_kernel: one CTA a 4096-symbol tile of
-    a row, the tiles' bit offsets by decoupled look-back; one launch.
-    words, block_nbits and the kernel's scratch share one allocation
-    (gather_pack_plan), zeroed by one memset in the C entry."""
-    _check_pack_args("gather_pack", codes2, valid2, lengths_tbl, cwords_tbl)
+def _pack_cuda(name: str, codes2: torch.Tensor, valid2: torch.Tensor,
+               lengths_tbl: torch.Tensor, cwords_tbl: torch.Tensor,
+               block_size: int, w32: int):
+    """csrc/hufenc.cu ``ceaz_gather_pack``, counted under `name`: one
+    launch of persistent CTAs taking 4096-symbol tiles by ticket, the
+    tiles' bit offsets by decoupled look-back. words, block_nbits and the
+    kernel's scratch share one allocation (gather_pack_plan), zeroed by
+    one memset in the C entry."""
+    _check_pack_args(name, codes2, valid2, lengths_tbl, cwords_tbl)
     C, cv = codes2.shape
     dev = codes2.device
     nblocks = _nblocks(cv, block_size)
@@ -197,14 +175,34 @@ def gather_pack_cuda(codes2: torch.Tensor, valid2: torch.Tensor,
     words = buf.as_strided((C, w32), (w32, 1))
     block_nbits = buf.as_strided((C, nblocks), (nblocks, 1), 2 * at_nbits)
     at = buf.data_ptr()
-    dispatch.count_launch("gather_pack")
+    dispatch.count_launch(name)
     rc = _build.function("ceaz_gather_pack", _GATHER_ARGS)(
         codes2.data_ptr(), valid2.data_ptr(), lengths_tbl.data_ptr(),
         cwords_tbl.data_ptr(), C, cv, block_size, nblocks, w32, at,
         at + 8 * at_nbits, at + 8 * at_scratch, 8 * size,
         dispatch.stream_handle())
-    _build.check(rc, "gather_pack")
+    _build.check(rc, name)
     return words, block_nbits
+
+
+def encode_pack_cuda(codes2: torch.Tensor, valid2: torch.Tensor,
+                     lengths_tbl: torch.Tensor, cwords_tbl: torch.Tensor,
+                     block_size: int, w32: int):
+    """The `hufenc` op on the card (the fused route's pass 2, and the bank
+    encode's pack): the one-launch pack, counted as the word-tiled TPU
+    kernel it replaces."""
+    return _pack_cuda("gather_pack_tiled", codes2, valid2, lengths_tbl,
+                      cwords_tbl, block_size, w32)
+
+
+def gather_pack_cuda(codes2: torch.Tensor, valid2: torch.Tensor,
+                     lengths_tbl: torch.Tensor, cwords_tbl: torch.Tensor,
+                     block_size: int, w32: int):
+    """The `gather_pack` op on the card (the staged route's packer of one
+    chunk): the same one-launch pack, counted as the one-program-per-chunk
+    TPU kernel it replaces."""
+    return _pack_cuda("gather_pack", codes2, valid2, lengths_tbl,
+                      cwords_tbl, block_size, w32)
 
 
 def row_words(block_size: int, max_len: int) -> int:

@@ -152,16 +152,30 @@ class _ChunkBatch:
                 np.concatenate(tables_sym).astype(np.int32),
                 np.concatenate(tables_len).astype(np.int32), cb_idx)
 
+    def _tables(self, sym_flat: np.ndarray, len_flat: np.ndarray):
+        """The stacked decode tables on the device, marked as checked: a
+        book's table holds its used symbols and their lengths
+        (Codebook.tables), checked here on the host, so the walks'
+        wrappers need not wait on the card for their own check."""
+        for book in {b.id: b for b in self.books}.values():
+            hufdec.check_table_ranges(np.flatnonzero(book.lengths),
+                                      book.lengths)
+        tables = (torch.from_numpy(sym_flat).to(self.device),
+                  torch.from_numpy(len_flat).to(self.device))
+        hufdec.mark_ranges_checked(*tables)
+        return tables
+
     def run(self) -> torch.Tensor:
         """-> codes (C_cap, NB_cap*block_size) int32 on the device: the
         `hufdec` walk over the whole group (the split route)."""
         words2, nbits2, counts, sym_flat, len_flat, cb_idx = self._stage()
         dev = self.device
         t = lambda a: torch.from_numpy(a).to(dev)
+        tables = self._tables(sym_flat, len_flat)
         fn = dispatch.resolve("hufdec", self.kernel_impl, dev)
         with dispatch.measure("hufdec", self.kernel_impl, dev):
             return fn(t(words2.view(np.int32)), t(nbits2), t(counts),
-                      t(sym_flat), t(len_flat), t(cb_idx), self.block_size)
+                      *tables, t(cb_idx), self.block_size)
 
     def run_mega(self) -> torch.Tensor:
         """-> q (C_cap, NB_cap*block_size) int32 on the device: the
@@ -180,17 +194,11 @@ class _ChunkBatch:
         if (seg0 < 0).any() or (seg0 > np.arange(c_cap)).any():
             raise ValueError("ceaz_chunk_dec: a row's segment head seg0[c] "
                              "must lie in [0, c]")
-        # a book's table holds its used symbols and their lengths
-        # (Codebook.tables): checked here, the op need not wait on the card
-        for book in {b.id: b for b in self.books}.values():
-            hufdec.check_table_ranges(np.flatnonzero(book.lengths),
-                                      book.lengths)
+        tables = self._tables(sym_flat, len_flat)
         base = np.zeros(c_cap, np.int32)           # value-direct centres
         base[:C] = np.asarray(self.base, np.int64).astype(np.int32)
         dev = self.device
         t = lambda a: torch.from_numpy(a).to(dev)
-        tables = t(sym_flat), t(len_flat)
-        hufdec.mark_ranges_checked(*tables)
         fn = dispatch.resolve("ceaz_chunk_dec", self.kernel_impl, dev)
         with dispatch.measure("ceaz_chunk_dec", self.kernel_impl, dev):
             return fn(t(words2.view(np.int32)), t(nbits2), t(counts),

@@ -261,7 +261,8 @@ def test_bank_round_trip_on_card_matches_cpu(dev, predictor, kw):
 
 
 # ---------------------------------------------------------------------------
-# The split route's walk (csrc/hufdec.cu ceaz_hufdec) and fixed-ratio mode
+# The split route's walk (the warp walk with one window a row) and
+# fixed-ratio mode
 # ---------------------------------------------------------------------------
 
 def _valid_walk_args(dev, counts, bs, seed):
@@ -296,9 +297,9 @@ def _valid_walk_args(dev, counts, bs, seed):
                                        ([200000, 131072, 5], 4096),
                                        ([70000] * 3, 1024)])
 def test_hufdec_kernel_matches_plain(dev, counts, bs):
-    """Valid streams (several lanes per warp, rows past one warp of
-    lanes, tail counts) and random garbage: the kernel's in-warp cursor
-    scan and clamped walk agree with the plain version bitwise."""
+    """Valid streams (rows of many blocks, tail counts) and random
+    garbage: the warp walk with one window a row agrees with the plain
+    version bitwise."""
     args = _valid_walk_args(dev, counts, bs, 7)
     got = HD.hufdec_cuda(*args, bs)
     _eq(got, HD.hufdec_plain(*args, bs))
@@ -617,6 +618,77 @@ def test_gather_pack_many_short_rows(dev):
     _gp_check(dev, codes, valid, ln, cw, 16, (1, 3))
 
 
+PACK_EDGES = ["clamped_codes", "invalid_rows", "ragged", "offset_views",
+              "truncated", "no_rows", "no_values", "phase_b", "long_row"]
+
+
+def _pack_edge(dev, case):
+    """Inputs of the pass-2 pack at one of its edges -> (args, block size,
+    capacities): codes outside [0, 1024); invalid positions and rows with
+    none valid; cv not a multiple of 4 nor of the tile (rows off the
+    16-byte grain); views whose codes and flags start off the grain;
+    capacities that truncate the payload; C = 0 and cv = 0; phase B's 64
+    rows of 2^17; one row of over 2^21 values."""
+    shapes = {"clamped_codes": (3, 10000, 512),
+              "invalid_rows": (4, 9000, 4096),
+              "ragged": (5, 4099, 1000), "offset_views": (3, 8192, 4096),
+              "truncated": (2, 70001, 4096), "no_rows": (0, 100, 4096),
+              "no_values": (3, 0, 4096), "phase_b": (64, 1 << 17, 4096),
+              "long_row": (1, (1 << 21) + 5, 4096)}
+    C, cv, bs = shapes[case]
+    rng = np.random.default_rng(len(case))
+    _, ln, cw = _books(rng, max(C, 1))
+    ln, cw = ln[:C], cw[:C]
+    codes = np.clip(rng.normal(512, 40, (C, cv)), 0, 1023).astype(np.int32)
+    valid = rng.random((C, cv)) < 0.97
+    if case == "clamped_codes":
+        codes = rng.integers(-3000, 4000, (C, cv)).astype(np.int32)
+        codes[:, :4] = [np.iinfo(np.int32).min, -1, 1024,
+                        np.iinfo(np.int32).max]
+    if case == "invalid_rows":
+        valid[1] = False
+        valid[3] = False
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    args = [t(codes), t(valid), t(ln), t(cw)]
+    if case == "offset_views":
+        c, v = args[:2]
+        args[0] = torch.cat([c.reshape(-1)[:1], c.reshape(-1)])[1:] \
+            .reshape(C, cv)
+        args[1] = torch.cat([v.reshape(-1)[:3], v.reshape(-1)])[3:] \
+            .reshape(C, cv)
+        assert args[0].data_ptr() % 16 == 4 and args[1].data_ptr() % 16 == 3
+    full = 2 * (16 * cv // 64 + 1)
+    w32s = (1, 5, 1000, full // 3) if case == "truncated" else (full,)
+    return args, bs, w32s
+
+
+@pytest.mark.parametrize("case", PACK_EDGES)
+def test_pack_kernel_edges(dev, case):
+    """The one-launch pack under both ops (`hufenc`, the fused route's pass
+    2, and `gather_pack`) at each edge of _pack_edge, bitwise against
+    encode_pack_plain, each call twice (look-back and atomics are
+    order-free)."""
+    args, bs, w32s = _pack_edge(dev, case)
+    for w32 in w32s:
+        want = HE.encode_pack_plain(*args, bs, w32)
+        for pack in (HE.encode_pack_cuda, HE.gather_pack_cuda):
+            got = pack(*args, bs, w32)
+            _eq(got, want)
+            _eq(got, pack(*args, bs, w32))
+
+
+def test_ceaz_chunk_op_at_phase_c_shape(dev):
+    """The bank encode op, whose pack is the pass-2 pack, at phase C's
+    shape: 64 rows of 2^17 values, 4096-value blocks, provisioned at 8
+    bits a value."""
+    C, cv = 64, 1 << 17
+    work2, prev2, valid2, ebs = _bank_rows(dev, C, cv, C * cv, 7)
+    ln, cw = _bank_tables(dev)
+    args = (work2, prev2, valid2, ebs, ln, cw, 4096,
+            2 * ((cv * 8 + 63) // 64 + 1), "lorenzo")
+    _eq(MK.ceaz_chunk_cuda(*args), MK.ceaz_chunk_plain(*args))
+
+
 @pytest.mark.parametrize("C,n,case", [
     (1, (1 << 22) + 5, "one_code"), (5, 4099, "odd_rows"),
     (4, 10000, "invalid_rows"), (3, 9001, "offset_views")])
@@ -679,18 +751,22 @@ def _dec_meta_rows(dev, rng, C, Ko):
 
 
 def _walks_twice(walk, bs, meta=None):
-    """hufdec_tiles (and, given the decode metadata, the decode
-    megakernel) on `walk`, each twice, bitwise against the plain version:
-    once with the tables checked on the card, once with copies marked as
-    checked on the host (no wait) -> their counters."""
+    """hufdec_tiles, hufdec (the split route's walk) and, given the decode
+    metadata, the decode megakernel on `walk`, each twice, bitwise against
+    the plain version: once with the tables checked on the card, once with
+    copies marked as checked on the host (no wait) -> their counters."""
     marked = list(walk)
     marked[3], marked[4] = walk[3].clone(), walk[4].clone()
     HD.mark_ranges_checked(marked[3], marked[4])
     HD.reset_walk_stats()
-    want = HD.hufdec_tiles_plain(*walk, bs)
-    for w in (walk, marked):
-        _eq(HD.hufdec_tiles_cuda(*w, bs), want)
-    stats = {"hufdec_tiles": HD.walk_stats("hufdec_tiles")}
+    stats = {}
+    for name, cuda, plain in (
+            ("hufdec_tiles", HD.hufdec_tiles_cuda, HD.hufdec_tiles_plain),
+            ("hufdec", HD.hufdec_cuda, HD.hufdec_plain)):
+        want = plain(*walk, bs)
+        for w in (walk, marked):
+            _eq(cuda(*w, bs), want)
+        stats[name] = HD.walk_stats(name)
     if meta is not None:
         want = _fused_plain(walk + meta, bs)
         for w in (walk, marked):
@@ -844,8 +920,8 @@ def test_warp_walks_on_the_fuzz_corpus(dev):
 @pytest.mark.parametrize("bad", [("sym", 1024), ("sym", -1), ("len", 17)])
 def test_warp_walks_raise_on_tables_out_of_range(dev, bad):
     """A decode table entry with a symbol outside [0, 1024) or a length
-    over 16 does not fit the 16-bit shared-memory entry: both wrappers
-    raise, also on tables marked as checked on the host and changed in
+    over 16 does not fit the 16-bit shared-memory entry: the three
+    wrappers raise, also on tables marked as checked on the host and changed in
     place since."""
     walk = _valid_walk_args(dev, [5000], 512, 11)
     which, v = bad
@@ -857,5 +933,7 @@ def test_warp_walks_raise_on_tables_out_of_range(dev, bad):
     meta = _dec_meta_rows(dev, np.random.default_rng(12), 1, 4)
     with pytest.raises(ValueError):
         HD.hufdec_tiles_cuda(*walk, 512)
+    with pytest.raises(ValueError):
+        HD.hufdec_cuda(*walk, 512)
     with pytest.raises(ValueError):
         MK.ceaz_chunk_dec_fused_cuda(*walk, *meta, 512)

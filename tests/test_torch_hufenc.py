@@ -267,13 +267,13 @@ def test_encode_device_packers_agree_on_a_one_symbol_book(n, monkeypatch):
                                         (1, 1 << 23, 2048),
                                         (70000, 3, 1), (3, 70001, 18)])
 def test_gather_pack_plan(C, cv, tiles):
-    """The one zeroed buffer of a `gather_pack` launch: words, then
-    block_nbits, each from an int64 boundary, then the kernel's scratch
-    (here the size csrc/hufenc.cu gives C rows of `tiles` 4096-symbol
-    tiles: a 64-bit status word a tile, an int32 ticket a row), nothing
+    """The one zeroed buffer of a pack launch: words, then block_nbits,
+    each from an int64 boundary, then the kernel's scratch (here the size
+    csrc/hufenc.cu gives C rows of `tiles` 4096-symbol tiles: a 64-bit
+    status word a tile, then one 64-bit ticket counter), nothing
     overlapping."""
     assert tiles == -(-cv // 4096)
-    scratch = 8 * C * tiles + 4 * C
+    scratch = 8 * C * tiles + 8
     for bs, w32 in ((16, 1), (4096, 2 * (16 * cv // 64 + 1))):
         nblocks = max(1, -(-cv // bs))
         size, at_nbits, at_scratch = TO.gather_pack_plan(C, nblocks, w32,

@@ -204,6 +204,42 @@ def test_split_route_mixed_group_is_one_walk(monkeypatch):
     assert [g.tobytes() for g in got] == want
 
 
+@pytest.mark.parametrize("fault", ["none", "symbol_1024"])
+def test_split_route_checks_and_marks_its_tables(fault, monkeypatch):
+    """The split route checks each book's table ranges on the host and
+    hands the `hufdec` op tables marked as checked, so the warp walk's
+    wrapper need not wait on the card for its own check; a book with a
+    symbol >= 1024 (outside the 16-bit table entry) raises before the
+    op."""
+    from repro_torch.core.huffman import Codebook, encode
+    book = Codebook.from_freqs(np.ones(1025 if fault == "symbol_1024"
+                                       else 1024, np.int64))
+    rng = np.random.default_rng(5)
+    batch = TFD._ChunkBatch(256, "cpu")
+    rows = [rng.integers(0, 1024, n) for n in (700, 300)]
+    for codes in rows:
+        w64, bnb, _ = encode(codes, book, 256)
+        batch.words.append(TFD._u64_to_u32(w64))
+        batch.nbits.append(np.asarray(bnb, np.int64))
+        batch.counts.append(len(codes))
+        batch.books.append(book)
+    seen = []
+
+    def op(*args):
+        seen.append(TH.ranges_checked(args[3]) and TH.ranges_checked(args[4]))
+        return TH.hufdec_plain(*args)
+    monkeypatch.setattr(TFD.dispatch, "resolve", lambda *a: op)
+    if fault != "none":
+        with pytest.raises(ValueError):
+            batch.run()
+        assert not seen
+        return
+    codes = batch.run().numpy()
+    assert seen == [True]
+    for i, r in enumerate(rows):
+        np.testing.assert_array_equal(codes[i, :len(r)], r)
+
+
 def test_scatter_drops_padding_and_wraps_negative_indices_once():
     """As the reference's mode='drop' scatter: an index in [-cv, 0)
     counts from the row's end, anything else outside the row is

@@ -168,12 +168,14 @@ def _model_walk(arrays, bs, tb, win):
     return out.reshape(C, NB * bs), verdict, differs, max_rounds
 
 
-def _check_walk(arrays, bs, tiled=True):
+def _check_walk(arrays, bs, tiled=True, geometry=None):
     """The model of one walk against walk_plain: accepted blocks equal the
-    walk, and every block where the fast path differs is rejected."""
+    walk, and every block where the fast path differs is rejected.
+    geometry: (blocks a tile, window words), else the word-tiled walk's
+    (tiled) or one tile a row."""
     W = arrays["words2"].shape[1]
     NB = arrays["nbits2"].shape[1]
-    tb, win = TH.tile_geometry(bs) if tiled else (NB, W)
+    tb, win = geometry or (TH.tile_geometry(bs) if tiled else (NB, W))
     got, verdict, differs, rounds = _model_walk(arrays, bs, tb, win)
     want = TH.walk_plain(*(_torch(arrays[k]) for k in KEYS), bs, tb,
                          win).numpy()
@@ -309,6 +311,57 @@ def test_model_on_garbage():
     verdict, _ = _check_walk(arrays, bs)
     n_exact += list(verdict.values()).count("exact")
     assert n_exact > 0
+
+
+def _flipped(arrays, cases):
+    """Copies of `arrays` with one corpus bitflip each."""
+    for case in cases:
+        a = dict(arrays, words2=arrays["words2"].copy())
+        r = case["record"] % a["words2"].shape[0]
+        payload = a["words2"][r].view(np.uint8)
+        payload[case["rel_off"] % payload.size] ^= 1 << (case["bit"] & 7)
+        yield a
+
+
+@pytest.mark.parametrize("case", ["valid", "bitflips", "garbage",
+                                  "equal_length"])
+def test_model_with_one_window_a_row(case):
+    """The split route's walk on the card is the warp walk with one window
+    a row in tiles of one block (hufdec/ops.py::row_geometry): the model in
+    that geometry against walk_plain there, which is hufdec_plain, on
+    valid streams, the corpus's bitflips, its garbage and a book that never
+    resynchronises; every valid block is kept from the fast path, and some
+    corrupted blocks are rejected."""
+    rng = np.random.default_rng(21)
+    if case == "valid":
+        runs = [(_stage(rng, [4096, 700, 37], 512)[0], 512)]
+    elif case == "bitflips":
+        corpus = json.load(open(CORPUS))
+        flips = [c for c in corpus["cases"] if c["kind"] == "bitflip"]
+        r = np.random.default_rng(corpus["random"]["seed"])
+        flips += [{"record": int(r.integers(3)),
+                   "rel_off": int(r.integers(1 << 16)),
+                   "bit": int(r.integers(8))} for _ in range(8)]
+        base = _stage(np.random.default_rng(3), [2048, 1500, 700], 256)[0]
+        runs = [(a, 256) for a in _flipped(base, flips)]
+    elif case == "garbage":
+        runs = [(dict(zip(KEYS, args[:6])), bs)
+                for bs, args in _garbage_cases()]
+    else:
+        runs = [(_book_arrays(rng, "equal_length", [2000, 1000, 3], 500),
+                 500)]
+    n_exact = 0
+    for arrays, bs in runs:
+        W = arrays["words2"].shape[1]
+        verdict, _ = _check_walk(arrays, bs, geometry=TH.row_geometry(W))
+        got = _model_walk(arrays, bs, *TH.row_geometry(W))[0]
+        want = TH.hufdec_plain(*(_torch(arrays[k]) for k in KEYS), bs)
+        np.testing.assert_array_equal(got, want.numpy())
+        n_exact += list(verdict.values()).count("exact")
+    if case in ("valid", "equal_length"):
+        assert n_exact == 0
+    else:
+        assert n_exact > 0
 
 
 def test_packed_table16_decodes_like_packed_table():
