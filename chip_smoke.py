@@ -15,22 +15,22 @@ through the public facade, at rel eb 1e-4 unless said otherwise:
            decode-megakernel kernels, the Lorenzo chain carried across
            all 64 rows;
   phase C  the HACC field with the default codebook bank, 64 chunks of
-           2^17 (the one-program regime of the bank encode): Lorenzo
-           quantize+histogram, bank select, gather-pack; decode
+           2^17 (the one-program regime of the bank encode): one Lorenzo
+           quantize+histogram+select launch, gather-pack; decode
            megakernel;
   C.value  the NWChem-like field below, value-direct with the bank at
            rel eb 1e-3 in the same 64 chunks of 2^17: the value
-           quantize and finalize (counted as the one-program kernel),
-           dq_center, select, pack; decode megakernel adding each
-           chunk's centre;
+           quantize and the finalize+select launch (counted as the
+           one-program kernel), dq_center, pack; decode megakernel
+           adding each chunk's centre;
   phase D  the HACC field with the bank at the default 32 MB chunk (one
            2^23-value chunk, the tiled regime): the same kernels counted
            as the tiled ones; word-tiled walk;
   phase E  NWChem-like 1-D field, 2^23 f32, value-direct prediction
            (predictor='none') at rel eb 1e-3 and the default chunk,
            twice: with the bank
-           (value quantize, dq_center median, value finalize+histogram,
-           select, pack) and with exact codebooks (the same three
+           (value quantize, dq_center median, value finalize+histogram
+           +select, pack) and with exact codebooks (the same three
            pass-1 kernels, then the exact route's pack); decode adds
            each chunk's centre;
   E.drift  the same field with the bank at rel eb 1e-4, where over half
@@ -50,7 +50,7 @@ through the public facade, at rel eb 1e-4 unless said otherwise:
   G.off    the same with speculation 'off' (the sequential loop: dq1d per
            chunk); its stream must equal phase G's;
   G.bank   phase G with the codebook bank: each window one bank-encode
-           launch (quantize, select, pack), no second pass;
+           op (the quantize+select launch, the pack), no second pass;
   phase S  the streams of phases A, B, E.exact and G decoded again with
            decode_megakernel='split' (S.A, S.B, S.E, S.G): the split
            route's walk kernel (hufdec), then the outlier scatter and the
@@ -99,7 +99,9 @@ work it does at that row length (``ceaz_chunk_fused`` up to 2^17
 values, the tiled kernel past it). Its
 stream (every CompressedChunk field, the literals) and decoded bytes
 must equal the port's own CPU run of the same input bit for bit, and
-the reconstruction must hold the error bound. Every kernel is then
+the reconstruction must hold the error bound. The bank encode op
+launches no separate select on the phases that run it alone
+(NO_SELECT_PHASES). Every kernel is then
 called on the inputs the main path gave it and held BITWISE against its
 plain PyTorch version on the card (integer outputs: tolerance 0), and
 timed (CUDA events around one call, median after warm-up: warm, and at
@@ -108,9 +110,12 @@ its device time, L2-cold: everything one call puts on the device —
 kernels, torch glue, the zeroing of its outputs (``cold_device_ms``:
 torch.profiler's record, a 256 MB buffer written before every call) —
 beside its bound, its wrapper's host time and an empty launch through
-the same binding (the floor). The pass-2 pack (``gather_pack_tiled``) is
-held and timed at every (C, cv, w32) where the counted runs launched it,
-from a census of its launches printed before the kernels line. The
+the same binding (the floor). The pass-2 pack (``gather_pack_tiled``),
+the bank encode op (row 9) and ``dq_center`` (row 13) are held and
+timed at every shape where the counted runs called them, from censuses
+of their calls printed before the kernels line (``dq_center`` by phase
+too, with each row's valid-key range, and beside two torch.kthvalue
+calls at E.bank). The
 three warp walks (``hufdec_tiles``, the split route's ``hufdec``, the
 decode megakernel) are held and timed at every phase where they launch
 and on garbage and bit-flipped streams; after each decode phase the
@@ -189,21 +194,19 @@ _BLOCKS = ("histogram", "hufenc", "hufenc_stitch")
 PHASE_KERNELS = {
     "A": ("dq2d", "histogram", "gather_pack_tiled", "hufdec_tiles"),
     "B": ("dq1d", "histogram", "gather_pack_tiled", "ceaz_chunk_dec_fused"),
-    "C": ("ceaz_chunk_fused", "bank_select", "gather_pack_tiled",
-          "ceaz_chunk_dec_fused"),
-    "C.value": ("ceaz_chunk_fused", "dq_center", "bank_select",
-                "gather_pack_tiled", "ceaz_chunk_dec_fused"),
-    "D": ("lorenzo_tiles", "bank_select", "gather_pack_tiled",
-          "hufdec_tiles"),
-    "E.bank": _VALUE + ("bank_select", "gather_pack_tiled", "hufdec_tiles"),
+    "C": ("ceaz_chunk_fused", "gather_pack_tiled", "ceaz_chunk_dec_fused"),
+    "C.value": ("ceaz_chunk_fused", "dq_center", "gather_pack_tiled",
+                "ceaz_chunk_dec_fused"),
+    "D": ("lorenzo_tiles", "gather_pack_tiled", "hufdec_tiles"),
+    "E.bank": _VALUE + ("gather_pack_tiled", "hufdec_tiles"),
     "E.exact": _VALUE + ("gather_pack_tiled", "hufdec_tiles"),
-    "E.drift": _VALUE + ("bank_select", "gather_pack_tiled", "hufdec_tiles"),
+    "E.drift": _VALUE + ("gather_pack_tiled", "hufdec_tiles"),
     "F": ("dq2d", "histogram", "bank_select", "gather_pack_tiled",
           "hufdec_tiles"),
     "G": ("ceaz_chunk_fused", "gather_pack_tiled", "ceaz_chunk_dec_fused"),
     "G.off": ("dq1d", "histogram", "gather_pack_tiled",
               "ceaz_chunk_dec_fused"),
-    "G.bank": ("ceaz_chunk_fused", "bank_select", "gather_pack_tiled",
+    "G.bank": ("ceaz_chunk_fused", "gather_pack_tiled",
                "ceaz_chunk_dec_fused"),
     "T.A": ("dq2d",) + _BLOCKS,
     "T.E": _VALUE + _BLOCKS,
@@ -226,6 +229,9 @@ SPLIT_FORBIDDEN = ("ceaz_chunk_dec_fused", "hufdec_tiles")
 FIXED_RATIO_ENVELOPE = 0.15      # the reference's tests/test_full_grid.py
 # phases whose bank pass must fall back to the exact route
 DRIFT_PHASES = ("E.drift",)
+# the bank encode op folds its select into its quantize launch: no phase
+# that runs the op alone may launch the standalone select
+NO_SELECT_PHASES = ("C", "C.value", "D", "E.bank", "E.drift", "G.bank")
 CAPTURED_OPS = ("dualquant", "hufenc", "ceaz_chunk_dec", "ceaz_chunk",
                 "value_quant", "dq_center", "value_finalize", "bank_select",
                 "lorenzo_quant", "hufdec", "histogram", "gather_pack",
@@ -445,6 +451,15 @@ def run_phase(name, x, kw, offline, dispatch, CEAZ, CEAZConfig, captured,
     for k in PHASE_KERNELS[name]:
         check(counts.get(k, 0) > 0,
               f"phase {name}: kernel {k} was not launched ({counts})")
+    if name in NO_SELECT_PHASES:
+        from repro_torch.kernels.megakernel import ops as MK
+        if hasattr(MK, "lorenzo_bank_cuda"):
+            check("bank_select" not in counts,
+                  f"phase {name}: the bank encode launched its select "
+                  f"apart ({counts})")
+        else:
+            print(f"phase {name}: the select folded into the quantize "
+                  "launch: not in this tree")
     fell_back = om.counter(om.BANK_FALLBACKS).value() - fallbacks
     if name in DRIFT_PHASES:
         check(fell_back == 1
@@ -581,7 +596,6 @@ def add_row(rows, name, cuda_fn, plain_fn, in_bytes, out_bytes, ops,
 
 def kernel_rows(inputs):
     """Each kernel on its main-path inputs: bitwise vs plain, timed."""
-    import torch
     from repro_torch.kernels.dualquant import ops as DQ
     from repro_torch.kernels.megakernel import ops as MK
     rows = {}
@@ -598,32 +612,9 @@ def kernel_rows(inputs):
             in_bytes=4 * n, out_bytes=9 * n_out + 4 * n,
             ops=(4 if ndim == 2 else 2) * 12 * n)
 
-    # -- the bank encode (phases C, D, E) ---------------------------------
-    # prequantize is ~12 f32 operations a value; the Lorenzo kernel runs
-    # it twice (the value and its raw predecessor)
-    args_c = inputs["C"]["ceaz_chunk"][0]
-    work2, prev2, valid2, ebs, ln, cw, bs, w32, pred = args_c
-    C, cv = work2.shape
-    K = ln.shape[0]
-    per_row_out = 4 * (NUM_SYMBOLS + 4 + w32 + -(-cv // bs))
-    row("ceaz_chunk_fused", lambda: MK.ceaz_chunk_cuda(*args_c),
-        lambda: MK.ceaz_chunk_plain(*args_c),
-        in_bytes=nbytes(work2, prev2, valid2, ebs, ln, cw),
-        out_bytes=13 * C * cv + C * per_row_out,
-        ops=24 * C * cv + 2 * K * NUM_SYMBOLS * C,
-        extra=dict(phase="C"))
-    hists_c = MK.lorenzo_quant_cuda(work2, prev2, valid2, ebs)[4]
-    # the op's value branch in the same regime (phase C.value)
-    args_cv = inputs["C.value"]["ceaz_chunk"][0]
-    check(same_outputs(MK.ceaz_chunk_cuda(*args_cv),
-                       MK.ceaz_chunk_plain(*args_cv)),
-          "kernel ceaz_chunk_fused (value branch) disagrees with its plain "
-          "version")
-    rows["ceaz_chunk_fused"]["value_ms"] = cuda_ms(
-        lambda: MK.ceaz_chunk_cuda(*args_cv))
-    print(f"kernel ceaz_chunk_fused value branch (C.value): bitwise == "
-          f"plain: True  ms={rows['ceaz_chunk_fused']['value_ms']}")
-
+    # -- the bank encode's kernels alone (phases D, E, F) ------------------
+    # prequantize is ~12 f32 operations a value (rows 9 and 13: op_rows,
+    # center_rows)
     work2, prev2, valid2, ebs = inputs["D"]["ceaz_chunk"][0][:4]
     C, cv = work2.shape
     row("lorenzo_tiles",
@@ -633,6 +624,11 @@ def kernel_rows(inputs):
         out_bytes=13 * C * cv + 4 * NUM_SYMBOLS * C, ops=24 * C * cv,
         extra=dict(phase="D"))
 
+    # the standalone select (phase F's bank pass) on phase C's histograms
+    args_c = inputs["C"]["ceaz_chunk"][0]
+    ln, cw = args_c[4:6]
+    hists_c = MK.lorenzo_quant_cuda(*args_c[:4])[4]
+    K = ln.shape[0]
     row("bank_select", lambda: MK.bank_select_cuda(hists_c, ln, cw),
         lambda: MK.bank_select_plain(hists_c, ln, cw),
         in_bytes=nbytes(hists_c, ln, cw),
@@ -646,11 +642,6 @@ def kernel_rows(inputs):
         in_bytes=nbytes(work2, ebs), out_bytes=4 * C * cv, ops=12 * C * cv,
         extra=dict(phase="E.bank"))
     q2 = MK.value_quant_cuda(work2, ebs)
-    row("dq_center", lambda: DQ.dq_center_cuda(q2, valid2),
-        lambda: DQ.chunk_center_plain(q2, valid2),
-        in_bytes=nbytes(q2, valid2), out_bytes=4 * C, ops=4 * 8 * C * cv,
-        extra=dict(phase="E.bank",
-                   sort_ms=cuda_ms(lambda: torch.sort(q2, dim=1))))
     centers = DQ.dq_center_cuda(q2, valid2)
     row("value_finalize_tiles",
         lambda: MK.value_finalize_cuda(q2, valid2, centers),
@@ -661,22 +652,23 @@ def kernel_rows(inputs):
     return rows
 
 
-class PackCensus:
-    """Row 3's launches by shape (C, cv, w32) over the phases' counted
-    runs: every call of the `hufenc` op's kernel (the fused route's pass
-    2, the bank encode's pack, the bank passes and repacks) made between
-    start(phase) and stop(), with the first call's arguments at each
-    shape kept for its timed case."""
+class Census:
+    """One wrapped kernel wrapper's calls by key over the phases' counted
+    runs: every call made between start(phase) and stop(), with the first
+    call's arguments at each key kept for its timed case. With
+    `count_name`, stop() checks that the census holds every launch the
+    run counted under that name."""
 
-    def __init__(self):
+    def __init__(self, key, count_name=None):
+        self.key, self.count_name = key, count_name
         self.live, self.phase, self.by_phase, self.args = None, None, {}, {}
 
     def wrap(self, fn):
         def counted(*a):
             if self.live is not None:
-                key = (a[0].shape[0], a[0].shape[1], a[5])
-                self.live[key] = self.live.get(key, 0) + 1
-                self.args.setdefault(key, (self.phase, a))
+                k = self.key(self.phase, a)
+                self.live[k] = self.live.get(k, 0) + 1
+                self.args.setdefault(k, (self.phase, a))
             return fn(*a)
         return counted
 
@@ -684,12 +676,11 @@ class PackCensus:
         self.live, self.phase = {}, phase
 
     def stop(self, launches):
-        """End the phase's counted run; its census must hold every launch
-        the run counted."""
         n = sum(self.live.values())
-        check(n == launches.get("gather_pack_tiled", 0),
-              f"phase {self.phase}: the pack census holds {n} launches, "
-              f"the run counted {launches.get('gather_pack_tiled', 0)}")
+        if self.count_name is not None:
+            want = launches.get(self.count_name, 0)
+            check(n == want, f"phase {self.phase}: the {self.count_name} "
+                  f"census holds {n} launches, the run counted {want}")
         if n:
             self.by_phase[self.phase] = self.live
         self.live = None
@@ -702,31 +693,76 @@ class PackCensus:
         return out
 
 
+class Censuses:
+    """The censuses the counted runs keep: row 3's pack by (C, cv, w32);
+    the bank encode op (row 9) by (predictor, C, cv, w32, block size);
+    dq_center (row 13) by (phase, C, V), since its passes depend on the
+    data."""
+
+    def __init__(self):
+        self.pack = Census(lambda p, a: (a[0].shape[0], a[0].shape[1], a[5]),
+                           "gather_pack_tiled")
+        self.op = Census(lambda p, a: (a[8], a[0].shape[0], a[0].shape[1],
+                                       a[7], a[6]))
+        self.center = Census(lambda p, a: (p, a[0].shape[0], a[0].shape[1]),
+                             "dq_center")
+        self.all = (self.pack, self.op, self.center)
+
+    def start(self, phase):
+        for c in self.all:
+            c.start(phase)
+
+    def stop(self, launches):
+        for c in self.all:
+            c.stop(launches)
+
+
+def census_rows(census, rows, name, what, case, main_phase=None, keep=()):
+    """`name`'s row at every key of its census: case(key, phase, args)
+    adds the row for one key (held bitwise, timed L2-cold) and returns
+    it. The key first launched in `main_phase` (else the first phase) is
+    the row, the others its cases; beside them the launch-weighted device
+    time and gap to the bound over all the census's launches."""
+    totals = census.totals()
+    print(f"{what} census, key -> launches over the counted runs: {totals}; "
+          f"by phase: {census.by_phase}")
+    order = list(census.by_phase)
+    keys = sorted(totals, key=lambda k: (census.args[k][0] != main_phase,
+                                         order.index(census.args[k][0])))
+    cases, weighted, gap = [], 0.0, 0.0
+    for key in keys:
+        phase, args = census.args[key]
+        r = case(key, phase, args)
+        r.update(phase=phase, key=[str(k) for k in key],
+                 key_launches=totals[key])
+        cases.append(dict(r))
+        if r["device_ms"] is not None:
+            weighted += totals[key] * r["device_ms"]
+            gap += totals[key] * (r["device_ms"] - r["bound_ms"])
+    keep = CASE_KEYS + ("key", "key_launches") + keep
+    rows[name] = dict(
+        cases[0], cases=[{k: c.get(k) for k in keep} for c in cases[1:]],
+        launch_weighted_device_ms=weighted, launch_weighted_gap_ms=gap)
+    print(f"{what} over its census: {sum(totals.values())} launches at "
+          f"{len(keys)} keys, launch-weighted device ms {weighted}, "
+          f"launches x (device ms - bound) {gap}")
+
+
 def pack_rows(census, rows):
     """Row 3 at every shape where the counted runs launched it (the
     census), each held bitwise against encode_pack_plain and timed
     L2-cold: phase A's shape is the row, the others its cases (the plain
-    version, and row 6's op on the same inputs, timed at A and B only);
-    beside them the launch-weighted device time and gap to the bound over
-    all the census's launches."""
+    version, and row 6's op on the same inputs, timed at A and B only)."""
     from repro_torch.kernels.hufenc import ops as HE
-    totals = census.totals()
-    print("row 3 (gather_pack_tiled) census, (C, cv, w32) -> launches over "
-          f"the counted runs: {totals}; by phase: {census.by_phase}")
-    order = list(census.by_phase)
-    keys = sorted(totals, key=lambda k: order.index(census.args[k][0]))
-    cases, weighted, gap = [], 0.0, 0.0
-    for key in keys:
-        phase, args = census.args[key]
+
+    def case(key, phase, args):
         codes2, valid2, ln, cw, bs, w32 = args
         C, cv = codes2.shape
         add_row(rows, "gather_pack_tiled", lambda: HE.encode_pack_cuda(*args),
                 lambda: HE.encode_pack_plain(*args),
                 in_bytes=nbytes(codes2, valid2, ln, cw),
                 out_bytes=4 * C * (w32 + -(-cv // bs)),
-                ops=int(valid2.sum()) * 8,
-                extra=dict(phase=phase, shape=list(key),
-                           shape_launches=totals[key]),
+                ops=int(valid2.sum()) * 8, extra=dict(shape=list(key)),
                 time_plain=phase in ("A", "B"))
         r = rows["gather_pack_tiled"]
         if phase in ("A", "B"):
@@ -742,17 +778,83 @@ def pack_rows(census, rows):
             print(f"kernel gather_pack at {phase}'s pass-2 shapes: bitwise "
                   f"== plain: True device_ms(L2-cold)="
                   f"{r['gather_pack_device_ms']}")
-        cases.append(dict(r))
-        if r["device_ms"] is not None:
-            weighted += totals[key] * r["device_ms"]
-            gap += totals[key] * (r["device_ms"] - r["bound_ms"])
-    keep = CASE_KEYS + ("shape", "shape_launches", "gather_pack_device_ms")
-    rows["gather_pack_tiled"] = dict(
-        cases[0], cases=[{k: c.get(k) for k in keep} for c in cases[1:]],
-        launch_weighted_device_ms=weighted, launch_weighted_gap_ms=gap)
-    print(f"row 3 over its census: {sum(totals.values())} launches at "
-          f"{len(keys)} shapes, launch-weighted device ms {weighted}, "
-          f"launches x (device ms - bound) {gap}")
+        return r
+
+    census_rows(census, rows, "gather_pack_tiled",
+                "row 3 (gather_pack_tiled), (C, cv, w32)", case,
+                main_phase="A", keep=("shape", "gather_pack_device_ms"))
+
+
+def op_rows(census, rows):
+    """Row 9, the bank encode op (quantize, select and pack; on value
+    rows value_quant and dq_center first), at every (predictor, C, cv,
+    w32, block size) where the counted runs called it: phase C's call is
+    the row. Bound: the op's inputs and outputs once; prequantize is ~12
+    f32 operations a value, run once (twice at a warp's edge), and the
+    select 2 K 1024 integer operations a row."""
+    from repro_torch.kernels.megakernel import ops as MK
+
+    def case(key, phase, args):
+        work2, prev2, valid2, ebs, ln, cw, bs, w32, pred = args
+        C, cv = work2.shape
+        K = ln.shape[0]
+        per_row_out = 4 * (NUM_SYMBOLS + 4 + w32 + -(-cv // bs))
+        add_row(rows, "ceaz_chunk_fused", lambda: MK.ceaz_chunk_cuda(*args),
+                lambda: MK.ceaz_chunk_plain(*args),
+                in_bytes=nbytes(work2, prev2, valid2, ebs, ln, cw),
+                out_bytes=13 * C * cv + C * per_row_out,
+                ops=24 * C * cv + 2 * K * NUM_SYMBOLS * C,
+                time_plain=phase == "C")
+        return rows["ceaz_chunk_fused"]
+
+    census_rows(census, rows, "ceaz_chunk_fused",
+                "row 9 (the ceaz_chunk op), (predictor, C, cv, w32, bs)",
+                case, main_phase="C")
+
+
+def center_rows(census, rows):
+    """Row 13, dq_center, at every (phase, C, V) where the counted runs
+    launched it (its passes depend on the data, so each phase is a case):
+    phase E.bank's call is the row, beside two torch.kthvalue calls (the
+    low and high middle ranks) on the same row and the sort the plain
+    version makes. Prints each call's valid-key range per row, the
+    quantity that sets the number of digit passes."""
+    import torch
+    from repro_torch.kernels.dualquant import ops as DQ
+
+    def case(key, phase, args):
+        q2, valid2 = args
+        C, V = q2.shape
+        big = torch.iinfo(torch.int32).max
+        qmax = torch.where(valid2, q2, -big - 1).amax(dim=1).to(torch.int64)
+        qmin = torch.where(valid2, q2, big).amin(dim=1).to(torch.int64)
+        span = torch.where(valid2.any(dim=1), qmax - qmin, -1).tolist()
+        print(f"dq_center at {phase} {tuple(q2.shape)}: valid-key range "
+              f"(max - min) per row: {span}")
+        extra = dict(key_range=[min(span), max(span)])
+        library = None
+        if phase == "E.bank":
+            m = int(valid2.sum())
+            qm = torch.where(valid2, q2, big)
+            lo, hi = max(m - 1, 0) // 2 + 1, min(m // 2, V - 1) + 1
+
+            def kth():
+                return (torch.kthvalue(qm, lo, dim=1),
+                        torch.kthvalue(qm, hi, dim=1))
+            library = cuda_ms(kth)
+            extra.update(sort_ms=cuda_ms(lambda: torch.sort(q2, dim=1)),
+                         library_call="two torch.kthvalue (lo and hi ranks)",
+                         library_device_ms=cold_device_ms(kth))
+        add_row(rows, "dq_center", lambda: DQ.dq_center_cuda(q2, valid2),
+                lambda: DQ.chunk_center_plain(q2, valid2),
+                in_bytes=nbytes(q2, valid2), out_bytes=4 * C,
+                ops=8 * C * V, extra=extra, library_ms=library,
+                time_plain=phase == "E.bank")
+        return rows["dq_center"]
+
+    census_rows(census, rows, "dq_center", "row 13 (dq_center), (phase, C, V)",
+                case, main_phase="E.bank",
+                keep=("key_range", "library_ms", "library_device_ms"))
 
 
 # the warp walks: kernel -> (its phases, the main one first; the op whose
@@ -1706,9 +1808,13 @@ def main():
         if "registers" in line or line.startswith("=="):
             print("  ptxas:", line.strip())
 
+    from repro_torch.kernels.dualquant import ops as DQ
     from repro_torch.kernels.hufenc import ops as HE
-    census = PackCensus()
-    HE.encode_pack_cuda = census.wrap(HE.encode_pack_cuda)
+    from repro_torch.kernels.megakernel import ops as MK
+    census = Censuses()
+    HE.encode_pack_cuda = census.pack.wrap(HE.encode_pack_cuda)
+    MK.ceaz_chunk_cuda = census.op.wrap(MK.ceaz_chunk_cuda)
+    DQ.dq_center_cuda = census.center.wrap(DQ.dq_center_cuda)
     captured = {}
     for op in CAPTURED_OPS:
         fn = dispatch.resolve(op, "cuda", "cuda")
@@ -1797,7 +1903,9 @@ def main():
               f"pack/unpack inputs of phase {p} not captured")
 
     rows = kernel_rows(inputs)
-    pack_rows(census, rows)
+    pack_rows(census.pack, rows)
+    op_rows(census.op, rows)
+    center_rows(census.center, rows)
     walk_rows(inputs, rows)
     walk_garbage_checks(inputs)
     staged_kernel_rows(inputs, rows)
@@ -1808,9 +1916,10 @@ def main():
     wire_checks()
     for name, r in rows.items():
         r["launches"] = sum(c.get(name, 0) for c in counts.values())
-    check(rows["gather_pack_tiled"]["launches"]
-          == sum(census.totals().values()),
-          "row 3 launched outside the phases its census covers")
+    for name, cen in (("gather_pack_tiled", census.pack),
+                      ("dq_center", census.center)):
+        check(rows[name]["launches"] == sum(cen.totals().values()),
+              f"{name} launched outside the phases its census covers")
     rows["hufenc"]["stitch_launches"] = sum(c.get("hufenc_stitch", 0)
                                             for c in counts.values())
     for name, t in thr.items():

@@ -22,12 +22,13 @@ of the two middle order statistics in int32 with wrap, 0 for a row with
 no valid entry (the reference's ``dualquant/ops.py::chunk_center``).
 
   * :func:`chunk_center_plain` — the sort-based plain version;
-  * :func:`dq_center_cuda`     — the radix-select kernel of
-    csrc/center.cu, for rows of any length.
+  * :func:`dq_center_cuda`     — the range pass and wide-digit select
+    of csrc/center.cu, for rows of any length and any row count.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -39,7 +40,7 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _DQ1D_ARGS = [_P, _I64, _I64, ctypes.c_float, _P, _P, _P, _P, _P]
 _DQ2D_ARGS = [_P, _I64, _I64, _I64, ctypes.c_float, _P, _P, _P, _P, _P]
-_CENTER_ARGS = [_P, _P, _I64, _I64, _P, _P, _P, _P, _P]
+_CENTER_ARGS = [_P, _P, _I64, _I64, _P, _P, _P]
 _INT32_MAX = 2**31 - 1
 
 
@@ -118,9 +119,19 @@ def chunk_center_plain(q2: torch.Tensor, valid2: torch.Tensor
     return torch.where(m > 0, center, torch.zeros_like(center))
 
 
+@functools.lru_cache(maxsize=256)
+def center_scratch_bytes(C: int, V: int) -> int:
+    """Bytes of a dq_center launch's scratch over C rows of V values, from
+    the built kernel library (csrc/center.cu owns its layout)."""
+    fn = _build.function("ceaz_dq_center_scratch_bytes", [_I64, _I64])
+    fn.restype = _I64
+    return fn(C, V)
+
+
 def dq_center_cuda(q2: torch.Tensor, valid2: torch.Tensor) -> torch.Tensor:
-    """csrc/center.cu: four 8-bit radix passes select both middle ranks
-    of every row at once."""
+    """csrc/center.cu: a range pass, then up to three 12-bit digit passes
+    select both middle ranks of every row at once (rows of one tile in
+    one launch)."""
     dispatch.require_cuda("dq_center", q2, valid2)
     if q2.dtype != torch.int32 or valid2.dtype != torch.bool \
             or q2.ndim != 2 or valid2.shape != q2.shape:
@@ -128,16 +139,15 @@ def dq_center_cuda(q2: torch.Tensor, valid2: torch.Tensor) -> torch.Tensor:
                          "expected")
     C, V = q2.shape
     dev = q2.device
-    centers = torch.zeros(C, dtype=torch.int32, device=dev)
     if C == 0 or V == 0:
-        return centers
-    counts = torch.empty((C, 2, 256), dtype=torch.int32, device=dev)
-    state = torch.empty((C, 4), dtype=torch.int32, device=dev)
-    m = torch.empty(C, dtype=torch.int32, device=dev)
+        return torch.zeros(C, dtype=torch.int32, device=dev)
+    q2, valid2 = q2.contiguous(), valid2.contiguous()
+    centers = torch.empty(C, dtype=torch.int32, device=dev)
+    scratch = torch.empty(center_scratch_bytes(C, V), dtype=torch.uint8,
+                          device=dev)
     dispatch.count_launch("dq_center")
     rc = _build.function("ceaz_dq_center", _CENTER_ARGS)(
-        q2.data_ptr(), valid2.data_ptr(), C, V, counts.data_ptr(),
-        state.data_ptr(), m.data_ptr(), centers.data_ptr(),
-        dispatch.stream_handle())
+        q2.data_ptr(), valid2.data_ptr(), C, V, scratch.data_ptr(),
+        centers.data_ptr(), dispatch.stream_handle())
     _build.check(rc, "dq_center")
     return centers

@@ -19,16 +19,19 @@ int32 holding u32 bits and block_nbits (C, nblocks) the packed payload.
 The reference's `cands` argument sizes its candidate window; the port's
 pack places every symbol itself and has none.
 
-The op is composed from four steps, each with a plain version
+The op is composed from three steps, each with a plain version
 (``*_plain``, any device) and a CUDA wrapper (``*_cuda``, csrc/bank.cu,
-csrc/center.cu and PR 11's hufenc.cu):
+csrc/center.cu and hufenc.cu):
 
-  * quantize + histogram — :func:`lorenzo_quant_cuda` (Lorenzo from the
-    one-value raw halo), or :func:`value_quant_cuda` ->
-    ``dq_center`` (kernels/dualquant) -> :func:`value_finalize_cuda`
-    (value-direct);
-  * :func:`bank_select_cuda` — argmin and the gathered book rows;
+  * quantize + histogram + bank select — :func:`lorenzo_bank_cuda`
+    (Lorenzo from the one-value raw halo) or, on value rows,
+    :func:`value_quant_cuda` -> ``dq_center`` (kernels/dualquant) ->
+    :func:`value_bank_cuda`; one launch each, the select (argmin and
+    the gathered book rows) folded into the quantize launch;
   * the `hufenc` gather-pack on the selected rows.
+
+The `lorenzo_quant`, `value_finalize` and `bank_select` ops are the same
+kernels with the select left out, or alone.
 
 The reference switches at ``FUSE_ROW_LIMIT`` values per row from one
 fused program per chunk (``kernel.py::ceaz_chunk_fused``) to word-tiled
@@ -83,14 +86,18 @@ RADIUS = 512
 NUM_SYMBOLS = 1024
 FUSE_ROW_LIMIT = 1 << 17          # the reference's _FUSE_ROW_LIMIT
 DEC_FUSE_LIMIT = 1 << 17
-_MAX_ROWS = 65535                 # gridDim.y of the row-major kernels
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _DEC_ARGS = [_P, _I64, _I64, _P, _P, _P, _P, _P, _P, _I64, _P, _P, _P,
              _I64, _I64, _P, _P, _I64, _P, _P]
-_LOR_ARGS = [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P, _P]
+_SELECT_TAIL = [_P, _I64, _P, _P, _I64, _P, _P, _P, _P, _P]
+_QUANT_ARGS = {
+    "ceaz_bank_lorenzo": [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P]
+    + _SELECT_TAIL,
+    "ceaz_bank_value_finalize": [_P, _P, _P, _I64, _I64, _P, _P, _P, _P]
+    + _SELECT_TAIL,
+}
 _VQ_ARGS = [_P, _P, _I64, _I64, _P, _P]
-_VF_ARGS = [_P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P, _P]
 _SEL_ARGS = [_P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P]
 
 
@@ -151,6 +158,25 @@ def bank_select_plain(hists, bank_lengths, bank_cwords):
             bank_cwords[sel].contiguous())
 
 
+def lorenzo_bank_plain(work2, prev2, valid2, ebs, bank_lengths,
+                       bank_cwords):
+    """-> (q2, codes2, outl2, delta2, hists, sel, totals, lengths_sel,
+    cwords_sel, centers): the Lorenzo quantize, then the select; centers
+    (C,) zero."""
+    enc = lorenzo_quant_plain(work2, prev2, valid2, ebs)
+    centers = torch.zeros(work2.shape[0], dtype=torch.int32,
+                          device=work2.device)
+    return (*enc, *bank_select_plain(enc[4], bank_lengths, bank_cwords),
+            centers)
+
+
+def value_bank_plain(q2, valid2, centers, bank_lengths, bank_cwords):
+    """-> (q2, codes2, outl2, delta2, hists, sel, totals, lengths_sel,
+    cwords_sel): the value finalize, then the select."""
+    enc = value_finalize_plain(q2, valid2, centers)
+    return (*enc, *bank_select_plain(enc[4], bank_lengths, bank_cwords))
+
+
 # ---------------------------------------------------------------------------
 # Encode: CUDA wrappers (csrc/bank.cu)
 # ---------------------------------------------------------------------------
@@ -164,8 +190,6 @@ def _check_rows(name: str, t: torch.Tensor, dtype) -> None:
     if t.dtype != dtype or t.ndim != 2:
         raise ValueError(f"{name}: (C, cv) {dtype} rows expected, got "
                          f"{tuple(t.shape)} {t.dtype}")
-    if t.shape[0] > _MAX_ROWS:
-        raise ValueError(f"{name}: at most {_MAX_ROWS} rows per launch")
 
 
 def _per_row(name: str, t: torch.Tensor, C: int, dtype) -> torch.Tensor:
@@ -174,7 +198,62 @@ def _per_row(name: str, t: torch.Tensor, C: int, dtype) -> torch.Tensor:
     return t.reshape(C).contiguous()
 
 
-def lorenzo_quant_cuda(work2, prev2, valid2, ebs):
+def _check_bank(name, bank_lengths, bank_cwords) -> int:
+    """K of the (K, 1024) int32 bank tables."""
+    K = bank_lengths.shape[0]
+    for what, t in (("bank_lengths", bank_lengths),
+                    ("bank_cwords", bank_cwords)):
+        if t.dtype != torch.int32 or t.ndim != 2 \
+                or t.shape[1] != NUM_SYMBOLS:
+            raise ValueError(f"{name}: {what} (*, {NUM_SYMBOLS}) int32 "
+                             "expected")
+    if bank_cwords.shape[0] != K or K == 0:
+        raise ValueError(f"{name}: bank tables (K, 1024), K >= 1")
+    return K
+
+
+def _select_outs(C: int, dev):
+    """sel, totals (C,) and the selected rows (C, 1024), int32."""
+    return (torch.empty(C, dtype=torch.int32, device=dev),
+            torch.empty(C, dtype=torch.int32, device=dev),
+            torch.empty((C, NUM_SYMBOLS), dtype=torch.int32, device=dev),
+            torch.empty((C, NUM_SYMBOLS), dtype=torch.int32, device=dev))
+
+
+def _quant_select_cuda(name: str, entry: str, ins, C: int, cv: int, dev,
+                       bank):
+    """One quantize launch of csrc/bank.cu in Lorenzo or finalize mode
+    (`ins`: its input pointers), with the select folded in when `bank`
+    (the two tables) is given. Its one memset zeroes a single int32
+    buffer: the histograms (C, 1024), then with the bank the tickets (C,)
+    and C zero words (the Lorenzo op's centres).
+    -> (q2, codes2, outl2, delta2, hists[, sel, totals, ln_sel, cw_sel,
+    zero centres])."""
+    q2, codes2, delta2 = (torch.empty((C, cv), dtype=torch.int32, device=dev)
+                          for _ in range(3))
+    outl2 = torch.empty((C, cv), dtype=torch.bool, device=dev)
+    tail = 2 if bank is not None else 0
+    zeroed = torch.empty(C * (NUM_SYMBOLS + tail), dtype=torch.int32,
+                         device=dev)
+    hists = zeroed[:C * NUM_SYMBOLS].view(C, NUM_SYMBOLS)
+    sel_outs = ()
+    K, tables = 0, (None, None)
+    if bank is not None:
+        K = _check_bank(name, *bank)
+        bank = tuple(t.contiguous() for t in bank)
+        tables = tuple(t.data_ptr() for t in bank)
+        sel_outs = _select_outs(C, dev) + (zeroed[C * (NUM_SYMBOLS + 1):],)
+    dispatch.count_launch(name)
+    rc = _build.function(entry, _QUANT_ARGS[entry])(
+        *ins, C, cv, q2.data_ptr(), codes2.data_ptr(), outl2.data_ptr(),
+        delta2.data_ptr(), zeroed.data_ptr(), 4 * zeroed.numel(), *tables, K,
+        *(t.data_ptr() for t in sel_outs[:4]) if sel_outs else (None,) * 4,
+        dispatch.stream_handle())
+    _build.check(rc, name)
+    return (q2, codes2, outl2, delta2, hists, *sel_outs)
+
+
+def _lorenzo_cuda(work2, prev2, valid2, ebs, bank):
     dispatch.require_cuda("lorenzo_quant", work2, valid2)
     _check_rows("lorenzo_quant", work2, torch.float32)
     C, cv = work2.shape
@@ -183,19 +262,24 @@ def lorenzo_quant_cuda(work2, prev2, valid2, ebs):
     prev = _per_row("lorenzo_quant prev2", prev2, C, torch.float32)
     eb = _per_row("lorenzo_quant ebs", ebs, C, torch.float32)
     dispatch.require_cuda("lorenzo_quant", prev, eb)
-    dev = work2.device
-    q2, codes2, delta2 = (torch.empty((C, cv), dtype=torch.int32, device=dev)
-                          for _ in range(3))
-    outl2 = torch.empty((C, cv), dtype=torch.bool, device=dev)
-    hists = torch.zeros((C, NUM_SYMBOLS), dtype=torch.int32, device=dev)
-    name = _regime(cv, "lorenzo_tiles")
-    dispatch.count_launch(name)
-    rc = _build.function("ceaz_bank_lorenzo", _LOR_ARGS)(
-        work2.data_ptr(), prev.data_ptr(), valid2.data_ptr(), eb.data_ptr(),
-        C, cv, q2.data_ptr(), codes2.data_ptr(), outl2.data_ptr(),
-        delta2.data_ptr(), hists.data_ptr(), dispatch.stream_handle())
-    _build.check(rc, name)
-    return q2, codes2, outl2, delta2, hists
+    work2, valid2 = work2.contiguous(), valid2.contiguous()
+    return _quant_select_cuda(
+        _regime(cv, "lorenzo_tiles"), "ceaz_bank_lorenzo",
+        (work2.data_ptr(), prev.data_ptr(), valid2.data_ptr(), eb.data_ptr()),
+        C, cv, work2.device, bank)
+
+
+def lorenzo_quant_cuda(work2, prev2, valid2, ebs):
+    """-> (q2, codes2, outl2, delta2, hists): the Lorenzo quantize alone."""
+    return _lorenzo_cuda(work2, prev2, valid2, ebs, None)[:5]
+
+
+def lorenzo_bank_cuda(work2, prev2, valid2, ebs, bank_lengths, bank_cwords):
+    """lorenzo_bank_plain in one launch (the select folded in); the zero
+    centres come from the launch's zeroed buffer."""
+    dispatch.require_cuda("lorenzo_quant", bank_lengths, bank_cwords)
+    return _lorenzo_cuda(work2, prev2, valid2, ebs,
+                         (bank_lengths, bank_cwords))
 
 
 def value_quant_cuda(work2, ebs):
@@ -204,6 +288,7 @@ def value_quant_cuda(work2, ebs):
     C, cv = work2.shape
     eb = _per_row("value_quant ebs", ebs, C, torch.float32)
     dispatch.require_cuda("value_quant", eb)
+    work2 = work2.contiguous()
     q2 = torch.empty((C, cv), dtype=torch.int32, device=work2.device)
     name = _regime(cv, "value_quant_tiles")
     dispatch.count_launch(name)
@@ -214,7 +299,7 @@ def value_quant_cuda(work2, ebs):
     return q2
 
 
-def value_finalize_cuda(q2, valid2, centers):
+def _finalize_cuda(q2, valid2, centers, bank):
     dispatch.require_cuda("value_finalize", q2, valid2)
     _check_rows("value_finalize", q2, torch.int32)
     C, cv = q2.shape
@@ -222,38 +307,36 @@ def value_finalize_cuda(q2, valid2, centers):
         raise ValueError("value_finalize: valid2 (C, cv) bool expected")
     ctr = _per_row("value_finalize centers", centers, C, torch.int32)
     dispatch.require_cuda("value_finalize", ctr)
-    dev = q2.device
-    qm, codes2, delta2 = (torch.empty((C, cv), dtype=torch.int32, device=dev)
-                          for _ in range(3))
-    outl2 = torch.empty((C, cv), dtype=torch.bool, device=dev)
-    hists = torch.zeros((C, NUM_SYMBOLS), dtype=torch.int32, device=dev)
-    name = _regime(cv, "value_finalize_tiles")
-    dispatch.count_launch(name)
-    rc = _build.function("ceaz_bank_value_finalize", _VF_ARGS)(
-        q2.data_ptr(), valid2.data_ptr(), ctr.data_ptr(), C, cv,
-        qm.data_ptr(), codes2.data_ptr(), outl2.data_ptr(), delta2.data_ptr(),
-        hists.data_ptr(), dispatch.stream_handle())
-    _build.check(rc, name)
-    return qm, codes2, outl2, delta2, hists
+    q2, valid2 = q2.contiguous(), valid2.contiguous()
+    return _quant_select_cuda(
+        _regime(cv, "value_finalize_tiles"), "ceaz_bank_value_finalize",
+        (q2.data_ptr(), valid2.data_ptr(), ctr.data_ptr()), C, cv, q2.device,
+        bank)
+
+
+def value_finalize_cuda(q2, valid2, centers):
+    """-> (q2 masked, codes2, outl2, delta2, hists)."""
+    return _finalize_cuda(q2, valid2, centers, None)[:5]
+
+
+def value_bank_cuda(q2, valid2, centers, bank_lengths, bank_cwords):
+    """value_bank_plain in one launch (the select folded in)."""
+    dispatch.require_cuda("value_finalize", bank_lengths, bank_cwords)
+    return _finalize_cuda(q2, valid2, centers,
+                          (bank_lengths, bank_cwords))[:9]
 
 
 def bank_select_cuda(hists, bank_lengths, bank_cwords):
     dispatch.require_cuda("bank_select", hists, bank_lengths, bank_cwords)
-    K = bank_lengths.shape[0]
-    for name, t in (("hists", hists), ("bank_lengths", bank_lengths),
-                    ("bank_cwords", bank_cwords)):
-        if t.dtype != torch.int32 or t.ndim != 2 \
-                or t.shape[1] != NUM_SYMBOLS:
-            raise ValueError(f"bank_select: {name} (*, {NUM_SYMBOLS}) int32 "
-                             "expected")
-    if bank_cwords.shape[0] != K or K == 0:
-        raise ValueError("bank_select: bank tables (K, 1024), K >= 1")
+    K = _check_bank("bank_select", bank_lengths, bank_cwords)
+    if hists.dtype != torch.int32 or hists.ndim != 2 \
+            or hists.shape[1] != NUM_SYMBOLS:
+        raise ValueError(f"bank_select: hists (*, {NUM_SYMBOLS}) int32 "
+                         "expected")
+    hists, bank_lengths, bank_cwords = (
+        t.contiguous() for t in (hists, bank_lengths, bank_cwords))
     C = hists.shape[0]
-    dev = hists.device
-    sel = torch.empty(C, dtype=torch.int32, device=dev)
-    totals = torch.empty(C, dtype=torch.int32, device=dev)
-    ln_sel = torch.empty((C, NUM_SYMBOLS), dtype=torch.int32, device=dev)
-    cw_sel = torch.empty((C, NUM_SYMBOLS), dtype=torch.int32, device=dev)
+    sel, totals, ln_sel, cw_sel = _select_outs(C, hists.device)
     dispatch.count_launch("bank_select")
     rc = _build.function("ceaz_bank_select", _SEL_ARGS)(
         hists.data_ptr(), bank_lengths.data_ptr(), bank_cwords.data_ptr(), C,
@@ -269,19 +352,18 @@ def bank_select_cuda(hists, bank_lengths, bank_cwords):
 
 def _ceaz_chunk(steps, work2, prev2, valid2, ebs, bank_lengths, bank_cwords,
                 block_size: int, w32: int, predictor: str):
-    lorenzo, vquant, center, vfinal, select, pack = steps
-    C = work2.shape[0]
+    lorenzo, vquant, center, vbank, pack = steps
     if predictor == "lorenzo":
-        q2, codes2, outl2, delta2, hists = lorenzo(work2, prev2, valid2, ebs)
-        centers = torch.zeros(C, dtype=torch.int32, device=work2.device)
+        *enc, centers = lorenzo(work2, prev2, valid2, ebs, bank_lengths,
+                                bank_cwords)
     elif predictor == "value":
         q2 = vquant(work2, ebs)
         centers = center(q2, valid2)
-        q2, codes2, outl2, delta2, hists = vfinal(q2, valid2, centers)
+        enc = vbank(q2, valid2, centers, bank_lengths, bank_cwords)
     else:
         raise ValueError(f"ceaz_chunk: predictor must be 'lorenzo' or "
                          f"'value', got {predictor!r}")
-    sel, totals, ln_sel, cw_sel = select(hists, bank_lengths, bank_cwords)
+    q2, codes2, outl2, delta2, hists, sel, totals, ln_sel, cw_sel = enc
     words, block_nbits = pack(codes2, valid2, ln_sel, cw_sel, block_size, w32)
     return (q2, codes2, outl2, delta2, centers, hists, sel, totals, words,
             block_nbits)
@@ -291,18 +373,20 @@ def ceaz_chunk_plain(work2, prev2, valid2, ebs, bank_lengths, bank_cwords,
                      block_size: int, w32: int, predictor: str = "lorenzo"):
     """Plain PyTorch version of the op (any device)."""
     return _ceaz_chunk(
-        (lorenzo_quant_plain, value_quant_plain, dq_ops.chunk_center_plain,
-         value_finalize_plain, bank_select_plain, hufenc.encode_pack_plain),
+        (lorenzo_bank_plain, value_quant_plain, dq_ops.chunk_center_plain,
+         value_bank_plain, hufenc.encode_pack_plain),
         work2, prev2, valid2, ebs, bank_lengths, bank_cwords, block_size,
         w32, predictor)
 
 
 def ceaz_chunk_cuda(work2, prev2, valid2, ebs, bank_lengths, bank_cwords,
                     block_size: int, w32: int, predictor: str = "lorenzo"):
-    """The op on the card: csrc/bank.cu (+ center.cu), then hufenc.cu."""
+    """The op on the card: csrc/bank.cu's quantize-and-select launch
+    (after value_quant and center.cu on value rows), then hufenc.cu's
+    pack."""
     return _ceaz_chunk(
-        (lorenzo_quant_cuda, value_quant_cuda, dq_ops.dq_center_cuda,
-         value_finalize_cuda, bank_select_cuda, hufenc.encode_pack_cuda),
+        (lorenzo_bank_cuda, value_quant_cuda, dq_ops.dq_center_cuda,
+         value_bank_cuda, hufenc.encode_pack_cuda),
         work2, prev2, valid2, ebs, bank_lengths, bank_cwords, block_size,
         w32, predictor)
 

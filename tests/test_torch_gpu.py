@@ -230,6 +230,101 @@ def test_ceaz_chunk_op_matches_plain(dev, predictor, C, cv, n_valid):
         _eq(MK.ceaz_chunk_cuda(*args), MK.ceaz_chunk_plain(*args))
 
 
+def _center_hard_rows(seed, V):
+    """Rows that take every branch of center.cu's select: m = 0, 1 and 2;
+    all keys equal; duplicates straddling both middle ranks; valid
+    INT32_MIN and INT32_MAX; a row spanning all of int32 (every digit
+    pass); hi - lo wrapping in int32; invalid entries holding extreme
+    values around a narrow valid range."""
+    i32 = np.iinfo(np.int32)
+    rng = np.random.default_rng(seed)
+    every = np.ones(V, bool)
+    span = rng.integers(i32.min, i32.max, V, endpoint=True)
+    span[:2] = (i32.min, i32.max)
+    dup = np.where(np.arange(V) < V // 2, 4, 5)
+    extreme = np.where(rng.random(V) < 0.5, i32.min, i32.max)
+    narrow = rng.integers(-300, 300, V)
+    wrap = np.zeros(V, np.int64)
+    wrap[:2] = (-2_000_000_000, 2_000_000_000)
+    rows = [(narrow, np.zeros(V, bool)), (span, np.arange(V) < 1),
+            (span, np.arange(V) < 2), (np.full(V, -3), every),
+            (dup, every), (np.concatenate([dup[:-1], [6]]), every),
+            (np.where(np.arange(V) % 2 == 0, i32.min, i32.max), every),
+            (span, every), (wrap, np.arange(V) < 2),
+            (np.where(np.arange(V) % 3 == 0, narrow, extreme),
+             np.arange(V) % 3 == 0),
+            (rng.integers(-20000, 20000, V), rng.random(V) < 0.9)]
+    return (np.stack([r for r, _ in rows]).astype(np.int64).astype(np.int32),
+            np.stack([m for _, m in rows]))
+
+
+@pytest.mark.parametrize("C,V", [(70000, 37), (70000, 4100), (11, 1 << 23),
+                                 (11, 4096), (11, 4097)])
+def test_dq_center_kernel_on_hard_rows(dev, C, V):
+    """The hard rows tiled over C rows: one-tile rows (one launch),
+    multi-tile rows with scalar loads (V not a multiple of 16) and a full
+    2^23 row with vector loads; more rows than a grid's y dimension."""
+    q, v = _center_hard_rows(8, V)
+    reps = -(-C // q.shape[0])
+    q2 = torch.from_numpy(np.tile(q, (reps, 1))[:C]).to(dev)
+    valid2 = torch.from_numpy(np.tile(v, (reps, 1))[:C]).to(dev)
+    dispatch.reset_launches()
+    got = DQ.dq_center_cuda(q2, valid2)
+    assert dispatch.launches() == {"dq_center": 1}
+    _eq(got, DQ.chunk_center_plain(q2, valid2))
+
+
+def _tied_bank(dev):
+    """The default bank and two copies of its books 1 and 0 after it:
+    every row's cost ties between a book and its copy."""
+    ln, cw = _bank_tables(dev)
+    return (torch.cat([ln, ln[1:2], ln[:1]]).contiguous(),
+            torch.cat([cw, cw[1:2], cw[:1]]).contiguous())
+
+
+@pytest.mark.parametrize("predictor", ["lorenzo", "value"])
+@pytest.mark.parametrize("C,cv,bs", [(64, 1 << 17, 4096), (1, 1 << 23, 4096),
+                                     (70000, 48, 16), (5, 4096 * 3 + 7, 512)])
+def test_ceaz_chunk_op_at_main_path_shapes(dev, predictor, C, cv, bs):
+    """The op at phase C's and D's shapes, at 70000 short rows and at
+    unaligned rows, with rows holding no valid value, partial rows and a
+    bank whose books tie: bitwise against the plain version, in one
+    quantize launch with the select folded in (no bank_select launch)."""
+    work2, prev2, _, ebs = _bank_rows(dev, C, cv, C * cv, 9)
+    lens = np.full(C, cv)
+    lens[3::7] = 0
+    lens[5::11] = cv // 3
+    if C == 1:
+        lens[0] = cv - 3
+    valid2 = torch.from_numpy(np.arange(cv)[None, :] < lens[:, None]).to(dev)
+    ln, cw = _tied_bank(dev)
+    args = (work2, prev2, valid2, ebs, ln, cw, bs,
+            2 * ((cv * 16 + 63) // 64 + 1), predictor)
+    dispatch.reset_launches()
+    got = MK.ceaz_chunk_cuda(*args)
+    launched = dispatch.launches()
+    assert "bank_select" not in launched
+    assert launched.get("dq_center", 0) == (predictor == "value")
+    _eq(got, MK.ceaz_chunk_plain(*args))
+
+
+def test_bank_quant_kernels_over_65535_rows(dev):
+    """The three quantize modes and the bank select at 70000 rows (more
+    than a grid's y dimension), one short unaligned row each."""
+    C, cv = 70000, 37
+    work2, prev2, valid2, ebs = _bank_rows(dev, C, cv, C * cv - 100, 10)
+    got = MK.lorenzo_quant_cuda(work2, prev2, valid2, ebs)
+    _eq(got, MK.lorenzo_quant_plain(work2, prev2, valid2, ebs))
+    q2 = MK.value_quant_cuda(work2, ebs)
+    _eq(q2, MK.value_quant_plain(work2, ebs))
+    centers = DQ.dq_center_cuda(q2, valid2)
+    got = MK.value_finalize_cuda(q2, valid2, centers)
+    _eq(got, MK.value_finalize_plain(q2, valid2, centers))
+    ln, cw = _tied_bank(dev)
+    _eq(MK.bank_select_cuda(got[4], ln, cw),
+        MK.bank_select_plain(got[4], ln, cw))
+
+
 @pytest.mark.parametrize("predictor,kw", [
     ("lorenzo", dict(mode="rel", eb=1e-4, chunk_bytes=1 << 16)),
     ("none", dict(mode="abs", eb=1e-3)),
