@@ -452,14 +452,9 @@ def run_phase(name, x, kw, offline, dispatch, CEAZ, CEAZConfig, captured,
         check(counts.get(k, 0) > 0,
               f"phase {name}: kernel {k} was not launched ({counts})")
     if name in NO_SELECT_PHASES:
-        from repro_torch.kernels.megakernel import ops as MK
-        if hasattr(MK, "lorenzo_bank_cuda"):
-            check("bank_select" not in counts,
-                  f"phase {name}: the bank encode launched its select "
-                  f"apart ({counts})")
-        else:
-            print(f"phase {name}: the select folded into the quantize "
-                  "launch: not in this tree")
+        check("bank_select" not in counts,
+              f"phase {name}: the bank encode launched its select apart "
+              f"({counts})")
     fell_back = om.counter(om.BANK_FALLBACKS).value() - fallbacks
     if name in DRIFT_PHASES:
         check(fell_back == 1

@@ -13,9 +13,10 @@
 //     megakernel/ref.py::select_bank) — bank_select.
 // The gather-pack of the selected rows is hufenc.cu's kernel.
 //
-// quant_kernel<MODE>, a CTA a 4096-value row tile (row_tiles.cuh; a
-// resident grid taking several tiles a CTA measured slower); each thread
-// takes 4 groups of 4 consecutive values, a warp's groups contiguous:
+// quant_kernel<MODE>, a CTA a 4096-value row tile numbered flat
+// (row_tiles.cuh; a resident grid taking several tiles a CTA measured
+// slower), a row of no values one empty tile. Each thread takes 4 groups
+// of 4 consecutive values, a warp's groups contiguous:
 //   LORENZO   q = prequant(x[i]), pred = prequant(x[i-1]). The thread's
 //             own registers hold x[i-1] past a group's first value; for
 //             the first, lane l-1 passes its group's last q by
@@ -36,9 +37,10 @@
 // are counted into the CTA's shared histogram (plain shared atomics, a
 // group's runs of equal codes one atomic; one histogram measured faster
 // than two or eight per-warp ones merged at the end), added to the row's
-// global histogram (only the nonzero bins) when the CTA's tile ends. The TPU accumulates the histogram across its
-// sequential segment grid (:224-229, :246-251); CUDA blocks run in no
-// order, and integer sums do not depend on it.
+// global histogram (only the nonzero bins) when the CTA's tile ends. The
+// TPU accumulates the histogram across its sequential segment grid
+// (:224-229, :246-251); CUDA blocks run in no order, and integer sums do
+// not depend on it.
 //
 // The select (when the op passes the bank): the CTA that publishes a
 // row's last tile (a per-row ticket) reads the finished histogram from
@@ -285,61 +287,48 @@ __global__ void __launch_bounds__(THREADS, 4) quant_kernel(QuantArgs a) {
     for (int s = threadIdx.x; s < NUM_SYMBOLS; s += THREADS) h[s] = 0;
     __syncthreads();
   }
-  int64_t t0, t1;
-  ceaz::cta_span(a.C * a.S, &t0, &t1);
-  for (int64_t r0 = t0; r0 < t1;) {          // this CTA's tiles of row c
-    int64_t c = r0 / a.S, r1 = ceaz::run_end(r0, t1, a.S);
-    float eb = 0.0f, two_eb = 0.0f;
-    if (MODE != VALUE_FINALIZE) {
-      eb = a.ebs[c];
-      two_eb = ceaz::two_eb_of(eb);
-    }
-    for (int64_t t = r0; t < r1; ++t) {
-      // all loads of the tile first: GROUPS groups of 4 values a thread,
-      // THREADS groups apart, so a warp's accesses are contiguous
-      int64_t tile0 = (t - c * a.S) * TILE;
-      float x[GROUPS][4];
-      int32_t qin[GROUPS][4];
-      uint32_t vmask[GROUPS];
+  int64_t t = blockIdx.x, c = t / a.S;       // this CTA's tile, of row c
+  float eb = 0.0f, two_eb = 0.0f;
+  if (MODE != VALUE_FINALIZE) {
+    eb = a.ebs[c];
+    two_eb = ceaz::two_eb_of(eb);
+  }
+  // all loads of the tile first: GROUPS groups of 4 values a thread,
+  // THREADS groups apart, so a warp's accesses are contiguous
+  int64_t tile0 = (t - c * a.S) * TILE;
+  float x[GROUPS][4];
+  int32_t qin[GROUPS][4];
+  uint32_t vmask[GROUPS];
 #pragma unroll
-      for (int j = 0; j < GROUPS; ++j) {
-        int64_t i0 = tile0 + 4 * (threadIdx.x + THREADS * j);
-        int64_t at = c * a.cv + i0;
-        if (MODE == VALUE_FINALIZE)
-          load4(a.q_in, at, a.cv - i0, a.vec, qin[j]);
-        else
-          load4(a.work, at, a.cv - i0, a.vec, x[j]);
-        vmask[j] = MODE == VALUE_QUANT
-                       ? 0u
-                       : load_mask4(a.valid, at, a.cv - i0, a.vec);
-      }
+  for (int j = 0; j < GROUPS; ++j) {
+    int64_t i0 = tile0 + 4 * (threadIdx.x + THREADS * j);
+    int64_t at = c * a.cv + i0;
+    if (MODE == VALUE_FINALIZE)
+      load4(a.q_in, at, a.cv - i0, a.vec, qin[j]);
+    else
+      load4(a.work, at, a.cv - i0, a.vec, x[j]);
+    vmask[j] = MODE == VALUE_QUANT
+                   ? 0u
+                   : load_mask4(a.valid, at, a.cv - i0, a.vec);
+  }
 #pragma unroll
-      for (int j = 0; j < GROUPS; ++j) {
-        int64_t i0 = tile0 + 4 * (threadIdx.x + THREADS * j);
-        quant_group<MODE>(a, c, i0, c * a.cv + i0, x[j], qin[j], vmask[j],
-                          eb, two_eb, h);
-      }
-    }
-    if (HIST) {
-      // the CTA's run of row c ends: publish, maybe select
-      __syncthreads();
-      int32_t* hrow = a.hists + c * NUM_SYMBOLS;
-      for (int s = threadIdx.x; s < NUM_SYMBOLS; s += THREADS) {
-        if (h[s]) atomicAdd(hrow + s, h[s]);
-        h[s] = 0;
-      }
-      if (a.K > 0 && ceaz::last_of_row(a.tickets, c, r1 - r0, a.S, &flag)) {
-        for (int s = threadIdx.x; s < NUM_SYMBOLS; s += THREADS)
-          h[s] = __ldcg(hrow + s);
-        __syncthreads();
-        select_row(h, a.bank_lengths, a.bank_cwords, a.K, c, a.sel, a.totals,
-                   a.ln_sel, a.cw_sel, costs, best);
-        __syncthreads();
-        for (int s = threadIdx.x; s < NUM_SYMBOLS; s += THREADS) h[s] = 0;
-      }
-      __syncthreads();
-    }
-    r0 = r1;
+  for (int j = 0; j < GROUPS; ++j) {
+    int64_t i0 = tile0 + 4 * (threadIdx.x + THREADS * j);
+    quant_group<MODE>(a, c, i0, c * a.cv + i0, x[j], qin[j], vmask[j], eb,
+                      two_eb, h);
+  }
+  if (!HIST) return;
+  // publish the tile's counts; the row's last tile selects
+  __syncthreads();
+  int32_t* hrow = a.hists + c * NUM_SYMBOLS;
+  for (int s = threadIdx.x; s < NUM_SYMBOLS; s += THREADS)
+    if (h[s]) atomicAdd(hrow + s, h[s]);
+  if (a.K > 0 && ceaz::last_of_row(a.tickets, c, 1, a.S, &flag)) {
+    for (int s = threadIdx.x; s < NUM_SYMBOLS; s += THREADS)
+      h[s] = __ldcg(hrow + s);
+    __syncthreads();
+    select_row(h, a.bank_lengths, a.bank_cwords, a.K, c, a.sel, a.totals,
+               a.ln_sel, a.cw_sel, costs, best);
   }
 }
 
@@ -363,17 +352,19 @@ bank_select_kernel(const int32_t* __restrict__ hists,
 template <int MODE>
 int launch_quant(QuantArgs& a, void* zeroed, int64_t zero_bytes,
                  void* stream) {
-  if (a.C <= 0 || a.cv <= 0) return static_cast<int>(cudaGetLastError());
+  if (a.C <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (zero_bytes > 0) {
     cudaError_t err = cudaMemsetAsync(zeroed, 0, zero_bytes, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  a.S = (a.cv + TILE - 1) / TILE;
+  // rows of no values: zero histograms, and with the bank still a select
+  if (a.cv <= 0 && a.K == 0) return static_cast<int>(cudaGetLastError());
+  a.S = a.cv > 0 ? (a.cv + TILE - 1) / TILE : 1;
   // a CTA a tile: measured faster than a resident grid of CTAs taking
-  // several tiles each (row_tiles.cuh serves both)
-  int64_t g = a.C * a.S < INT32_MAX ? a.C * a.S : INT32_MAX;
-  quant_kernel<MODE><<<static_cast<unsigned>(g), THREADS, 0, s>>>(a);
+  // several tiles each. 2^31 tiles would be 2^43 values.
+  if (a.C * a.S > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  quant_kernel<MODE><<<static_cast<unsigned>(a.C * a.S), THREADS, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

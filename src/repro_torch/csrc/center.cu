@@ -31,9 +31,6 @@
 //       2^13 is one pass with buckets one key wide; the full int32 range
 //       three. The ticket's CTA takes each rank's bucket with a CTA-wide
 //       scan over the counts and writes the next prefix, or the centre.
-// Rows of at most one tile (4096 values) take center_row_kernel instead: a
-// CTA holds the whole row in registers and runs (a) and (b) on it in
-// shared memory, one launch and no scratch.
 //
 // Reads of the row: 2 where the valid keys span fewer than 2^13 values
 // (value-direct q spans ~500 values at rel eb 1e-3 and ~5000 at 1e-4 on
@@ -238,26 +235,21 @@ __device__ __forceinline__ void count_keys(const uint32_t key[PER],
   add_run(h1, d1, n1);
 }
 
-__device__ __forceinline__ uint32_t count_at(const int32_t* h, int i,
-                                             bool global) {
-  return static_cast<uint32_t>(global ? __ldcg(h + i) : h[i]);
-}
-
 // For each rank r, the bucket b[r] of cnt_r[0, nb) that holds it and the
 // count below that bucket: each thread sums its nb / THREADS consecutive
 // buckets, a CTA-wide exclusive scan places them, and the one thread
-// whose buckets hold the rank walks them. `global`: the counts are
-// another CTA's atomics, read from the L2. pick[4] is shared.
+// whose buckets hold the rank walks them. The counts are other CTAs'
+// atomics, read from the L2. pick[4] is shared.
 __device__ void pick_buckets(const int32_t* c0, const int32_t* c1, int nb,
-                             uint32_t rlo, uint32_t rhi, bool global,
-                             uint32_t* pick, uint32_t* sm) {
+                             uint32_t rlo, uint32_t rhi, uint32_t* pick,
+                             uint32_t* sm) {
   int per = (nb + THREADS - 1) / THREADS;
   int lo = threadIdx.x * per;
   int hi = min(lo + per, nb);
   uint32_t s0 = 0, s1 = 0;
   for (int i = lo; i < hi; ++i) {
-    s0 += count_at(c0, i, global);
-    s1 += count_at(c1, i, global);
+    s0 += static_cast<uint32_t>(__ldcg(c0 + i));
+    s1 += static_cast<uint32_t>(__ldcg(c1 + i));
   }
   uint32_t e0 = s0, e1 = s1;
   block_exscan2(&e0, &e1, sm);
@@ -267,7 +259,7 @@ __device__ void pick_buckets(const int32_t* c0, const int32_t* c1, int nb,
     if (ex[r] > rank[r] || rank[r] - ex[r] >= sum[r]) continue;
     uint32_t acc = ex[r];
     for (int i = lo; i < hi; ++i) {
-      uint32_t v = count_at(cs[r], i, global);
+      uint32_t v = static_cast<uint32_t>(__ldcg(cs[r] + i));
       if (acc + v > rank[r]) {
         pick[r] = i;
         pick[2 + r] = acc;
@@ -296,7 +288,7 @@ __device__ __forceinline__ int range_bits(uint32_t range) {
   return 32 - __clz(range);
 }
 
-// (a) on multi-tile rows: m, min and max of each row's valid keys; the
+// (a) m, min and max of each row's valid keys; the
 // ticket's CTA sets the ranks or finishes the row.
 __global__ void __launch_bounds__(THREADS)
 center_range_kernel(const int32_t* __restrict__ q,
@@ -344,7 +336,7 @@ center_range_kernel(const int32_t* __restrict__ q,
   }
 }
 
-// (b) on multi-tile rows: one digit pass. counts (C, 2, NB) are zero
+// (b) one digit pass. counts (C, 2, NB) are zero
 // where this pass counts (the memset, then each pass's ticket CTA). A
 // CTA reads a row's state once (the launches before wrote it; every CTA
 // reading one word per thread would queue on one L2 slice) and skips a
@@ -396,8 +388,7 @@ center_digit_kernel(const int32_t* __restrict__ q,
     }
     zero_counts(h, d);
     if (ceaz::last_of_row(st + S_TICKET, 0, r1 - r0, S, &flag)) {
-      pick_buckets(crow, d.same ? crow : crow + NB, nb, rlo, rhi, true, pick,
-                   sm);
+      pick_buckets(crow, d.same ? crow : crow + NB, nb, rlo, rhi, pick, sm);
       int w = d.sh - d.sl;
       uint32_t plo = (d.plo << w) | pick[0];
       uint32_t phi = (d.phi << w) | pick[1];
@@ -421,56 +412,14 @@ center_digit_kernel(const int32_t* __restrict__ q,
   }
 }
 
-// Rows of at most one tile: a CTA a row (rows strided over the grid),
-// the row in registers, (a) and every digit pass in shared memory.
-__global__ void __launch_bounds__(THREADS)
-center_row_kernel(const int32_t* __restrict__ q,
-                  const uint8_t* __restrict__ valid, int64_t C, int64_t V,
-                  bool vec, int32_t* centers) {
-  __shared__ int32_t h[2 * NB];
-  __shared__ uint32_t sm[3 * WARPS];
-  __shared__ uint32_t pick[4];
-  for (int64_t c = blockIdx.x; c < C; c += gridDim.x) {
-    uint32_t key[PER];
-    uint32_t mask = load_keys(q, valid, c * V, 0, V, vec, false, key);
-    uint32_t m = __popc(mask), kmin = ~0u, kmax = 0;
-#pragma unroll
-    for (int k = 0; k < PER; ++k)
-      if ((mask >> k) & 1) kmin = min(kmin, key[k]), kmax = max(kmax, key[k]);
-    block_range(&m, &kmin, &kmax, sm);
-    if (m == 0 || kmin == kmax) {
-      if (threadIdx.x == 0) centers[c] = m == 0 ? 0 : centre_of(kmin, kmin);
-      continue;
-    }
-    uint32_t rlo = (m - 1) / 2, rhi = m / 2, plo = 0, phi = 0;
-    int sh = range_bits(kmax - kmin);
-    while (true) {
-      Digit d = digit_of(kmin, sh, plo, phi);
-      zero_counts(h, d);
-      __syncthreads();
-      count_keys(key, mask, d, h, h + NB);
-      __syncthreads();
-      pick_buckets(h, d.same ? h : h + NB, d.nb(), rlo, rhi, false, pick, sm);
-      plo = (plo << (sh - d.sl)) | pick[0];
-      phi = (phi << (sh - d.sl)) | pick[1];
-      rlo -= pick[2];
-      rhi -= pick[3];
-      sh = d.sl;
-      __syncthreads();          // pick is read before the next pass writes
-      if (sh == 0) break;
-    }
-    if (threadIdx.x == 0) centers[c] = centre_of(kmin + plo, kmin + phi);
-  }
-}
-
-int64_t g_fit_range = 0, g_fit_digit = 0, g_fit_row = 0;
+int64_t g_fit_range = 0, g_fit_digit = 0;
 
 }  // namespace
 
-// Bytes of dq_center's scratch for C rows of V values: none for rows of
-// at most one tile, else the per-row state and the two (NB,) counts.
+// Bytes of dq_center's scratch for C rows of V values: the per-row state
+// and the two (NB,) counts.
 extern "C" int64_t ceaz_dq_center_scratch_bytes(int64_t C, int64_t V) {
-  return V <= TILE ? 0 : C * (S_WORDS + 2 * NB) * 4;
+  return V <= 0 ? 0 : C * (S_WORDS + 2 * NB) * 4;
 }
 
 // q (C, V) int32, valid (C, V) bytes -> centers (C,) int32 (every row
@@ -485,14 +434,6 @@ extern "C" int ceaz_dq_center(const void* q, const void* valid, int64_t C,
   const uint8_t* vp = static_cast<const uint8_t*>(valid);
   int32_t* cp = static_cast<int32_t*>(centers);
   bool vec = V % 4 == 0 && ceaz::aligned16(q) && ceaz::aligned16(valid);
-  if (V <= TILE) {
-    int64_t g = ceaz::resident_ctas(
-        reinterpret_cast<const void*>(center_row_kernel), THREADS, C,
-        &g_fit_row);
-    center_row_kernel<<<static_cast<unsigned>(g), THREADS, 0, s>>>(
-        qp, vp, C, V, vec, cp);
-    return static_cast<int>(cudaGetLastError());
-  }
   cudaError_t err = cudaMemsetAsync(
       scratch, 0, ceaz_dq_center_scratch_bytes(C, V), s);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -2,13 +2,13 @@
 //
 // A launch over C rows of V values cuts every row into S = ceil(V / tile)
 // tiles and numbers them flat, t = c * S + segment, so any row count fits
-// one launch. CTA b of a grid of G takes the contiguous tiles
-// [T*b/G, T*(b+1)/G): a CTA a tile (bank.cu) or, on a resident grid of
-// as many CTAs as fit on the card at once (center.cu), several adjacent
-// tiles, whose sums it adds in shared memory before it publishes each
-// row once. A per-row ticket (an atomicAdd of the tiles published, after
-// a __threadfence) names the CTA that publishes a row's last tile; that
-// CTA finishes the row. No CTA waits on another, so the grid needs no
+// one launch: bank.cu runs a CTA a tile (t = blockIdx.x). center.cu runs
+// a resident grid of as many CTAs as fit on the card at once, CTA b of G
+// taking the contiguous tiles [T*b/G, T*(b+1)/G) (cta_span, run_end) and
+// adding their sums in shared memory before it publishes each row once.
+// A per-row ticket (an atomicAdd of the tiles published, after a
+// __threadfence) names the CTA that publishes a row's last tile; that CTA
+// finishes the row. No CTA waits on another, so the grid needs no
 // co-residency.
 #pragma once
 #include <cuda_runtime.h>

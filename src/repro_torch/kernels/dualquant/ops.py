@@ -130,8 +130,7 @@ def center_scratch_bytes(C: int, V: int) -> int:
 
 def dq_center_cuda(q2: torch.Tensor, valid2: torch.Tensor) -> torch.Tensor:
     """csrc/center.cu: a range pass, then up to three 12-bit digit passes
-    select both middle ranks of every row at once (rows of one tile in
-    one launch)."""
+    select both middle ranks of every row at once."""
     dispatch.require_cuda("dq_center", q2, valid2)
     if q2.dtype != torch.int32 or valid2.dtype != torch.bool \
             or q2.ndim != 2 or valid2.shape != q2.shape:

@@ -176,7 +176,8 @@ def _bank_rows(dev, C, cv, n_valid, seed):
     flat[n_valid:] = 0.0
     valid = (np.arange(C * cv) < n_valid).reshape(C, cv)
     prev = np.zeros(C, np.float32)
-    prev[1:] = flat[np.arange(1, C) * cv - 1]
+    if cv:
+        prev[1:] = flat[np.arange(1, C) * cv - 1]
     ebs = np.linspace(0.01, 0.3, C).astype(np.float32)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     return t(flat.reshape(C, cv)), t(prev[:, None]), t(valid), t(ebs)
@@ -191,7 +192,8 @@ def _bank_tables(dev):
 
 
 @pytest.mark.parametrize("C,cv,n_valid", [(3, 4096, 2 * 4096 + 1500),
-                                          (2, (1 << 17) + 4097, 200001)])
+                                          (2, (1 << 17) + 4097, 200001),
+                                          (3, 0, 0)])
 def test_bank_quant_kernels_match_plain(dev, C, cv, n_valid):
     work2, prev2, valid2, ebs = _bank_rows(dev, C, cv, n_valid, 4)
     got = MK.lorenzo_quant_cuda(work2, prev2, valid2, ebs)
@@ -261,8 +263,7 @@ def _center_hard_rows(seed, V):
 @pytest.mark.parametrize("C,V", [(70000, 37), (70000, 4100), (11, 1 << 23),
                                  (11, 4096), (11, 4097)])
 def test_dq_center_kernel_on_hard_rows(dev, C, V):
-    """The hard rows tiled over C rows: one-tile rows (one launch),
-    multi-tile rows with scalar loads (V not a multiple of 16) and a full
+    """The hard rows tiled over C rows: one-tile rows, multi-tile rows with scalar loads (V not a multiple of 16) and a full
     2^23 row with vector loads; more rows than a grid's y dimension."""
     q, v = _center_hard_rows(8, V)
     reps = -(-C // q.shape[0])
@@ -284,11 +285,12 @@ def _tied_bank(dev):
 
 @pytest.mark.parametrize("predictor", ["lorenzo", "value"])
 @pytest.mark.parametrize("C,cv,bs", [(64, 1 << 17, 4096), (1, 1 << 23, 4096),
-                                     (70000, 48, 16), (5, 4096 * 3 + 7, 512)])
+                                     (70000, 48, 16), (5, 4096 * 3 + 7, 512),
+                                     (5, 0, 512)])
 def test_ceaz_chunk_op_at_main_path_shapes(dev, predictor, C, cv, bs):
-    """The op at phase C's and D's shapes, at 70000 short rows and at
-    unaligned rows, with rows holding no valid value, partial rows and a
-    bank whose books tie: bitwise against the plain version, in one
+    """The op at phase C's and D's shapes, at 70000 short rows, at
+    unaligned rows and at rows of no values, with rows holding no valid
+    value, partial rows and a bank whose books tie: bitwise against the plain version, in one
     quantize launch with the select folded in (no bank_select launch)."""
     work2, prev2, _, ebs = _bank_rows(dev, C, cv, C * cv, 9)
     lens = np.full(C, cv)
@@ -304,7 +306,7 @@ def test_ceaz_chunk_op_at_main_path_shapes(dev, predictor, C, cv, bs):
     got = MK.ceaz_chunk_cuda(*args)
     launched = dispatch.launches()
     assert "bank_select" not in launched
-    assert launched.get("dq_center", 0) == (predictor == "value")
+    assert launched.get("dq_center", 0) == (predictor == "value" and cv > 0)
     _eq(got, MK.ceaz_chunk_plain(*args))
 
 
