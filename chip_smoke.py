@@ -58,9 +58,9 @@ through the public facade, at rel eb 1e-4 unless said otherwise:
            launch, and the bytes must equal the megakernel route's;
   phase T  the staged route (``use_fused=False``, backend 'torch'): T.A the
            CESM field as phase A (one 32 MB chunk: dq2d, the histogram
-           kernel, the per-block packer + stitch), T.E the NWChem field
+           kernel, the large-chunk packer), T.E the NWChem field
            value-direct at rel 1e-3 (the value kernels, dq_center,
-           histogram, per-block packer + stitch), T.G the HACC field at
+           histogram, the large-chunk packer), T.G the HACC field at
            fixed ratio 10 in 256 chunks of 2^15 (chunk_bytes=2^17, the
            reference's section 4.7 settings: dq1d, histogram and the
            gather-pack per chunk, 8 tiles on 8 CTAs). Staged decode is
@@ -70,7 +70,8 @@ through the public facade, at rel eb 1e-4 unless said otherwise:
            fused (one pass pair: dq1d per shard, one histogram and one
            pack launch; one batched decode, the tiled walk) and, as
            BATCH.staged, with use_fused=False (per
-           shard: dq1d, histogram, gather-pack); every shard
+           shard: dq1d, histogram, the packer encode_device's rule
+           picks: the large-chunk packer); every shard
            must equal its own ``compress`` and both batches each other;
   phase P  the paper's MPI_Gather scenario, fixed width: 4 ranks, each a
            Nyx-like 256^3 f32 field (64 MB, seeded per rank), through
@@ -111,11 +112,13 @@ kernels, torch glue, the zeroing of its outputs (``cold_device_ms``:
 torch.profiler's record, a 256 MB buffer written before every call) —
 beside its bound, its wrapper's host time and an empty launch through
 the same binding (the floor). The pass-2 pack (``gather_pack_tiled``),
-the bank encode op (row 9) and ``dq_center`` (row 13) are held and
-timed at every shape where the counted runs called them, from censuses
-of their calls printed before the kernels line (``dq_center`` by phase
-too, with each row's valid-key range, and beside two torch.kthvalue
-calls at E.bank). The
+the bank encode op (row 9), ``dq_center`` (row 13) and the staged
+route's large-chunk packer (row 7, ``hufenc``) are held and timed at
+every shape where the counted runs called them, from censuses of their
+calls printed before the kernels line (``dq_center`` by phase too, with
+each row's valid-key range, and beside two torch.kthvalue calls at
+E.bank); a row-7 call must put one kernel and one memset on the device.
+The
 three warp walks (``hufdec_tiles``, the split route's ``hufdec``, the
 decode megakernel) are held and timed at every phase where they launch
 and on garbage and bit-flipped streams; after each decode phase the
@@ -167,7 +170,7 @@ REPLACES = {
     "unpack": "src/repro/kernels/bitpack/kernel.py:65",
     "histogram": "src/repro/kernels/histogram/kernel.py:39",
     "gather_pack": "src/repro/kernels/hufenc/kernel.py:164",
-    # with its stitch, the reference's host hufenc/ops.py::to_host_stream
+    # with the reference's host hufenc/ops.py::to_host_stream
     "hufenc": "src/repro/kernels/hufenc/kernel.py:344",
 }
 SOURCES = {
@@ -190,7 +193,7 @@ SOURCES = {
     "hufenc": "src/repro_torch/csrc/hufenc.cu",
 }
 _VALUE = ("value_quant_tiles", "dq_center", "value_finalize_tiles")
-_BLOCKS = ("histogram", "hufenc", "hufenc_stitch")
+_BLOCKS = ("histogram", "hufenc")
 PHASE_KERNELS = {
     "A": ("dq2d", "histogram", "gather_pack_tiled", "hufdec_tiles"),
     "B": ("dq1d", "histogram", "gather_pack_tiled", "ceaz_chunk_dec_fused"),
@@ -235,7 +238,11 @@ NO_SELECT_PHASES = ("C", "C.value", "D", "E.bank", "E.drift", "G.bank")
 CAPTURED_OPS = ("dualquant", "hufenc", "ceaz_chunk_dec", "ceaz_chunk",
                 "value_quant", "dq_center", "value_finalize", "bank_select",
                 "lorenzo_quant", "hufdec", "histogram", "gather_pack",
-                "hufenc_blocks", "hufenc_stitch")
+                "hufenc_flat", "hufenc_blocks")
+# the staged route's large-chunk packer (row 7): the op of the imported
+# tree, `hufenc_flat`, or a parent's per-block packer `hufenc_blocks`
+# (then with its stitch); ops a tree does not register are not captured
+ROW7_OPS = ("hufenc_flat", "hufenc_blocks")
 # the wire path's ops: the call with the most values is kept
 WIRE_OPS = ("pack_words", "unpack_words")
 
@@ -284,16 +291,15 @@ def _device_events(prof):
     return sorted(ev, key=lambda e: e.time_range.start)
 
 
-def cold_device_ms(fn, reps=10):
-    """Device ms of one call of fn with a cold L2: everything the call put
-    on the device — its kernels, its torch glue, the zeroing of its
-    outputs — from torch.profiler's record of `reps` calls, each after a
-    256 MB buffer is written, so that every call reads its inputs from
-    device memory and not from the L2 the last call left them in. A
-    marker kernel (torch.cuda._sleep's spin_kernel, which no op launches)
-    follows each flush: a call is the events after a marker, less the
-    next call's flush. The median call; None where the profiler recorded
-    no call."""
+def profiled_calls(fn, reps=10):
+    """The device events (name, us) of each of `reps` calls of fn with a
+    cold L2: everything the call put on the device — its kernels, its
+    torch glue, the zeroing of its outputs — from torch.profiler's record
+    of the calls, each after a 256 MB buffer is written, so that every
+    call reads its inputs from device memory and not from the L2 the
+    last call left them in. A marker kernel (torch.cuda._sleep's
+    spin_kernel, which no op launches) follows each flush: a call is the
+    events after a marker, less the next call's flush."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -313,9 +319,15 @@ def cold_device_ms(fn, reps=10):
                 calls[-1].pop()          # this call's flush
             calls.append([])
         elif calls:
-            calls[-1].append(e.time_range.elapsed_us())
+            calls[-1].append((e.name, e.time_range.elapsed_us()))
     del flush
-    calls = [sum(c) for c in calls if c]
+    return [c for c in calls if c]
+
+
+def cold_device_ms(fn, reps=10):
+    """Device ms of one call of fn with a cold L2 (profiled_calls): the
+    median call; None where the profiler recorded no call."""
+    calls = [sum(us for _, us in c) for c in profiled_calls(fn, reps)]
     return statistics.median(calls) / 1e3 if calls else None
 
 
@@ -692,7 +704,7 @@ class Censuses:
     """The censuses the counted runs keep: row 3's pack by (C, cv, w32);
     the bank encode op (row 9) by (predictor, C, cv, w32, block size);
     dq_center (row 13) by (phase, C, V), since its passes depend on the
-    data."""
+    data; the large-chunk packer (row 7) by (n, block size)."""
 
     def __init__(self):
         self.pack = Census(lambda p, a: (a[0].shape[0], a[0].shape[1], a[5]),
@@ -701,7 +713,8 @@ class Censuses:
                                        a[7], a[6]))
         self.center = Census(lambda p, a: (p, a[0].shape[0], a[0].shape[1]),
                              "dq_center")
-        self.all = (self.pack, self.op, self.center)
+        self.flat = Census(lambda p, a: (a[0].numel(), a[3]), "hufenc")
+        self.all = (self.pack, self.op, self.center, self.flat)
 
     def start(self, phase):
         for c in self.all:
@@ -1543,7 +1556,7 @@ def staged_packers(n):
     draw the line elsewhere."""
     from repro_torch.kernels.hufenc import ops as HE
     return (("gather_pack",) if n <= HE.GATHER_PACK_MAX_VALUES
-            else ("hufenc", "hufenc_stitch"))
+            else ("hufenc",))
 
 
 def run_batch_phases(field, offline, dispatch, CEAZ, CEAZConfig, captured,
@@ -1633,17 +1646,97 @@ def launch_floor():
                 host_ms=host_call_ms(call))
 
 
-def staged_kernel_rows(inputs, rows):
+def row7_calls(HE, codes, ln, cw, bs):
+    """Row 7 on (codes, lengths, cwords, block size) through the imported
+    tree's wrappers -> (total bits, card call, plain call), each call
+    giving (stream words, block bits): the one-launch `hufenc_cuda`, or a
+    parent's `hufenc_blocks_cuda` + `stitch_cuda` (rows as wide as a
+    block at the book's longest code)."""
+    import torch
+    total = int(ln.to(torch.int64)[codes.to(torch.int64)
+                                   .clamp(0, NUM_SYMBOLS - 1)].sum())
+    if hasattr(HE, "hufenc_cuda"):
+        return (total, lambda: HE.hufenc_cuda(codes, ln, cw, bs, total),
+                lambda: HE.hufenc_plain(codes, ln, cw, bs, total))
+    max_len = int(ln.max())
+
+    def two(blocks, stitch):
+        rows, nbits = blocks(codes, ln, cw, bs, max_len)
+        return stitch(rows, nbits, total), nbits
+    return (total, lambda: two(HE.hufenc_blocks_cuda, HE.stitch_cuda),
+            lambda: two(HE.hufenc_blocks_plain, HE.stitch_plain))
+
+
+def row7_device_check(fn, what):
+    """A row-7 call puts one kernel (hufenc_kernel) and one memset on the
+    device and counts one `hufenc` launch (a parent's two kernels and
+    torch glue: printed, not checked). A profiler session now and then
+    records no device event, or not all of them (seen on the card, about
+    once in a few hundred sessions), so up to five sessions are read: one
+    whose every call is that kernel and that memset settles it; events
+    the call does put on the device show in every session."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.hufenc import ops as HE
+    dispatch.reset_launches()
+    fn()
+    launched = dispatch.launches()
+
+    def one_kernel_one_memset(call):
+        return (len(call) == 2
+                and sum("hufenc_kernel" in n for n in call) == 1
+                and sum("memset" in n.lower() for n in call) == 1)
+    mine = hasattr(HE, "hufenc_cuda")
+    for _ in range(5):
+        names = [[n for n, _ in c] for c in profiled_calls(fn, reps=3)]
+        if names and (not mine
+                      or all(one_kernel_one_memset(c) for c in names)):
+            break
+    print(f"row 7 at {what}: launches {launched}, device events of a "
+          f"call {names[0] if names else None}")
+    if not mine:
+        return
+    check(launched == {"hufenc": 1},
+          f"row 7 at {what}: a call counted {launched}")
+    check(names and all(one_kernel_one_memset(c) for c in names),
+          f"row 7 at {what}: a call is not one kernel and one memset: "
+          f"{names}")
+
+
+def flat_rows(census, rows):
+    """Row 7 at every (n, block size) where the counted runs called it
+    (T.A's call is the row), held bitwise against its plain version and
+    timed L2-cold, each call checked to be one kernel and one memset.
+    Bound: the codes and the book read once, the payload and the block
+    bits written once, ~8 integer operations a value."""
+    from repro_torch.kernels.hufenc import ops as HE
+
+    def case(key, phase, args):
+        codes, ln, cw, bs = args[:4]
+        total, cuda, plain = row7_calls(HE, codes, ln, cw, bs)
+        row7_device_check(cuda, f"{phase}'s chunk {key}")
+        add_row(rows, "hufenc", cuda, plain,
+                in_bytes=nbytes(codes, ln, cw),
+                out_bytes=total // 8 + 4 * -(-codes.numel() // bs),
+                ops=8 * codes.numel(),
+                extra=dict(values=codes.numel(), total_bits=total),
+                time_plain=phase == "T.A")
+        return rows["hufenc"]
+
+    census_rows(census, rows, "hufenc", "row 7 (hufenc), (n, block size)",
+                case, main_phase="T.A", keep=("values", "total_bits"))
+
+
+def staged_kernel_rows(inputs, census, rows):
     """The three kernels the staged route brought, on the main path's
     inputs: `histogram` at B's and A's calls and at one row of T.G (2^15
     values) and of G.off (2^17), each beside the torch.bincount call it
-    replaces; `gather_pack` at T.G's chunk; `hufenc` (+ its stitch) at
-    T.A's chunk; both packers held against each other and timed at 2^15,
-    2^16, 2^22, 2^22+1 and 2^23 of T.E's codes, the two sides of
-    encode_device's rule; an empty launch, the floor under the one-row
-    cases. Every case of `histogram` and the packers has ms (events,
-    warm, host included), device_ms (its kernels and zeroing, L2-cold)
-    and host_ms (the wrapper's host side) beside its bound."""
+    replaces; `gather_pack` at T.G's chunk; `hufenc` (row 7) at every
+    chunk of its census (T.A, T.E, BATCH.staged); both packers held
+    against each other and timed at 2^15, 2^16, 2^22, 2^22+1 and 2^23 of
+    T.E's codes (2^15 and 2^16 the two sides of encode_device's rule); an
+    empty launch, the floor under the one-row cases. Every case of `histogram` and the packers has ms
+    (events, warm, host included), device_ms (its kernels and zeroing,
+    L2-cold) and host_ms (the wrapper's host side) beside its bound."""
     import torch
     from repro_torch.kernels.histogram import ops as HG
     from repro_torch.kernels.hufenc import ops as HE
@@ -1678,44 +1771,26 @@ def staged_kernel_rows(inputs, rows):
             ops=8 * codes2.numel(),
             extra=dict(phase="T.G", values=codes2.shape[1]))
 
-    blocks = inputs["T.A"]["hufenc_blocks"][0]
-    stitch = inputs["T.A"]["hufenc_stitch"][0]
-    codes, ln, cw, bs, max_len = blocks
-    total = stitch[2]
-    add_row(rows, "hufenc",
-            lambda: (*HE.hufenc_blocks_cuda(*blocks),
-                     HE.stitch_cuda(*stitch)),
-            lambda: (*HE.hufenc_blocks_plain(*blocks),
-                     HE.stitch_plain(*stitch)),
-            in_bytes=nbytes(codes, ln, cw),
-            out_bytes=total // 8 + 4 * stitch[1].numel(),
-            ops=8 * codes.numel(),
-            extra=dict(phase="T.A", values=codes.numel(),
-                       blocks_ms=cuda_ms(lambda: HE.hufenc_blocks_cuda(
-                           *blocks)),
-                       stitch_ms=cuda_ms(lambda: HE.stitch_cuda(*stitch))))
+    flat_rows(census, rows)
 
-    codes, ln, cw, bs, max_len = inputs["T.E"]["hufenc_blocks"][0]
+    op = next(op for op in ROW7_OPS if op in inputs["T.E"])
+    codes, ln, cw, bs = inputs["T.E"][op][0][:4]
     crossover = []
     for n in (1 << 15, 1 << 16, 1 << 22, (1 << 22) + 1, codes.numel()):
         c = codes[:n]
-        _, nb = HE.hufenc_blocks_cuda(c, ln, cw, bs, max_len)
-        tot = int(nb.sum())
+        tot, hb, _ = row7_calls(HE, c, ln, cw, bs)
         n32 = 2 * ((tot + 63) // 64 + 1)
         one = torch.ones((1, n), dtype=torch.bool, device=c.device)
         gp = lambda: HE.gather_pack_cuda(c[None], one, ln[None], cw[None],
                                          bs, n32)
-        hb = lambda: HE.stitch_cuda(*HE.hufenc_blocks_cuda(c, ln, cw, bs,
-                                                           max_len), tot)
         words, nbits = gp()
-        check(same_outputs((words[0], nbits[0]), (hb(), nb)),
-              f"gather_pack and hufenc_blocks + stitch disagree at {n} "
-              "values")
+        check(same_outputs((words[0], nbits[0]), hb()),
+              f"gather_pack and hufenc disagree at {n} values")
         check(same_outputs((words, nbits), HE.encode_pack_plain(
             c[None], one, ln[None], cw[None], bs, n32)),
             f"kernel gather_pack disagrees with its plain version at {n} "
             "values")
-        bound = (nbytes(c, one, ln, cw) + 4 * (n32 + nb.numel())) \
+        bound = (nbytes(c, one, ln, cw) + 4 * (n32 + nbits.numel())) \
             / HBM_BYTES_PER_S * 1e3
         gp_dev = cold_device_ms(gp)
         crossover.append(dict(
@@ -1726,7 +1801,7 @@ def staged_kernel_rows(inputs, rows):
             hufenc_host_ms=host_call_ms(hb),
             bound_ms=bound, pct_of_bound=pct_of_bound(bound, gp_dev)))
         print(f"packers at {n} values of T.E's codes: gather_pack == "
-              f"hufenc_blocks + stitch == plain: True {crossover[-1]}")
+              f"hufenc == plain: True {crossover[-1]}")
     rows["gather_pack"]["crossover"] = crossover
 
     floor = launch_floor()
@@ -1810,8 +1885,15 @@ def main():
     HE.encode_pack_cuda = census.pack.wrap(HE.encode_pack_cuda)
     MK.ceaz_chunk_cuda = census.op.wrap(MK.ceaz_chunk_cuda)
     DQ.dq_center_cuda = census.center.wrap(DQ.dq_center_cuda)
+    # row 7: the one-launch wrapper, or a parent's per-block packer (whose
+    # launches are counted under the same name)
+    flat = "hufenc_cuda" if hasattr(HE, "hufenc_cuda") else \
+        "hufenc_blocks_cuda"
+    setattr(HE, flat, census.flat.wrap(getattr(HE, flat)))
     captured = {}
     for op in CAPTURED_OPS:
+        if not dispatch.available(op):
+            continue
         fn = dispatch.resolve(op, "cuda", "cuda")
 
         def recorder(*a, _fn=fn, _op=op):
@@ -1872,8 +1954,8 @@ def main():
           and "dq_center" in inputs["E.exact"], "phase E inputs not captured")
     check(all("histogram" in inputs[p] for p in ("A", "B", "T.G", "G.off"))
           and "gather_pack" in inputs["T.G"]
-          and all(op in inputs["T.A"] and op in inputs["T.E"]
-                  for op in ("hufenc_blocks", "hufenc_stitch")),
+          and all(any(op in inputs[p] for op in ROW7_OPS)
+                  for p in ("T.A", "T.E")),
           "phase A/B/T inputs not captured")
     check("lorenzo_quant" in inputs["G"] and "dualquant" in inputs["G.off"]
           and "ceaz_chunk" in inputs["G.bank"]
@@ -1903,7 +1985,7 @@ def main():
     center_rows(census.center, rows)
     walk_rows(inputs, rows)
     walk_garbage_checks(inputs)
-    staged_kernel_rows(inputs, rows)
+    staged_kernel_rows(inputs, census.flat, rows)
     window_checks(inputs, rows)
     nonfinite_check()
     center_corner_check()
@@ -1912,11 +1994,9 @@ def main():
     for name, r in rows.items():
         r["launches"] = sum(c.get(name, 0) for c in counts.values())
     for name, cen in (("gather_pack_tiled", census.pack),
-                      ("dq_center", census.center)):
+                      ("dq_center", census.center), ("hufenc", census.flat)):
         check(rows[name]["launches"] == sum(cen.totals().values()),
               f"{name} launched outside the phases its census covers")
-    rows["hufenc"]["stitch_launches"] = sum(c.get("hufenc_stitch", 0)
-                                            for c in counts.values())
     for name, t in thr.items():
         enc = (f"compress {t['compress_GBps']} GB/s ({t['compress_s']} s), "
                if "compress_s" in t else "")

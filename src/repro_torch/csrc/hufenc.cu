@@ -1,5 +1,5 @@
-// Huffman packers: per-chunk codebook gather + contiguous MSB-first bit
-// packing into u32 words, plus per-block bit counts.
+// Huffman packers: codebook gather + contiguous MSB-first bit packing
+// into u32 words, plus per-block bit counts.
 //
 // Replaces three TPU kernels of src/repro/kernels/hufenc/kernel.py:
 //
@@ -8,11 +8,11 @@
 //     the same function with one program per chunk: both are
 //     gather_pack_kernel, one launch (the wrappers count it under the
 //     TPU kernel each replaces);
-//   * hufenc (:344; pallas_call at :353), the serial per-block packer,
-//     one padded row per stream block — blocks_pack_kernel, with
-//     stitch_kernel laying the rows end to end into the host stream
-//     (the reference does that on the host, hufenc/ops.py::
-//     to_host_stream).
+//   * hufenc (:344; pallas_call at :353), the serial per-block packer of
+//     one flat stream against one book, followed by the reference's host
+//     concatenation of the blocks' padded rows (hufenc/ops.py::
+//     to_host_stream): hufenc_kernel writes the concatenated stream
+//     directly, one launch.
 //
 // The TPU kernels compose every OUTPUT word from a window of up to 33
 // candidate symbols found by a binary search over bit offsets (or, in
@@ -27,16 +27,15 @@
 //   gather_pack_kernel: persistent CTAs take 4096-symbol tiles of the
 //     rows by ticket; each tile's first bit comes from a decoupled
 //     look-back over per-tile status words (below, before the kernel).
-//   blocks_pack_kernel: one CTA per stream block packs the block into its
-//     own row (the FPGA's N pipelines, one per block) and writes the
-//     block's bit count (pack_run); the stitch kernel then ORs each row
-//     word into the output at the block's exclusive-cumsum bit offset
-//     (int64), so an output word may gather bits of any number of blocks.
+//   hufenc_kernel: the same tiles, look-back and per-tile count, compose
+//     and write-out over one flat row with one book and no valid flags;
+//     each CTA's next tile is prefetched into the L2 by a TMA bulk
+//     prefetch while it packs the current one (below, before the kernel).
 //
-// Bound on the H100: bytes — each value is read once as a 4 B code and a
-// 1 B valid flag, and the payload (~2-16 bits a value) is written once
-// (hufenc: written as rows, read and written again by the stitch); the
-// codebook rows (8 KB per chunk) sit in shared memory.
+// Bound on the H100: bytes — each value is read once as a 4 B code (and,
+// in gather_pack_kernel, a 1 B valid flag), and the payload (~2-16 bits
+// a value) is written once; the codebook rows (8 KB per book) sit in
+// shared memory.
 //
 // What held gather_pack_kernel's first design back (a CTA a tile, each
 // thread's 16 symbols staged in a shared table, then counted, then packed
@@ -109,65 +108,6 @@ __device__ int32_t block_exclusive_scan(int32_t v, int32_t* total) {
   return before + x - v;
 }
 
-__device__ __forceinline__ void flush(uint32_t* row, int64_t w32, int64_t w,
-                                      uint32_t acc) {
-  if (w >= 0 && w < w32 && acc != 0) atomicOr(row + w, acc);
-}
-
-// Code bits of the valid symbols [p0, p1) of a row (vrow null: all valid).
-__device__ __forceinline__ int32_t run_bits(const int32_t* crow,
-                                            const uint8_t* vrow, int64_t p0,
-                                            int64_t p1, const int32_t* ln) {
-  int32_t bits = 0;
-  for (int64_t p = p0; p < p1; ++p)
-    if (!vrow || vrow[p]) bits += ln[clamp_code(crow[p])];
-  return bits;
-}
-
-// ORs the codewords of the valid symbols [p0, p1) of a row into `row`
-// from bit `bit` on, composing whole words in a register.
-__device__ void pack_run(const int32_t* crow, const uint8_t* vrow,
-                         int64_t p0, int64_t p1, const int32_t* ln,
-                         const uint32_t* cw, int64_t bit, uint32_t* row,
-                         int64_t w32) {
-  int64_t cur = -1;
-  uint32_t acc = 0;
-  for (int64_t p = p0; p < p1; ++p) {
-    if (vrow && !vrow[p]) continue;
-    int code = clamp_code(crow[p]);
-    int len = ln[code];
-    if (len <= 0) continue;
-    uint32_t v = cw[code];
-    int64_t w = bit >> 5;
-    int off = static_cast<int>(bit & 31);
-    bit += len;
-    if (w != cur) {
-      flush(row, w32, cur, acc);
-      cur = w;
-      acc = 0;
-    }
-    if (off + len <= 32) {
-      acc |= v << (32 - off - len);
-    } else {
-      acc |= v >> (off + len - 32);
-      flush(row, w32, cur, acc);
-      cur = w + 1;
-      acc = v << (64 - off - len);
-    }
-  }
-  flush(row, w32, cur, acc);
-}
-
-__device__ __forceinline__ void load_tables(const int32_t* lengths,
-                                            const int32_t* cwords,
-                                            int32_t* ln, uint32_t* cw) {
-  for (int s = threadIdx.x; s < NUM_SYMBOLS; s += THREADS) {
-    ln[s] = lengths[s];
-    cw[s] = static_cast<uint32_t>(cwords[s]);
-  }
-  __syncthreads();
-}
-
 // ---- gather_pack_tiled and gather_pack: one launch, a look-back -----------
 //
 // A row of cv symbols is cut into tiles of GP_TILE symbols, every row's
@@ -213,9 +153,14 @@ constexpr unsigned long long ST_AGG = 1ull << 62;   // aggregate published
 constexpr unsigned long long ST_PRE = 2ull << 62;   // inclusive prefix
 constexpr unsigned long long ST_VAL = ST_AGG - 1;
 
+// A tile's status word. The word carries flag and value in one 64-bit
+// store, and a reader uses nothing else the writer wrote, so no fence is
+// needed for the look-back itself; gather_pack_kernel keeps the fence it
+// was measured with (kFence).
+template <bool kFence = true>
 __device__ __forceinline__ void gp_publish(unsigned long long* st,
                                            unsigned long long v) {
-  __threadfence();
+  if (kFence) __threadfence();
   *reinterpret_cast<volatile unsigned long long*>(st) = v;
 }
 
@@ -226,31 +171,53 @@ __device__ __forceinline__ unsigned long long gp_status(
 }
 
 // A composed word of a run into the tile's buffer: stored when it lies
-// wholly inside the run's bits [b0, b1) (no other thread has bits there),
-// ORed when it is shared with a neighbouring run.
+// wholly inside the run's bits [b0, b1) (no other thread has bits there;
+// stored even when zero, so the buffer's interior words need no zeroing),
+// ORed when it is shared with a neighbouring run (an edge word of the
+// run, zeroed before: gp_zero_edges).
 __device__ __forceinline__ void gp_emit(uint32_t* buf, int w, uint32_t acc,
                                         int b0, int b1) {
-  if (acc == 0 || w < 0 || w >= GP_WORDS) return;
+  if (w < 0 || w >= GP_WORDS) return;
   if (32 * w >= b0 && 32 * w + 32 <= b1)
     buf[w] = acc;
-  else
+  else if (acc != 0)
     atomicOr(buf + w, acc);
+}
+
+// Zeroes the two edge words of a run's bits [b0, b1) in the tile's
+// buffer: the only words of the run that gp_emit ORs. A word wholly
+// inside another run holds none of this run's bits, so no store of
+// another thread lands here; the CTA syncs between this and gp_compose.
+__device__ __forceinline__ void gp_zero_edges(uint32_t* buf, int b0,
+                                              int b1) {
+  if (b1 <= b0) return;
+  buf[b0 >> 5] = 0u;
+  buf[(b1 - 1) >> 5] = 0u;
 }
 
 // The run's symbols from the row into sym[] (the clamped code), with
 // each symbol's length in the high half (0 when invalid or past the
 // tile's n symbols) -> the run's bits. g: the run's first symbol's global
-// index; i0: its index in the tile.
+// index; i0: its index in the tile. Without flags (kValid false) every
+// symbol before n is valid and `valid` is not read.
+template <bool kValid = true>
 __device__ __forceinline__ int32_t gp_load_run(
     const int32_t* __restrict__ codes, const uint8_t* __restrict__ valid,
     const int32_t* ln, int64_t g, int i0, int n, int32_t* sym) {
   int32_t bits = 0;
   if (i0 + GP_PER <= n
       && ((reinterpret_cast<uintptr_t>(codes + g)
-           | reinterpret_cast<uintptr_t>(valid + g)) & 15) == 0) {
+           | (kValid ? reinterpret_cast<uintptr_t>(valid + g) : 0)) & 15)
+             == 0) {
     const int4* c4 = reinterpret_cast<const int4*>(codes + g);
-    const uint4 f = __ldg(reinterpret_cast<const uint4*>(valid + g));
-    const uint32_t fw[4] = {f.x, f.y, f.z, f.w};
+    uint32_t fw[4] = {~0u, ~0u, ~0u, ~0u};
+    if (kValid) {
+      const uint4 f = __ldg(reinterpret_cast<const uint4*>(valid + g));
+      fw[0] = f.x;
+      fw[1] = f.y;
+      fw[2] = f.z;
+      fw[3] = f.w;
+    }
 #pragma unroll
     for (int k = 0; k < GP_PER / 4; ++k) {
       const int4 v = __ldg(c4 + k);
@@ -269,7 +236,7 @@ __device__ __forceinline__ int32_t gp_load_run(
       int32_t l = 0, code = 0;
       if (i0 + i < n) {
         code = clamp_code(codes[g + i]);
-        l = valid[g + i] ? ln[code] : 0;
+        l = !kValid || valid[g + i] ? ln[code] : 0;
       }
       sym[i] = code | (l << 16);
       bits += l;
@@ -355,6 +322,67 @@ __device__ __forceinline__ int64_t gp_look_back(const unsigned long long* st,
   return excl;
 }
 
+// A tile's bits into its stream blocks (block_nbits row nb), from the
+// runs' scanned first bits: with bs a multiple of GP_PER each run lies in
+// one block, and a block's share of the tile is the difference of the
+// first bits of its first run and of the next block's (pre[]: the runs'
+// tile-local first bits, pre[THREADS] the tile's total; one atomicAdd a
+// (tile, block), whatever bs, also past a tile); otherwise each run steps
+// its block boundaries. t0: the tile's first symbol in the row; i0: the
+// run's in the tile; n: the tile's symbols.
+__device__ __forceinline__ void gp_block_bits(const int32_t* pre,
+                                              const int32_t* sym, int64_t t0,
+                                              int i0, int n, int32_t before,
+                                              int64_t bs, int32_t* nb) {
+  if (i0 >= n) return;
+  const int64_t p0 = t0 + i0;
+  if (bs % GP_PER == 0) {
+    const int64_t blk = p0 / bs;
+    if (i0 == 0 || p0 % bs == 0) {
+      const int64_t end = min(static_cast<int64_t>(n), (blk + 1) * bs - t0);
+      const int32_t v = pre[(end + GP_PER - 1) / GP_PER] - before;
+      if (v) atomicAdd(nb + blk, v);
+    }
+  } else {
+    int64_t blk = p0 / bs, nxt = (blk + 1) * bs;
+    int32_t bb = 0;
+#pragma unroll
+    for (int i = 0; i < GP_PER; ++i) {
+      if (p0 + i == nxt) {
+        if (bb) atomicAdd(nb + blk, bb);
+        ++blk;
+        nxt += bs;
+        bb = 0;
+      }
+      bb += sym[i] >> 16;
+    }
+    if (bb) atomicAdd(nb + blk, bb);
+  }
+}
+
+// The tile's buffer (total bits from its bit 0) out to the row at the
+// tile's first bit s0, coalesced: a word wholly inside the tile's bits is
+// stored, the two edge words (shared with the neighbouring tiles) are
+// ORed into the zeroed row; bits past w32 words are dropped.
+__device__ __forceinline__ void gp_write_out(const uint32_t* buf, int64_t s0,
+                                             int32_t total, uint32_t* row,
+                                             int64_t w32) {
+  if (total <= 0) return;
+  const int o = static_cast<int>(s0 & 31);
+  const int64_t w0 = s0 >> 5;
+  const int nbuf = (total + 31) >> 5;
+  const int nout = (o + total + 31) >> 5;
+  for (int j = threadIdx.x; j < nout && w0 + j < w32; j += THREADS) {
+    const uint32_t hi = j < nbuf ? buf[j] : 0u;
+    uint32_t v = hi;
+    if (o != 0) v = (hi >> o) | (j > 0 ? buf[j - 1] << (32 - o) : 0u);
+    if (32 * j >= o && 32 * (j + 1) <= o + total)
+      row[w0 + j] = v;
+    else if (v != 0)
+      atomicOr(row + w0 + j, v);
+  }
+}
+
 __global__ void __launch_bounds__(THREADS, GP_CTAS_PER_SM)
 gather_pack_kernel(const int32_t* __restrict__ codes,
                    const uint8_t* __restrict__ valid,
@@ -413,100 +441,112 @@ gather_pack_kernel(const int32_t* __restrict__ codes,
     if (tid == 0 && tile > 0)
       gp_publish(st + tile,
                  ST_PRE | static_cast<unsigned long long>(s0 + total));
-
-    // the stream blocks' bits: with bs a multiple of GP_PER each run lies
-    // in one block, and a block's share of the tile is the difference of
-    // the first bits of its first run and of the next block's (one
-    // atomicAdd a (tile, block)); otherwise each run steps its block
-    // boundaries
-    int32_t* nb = block_nbits + c * nblocks;
-    if (i0 < n) {
-      const int64_t p0 = t0 + i0;
-      if (bs % GP_PER == 0) {
-        const int64_t blk = p0 / bs;
-        if (i0 == 0 || p0 % bs == 0) {
-          const int64_t end = min(static_cast<int64_t>(n),
-                                  (blk + 1) * bs - t0);
-          const int32_t v = pre[(end + GP_PER - 1) / GP_PER] - before;
-          if (v) atomicAdd(nb + blk, v);
-        }
-      } else {
-        int64_t blk = p0 / bs, nxt = (blk + 1) * bs;
-        int32_t bb = 0;
-#pragma unroll
-        for (int i = 0; i < GP_PER; ++i) {
-          if (p0 + i == nxt) {
-            if (bb) atomicAdd(nb + blk, bb);
-            ++blk;
-            nxt += bs;
-            bb = 0;
-          }
-          bb += sym[i] >> 16;
-        }
-        if (bb) atomicAdd(nb + blk, bb);
-      }
-    }
-    if (total <= 0) continue;
-    // out to the row at the tile's first bit, coalesced: a word wholly
-    // inside the tile's bits is stored, the two edge words (shared with
-    // the neighbouring tiles) are ORed; bits past w32 words are dropped
-    const int o = static_cast<int>(s0 & 31);
-    const int64_t w0 = s0 >> 5;
-    const int nbuf = (total + 31) >> 5;
-    const int nout = (o + total + 31) >> 5;
-    uint32_t* row = words + c * w32;
-    for (int j = tid; j < nout && w0 + j < w32; j += THREADS) {
-      const uint32_t hi = j < nbuf ? buf[j] : 0u;
-      uint32_t v = hi;
-      if (o != 0) v = (hi >> o) | (j > 0 ? buf[j - 1] << (32 - o) : 0u);
-      if (32 * j >= o && 32 * (j + 1) <= o + total)
-        row[w0 + j] = v;
-      else if (v != 0)
-        atomicOr(row + w0 + j, v);
-    }
+    gp_block_bits(pre, sym, t0, i0, n, before, bs, block_nbits + c * nblocks);
+    gp_write_out(buf, s0, total, words + c * w32, w32);
   }
 }
 
-__global__ void blocks_pack_kernel(const int32_t* __restrict__ codes,
-                                   int64_t n,
-                                   const int32_t* __restrict__ lengths,
-                                   const int32_t* __restrict__ cwords,
-                                   int64_t bs, int64_t R, uint32_t* rows,
-                                   int32_t* nbits) {
+// ---- hufenc: one flat stream against one book, one launch --------------
+//
+// The reference packs each 4096-symbol stream block into its own padded
+// row and the host lays the rows end to end (to_host_stream); the
+// port's first design did the same on the card (a row buffer zeroed,
+// a CTA a block into its row, a cumsum, a stitch kernel ORing every row
+// word into the stream: the payload crossed memory three times). Here
+// the stream is packed where it lies, by gather_pack_kernel's scheme for
+// one row: persistent CTAs take its 4096-symbol tiles by ticket, in one
+// ticket order, a CTA holding at most one ticket beyond the tile it
+// packs; each thread loads its run of GP_PER symbols into registers by
+// 16-byte loads (gp_load_run) and sums its bits, a block-wide scan places
+// the runs, the tile publishes its aggregate, composes its words into a
+// shared buffer, looks back for its first bit (int64 prefixes, 64-bit
+// status words) and writes the buffer out shifted to it, storing interior
+// words and ORing only its two edge words; the blocks' bit counts come
+// from the runs' scanned first bits (gp_block_bits), for any block size.
+// What differs, by design and as measured on the H100 (PERF.md section 6):
+//   * one book for the stream: a CTA loads it into shared memory once;
+//   * no valid flags: 4 B a value is read, and past n there is nothing;
+//   * the next tile's codes are prefetched into the L2 by one TMA bulk
+//     prefetch (cp.async.bulk.prefetch.L2, issued by one thread as soon
+//     as the next ticket is back), so its loads hit the L2 while the
+//     memory streams the tile after: the CTAs of an SM move through
+//     their tiles nearly in step (gather_pack_kernel's wall), and this
+//     keeps the memory busy while they pack and look back, at no cost in
+//     registers or issue slots to the packing threads. Staging the codes
+//     in shared memory by TMA bulk copy instead (a ring of two stages, by
+//     the CTA or by a producer warp) measured slower;
+//   * the buffer's interior words are stored and each thread zeroes its
+//     run's two edge words before the ORs (gp_zero_edges), so nothing
+//     else in it is zeroed;
+//   * status words are published without a fence (gp_publish).
+// A CTA waits only on tiles of lower tickets, each held by a running CTA
+// that works through its tickets in order, so the grid needs no
+// co-residency guarantee.
+__global__ void __launch_bounds__(THREADS, GP_CTAS_PER_SM)
+hufenc_kernel(const int32_t* __restrict__ codes, int64_t n,
+              const int32_t* __restrict__ lengths,
+              const int32_t* __restrict__ cwords, int64_t bs, int64_t tiles,
+              int64_t w32, uint32_t* words, int32_t* block_nbits,
+              unsigned long long* status, unsigned long long* ticket) {
   __shared__ int32_t ln[NUM_SYMBOLS];
   __shared__ uint32_t cw[NUM_SYMBOLS];
-  load_tables(lengths, cwords, ln, cw);
-  int64_t b = blockIdx.x;
-  int64_t end = min((b + 1) * bs, n);
-  int64_t per = (bs + THREADS - 1) / THREADS;
-  int64_t p0 = min(b * bs + threadIdx.x * per, end);
-  int64_t p1 = min(p0 + per, end);
-  int32_t total;
-  int32_t before = block_exclusive_scan(run_bits(codes, nullptr, p0, p1, ln),
-                                        &total);
-  pack_run(codes, nullptr, p0, p1, ln, cw, before, rows + b * R, R);
-  if (threadIdx.x == 0) nbits[b] = total;
-}
-
-__global__ void stitch_kernel(const uint32_t* __restrict__ rows,
-                              const int32_t* __restrict__ nbits,
-                              const int64_t* __restrict__ first_bit,
-                              int64_t R, int64_t n_out, uint32_t* out) {
-  int64_t b = blockIdx.x;
-  const uint32_t* row = rows + b * R;
-  int64_t nw = min((static_cast<int64_t>(nbits[b]) + 31) >> 5, R);
-  int64_t g0 = first_bit[b];
-  for (int64_t j = threadIdx.x; j < nw; j += THREADS) {
-    uint32_t v = row[j];                // bits past nbits are zero
-    if (v == 0) continue;
-    int64_t g = g0 + 32 * j;
-    int64_t w = g >> 5;
-    int s = static_cast<int>(g & 31);
-    if (w < n_out) atomicOr(out + w, v >> s);
-    if (s != 0 && w + 1 < n_out) {
-      uint32_t u = v << (32 - s);
-      if (u != 0) atomicOr(out + w + 1, u);
+  __shared__ __align__(16) uint32_t buf[GP_WORDS];
+  __shared__ int32_t pre[THREADS + 1];    // the runs' tile-local first bits
+  __shared__ int64_t s_next;
+  __shared__ int64_t part[2 * GP_LOOK * (THREADS / 32)];
+  __shared__ unsigned has[2 * GP_LOOK * (THREADS / 32)];
+  const int tid = threadIdx.x;
+  const int i0 = tid * GP_PER;
+  if (tid == 0) s_next = static_cast<int64_t>(atomicAdd(ticket, 1ull));
+  for (int s = tid; s < NUM_SYMBOLS; s += THREADS) {
+    ln[s] = lengths[s];
+    cw[s] = static_cast<uint32_t>(cwords[s]);
+  }
+  for (;;) {
+    __syncthreads();                       // the book; the last tile is out
+    const int64_t tile = s_next;
+    if (tile >= tiles) break;
+    unsigned long long next = 0;
+    if (tid == 0) next = atomicAdd(ticket, 1ull);
+    const int64_t t0 = tile * GP_TILE;
+    const int nt = static_cast<int>(min(static_cast<int64_t>(GP_TILE),
+                                        n - t0));
+    int32_t sym[GP_PER];
+    const int32_t mybits = gp_load_run<false>(codes, nullptr, ln, t0 + i0,
+                                              i0, nt, sym);
+    int32_t total;
+    const int32_t before = block_exclusive_scan(mybits, &total);
+    pre[tid] = before;
+    if (tid == 0) {
+      pre[THREADS] = total;
+      gp_publish<false>(status + tile,
+                        (tile == 0 ? ST_PRE : ST_AGG)
+                            | static_cast<unsigned long long>(total));
+      // the next tile into the L2: its codes from their first 16-byte
+      // boundary to their last, in one bulk prefetch
+      const int64_t n0 = static_cast<int64_t>(next) * GP_TILE;
+      if (n0 < n) {
+        const uintptr_t p0 = (reinterpret_cast<uintptr_t>(codes + n0) + 15)
+                             & ~uintptr_t(15);
+        const uintptr_t p1 = reinterpret_cast<uintptr_t>(
+                                 codes + min(n, n0 + GP_TILE)) & ~uintptr_t(15);
+        if (p1 > p0)
+          asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;"
+                       :: "l"(p0), "r"(static_cast<uint32_t>(p1 - p0))
+                       : "memory");
+      }
     }
+    gp_zero_edges(buf, before, before + mybits);
+    __syncthreads();
+    gp_compose(sym, cw, before, mybits, buf);
+    if (tid == 0) s_next = static_cast<int64_t>(next);
+    __syncthreads();                       // the buffer, the runs' places
+    const int64_t s0 = gp_look_back(status, tile, part, has);
+    if (tid == 0 && tile > 0)
+      gp_publish<false>(status + tile,
+                        ST_PRE | static_cast<unsigned long long>(s0 + total));
+    gp_block_bits(pre, sym, t0, i0, nt, before, bs, block_nbits);
+    gp_write_out(buf, s0, total, words, w32);
   }
 }
 
@@ -514,29 +554,31 @@ __global__ void stitch_kernel(const uint32_t* __restrict__ rows,
 
 // Bytes of the pack's look-back scratch for C rows of cv symbols: one
 // 64-bit status word a tile (C*tiles, tiles = ceil(cv / GP_TILE)), then
-// the 64-bit ticket counter. The wrapper sizes its buffer with it.
+// the 64-bit ticket counter. The wrappers size their buffers with it
+// (hufenc_kernel's with C = 1).
 extern "C" int64_t ceaz_gather_pack_scratch_bytes(int64_t C, int64_t cv) {
   return 8 * C * ((cv + GP_TILE - 1) / GP_TILE) + 8;
 }
 
-// The CTAs of one launch: as many as fit on the card at once, or fewer
-// tiles.
-static int64_t gather_pack_ctas(int64_t total_tiles) {
-  static int64_t fit = 0;
-  if (fit == 0) {
+// The CTAs of one launch of `kernel`: as many as fit on the card at once
+// (counted once, into *fit), or fewer tiles.
+template <typename Kernel>
+static int64_t resident_ctas(Kernel kernel, int64_t* fit, int64_t tiles) {
+  if (*fit == 0) {
     int dev = 0, sms = 132, per = GP_CTAS_PER_SM;
     if (cudaGetDevice(&dev) != cudaSuccess
         || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
                != cudaSuccess
-        || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-               &per, gather_pack_kernel, THREADS, 0) != cudaSuccess
+        || cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel,
+                                                         THREADS, 0)
+               != cudaSuccess
         || per < 1) {
       sms = 132;
       per = 1;
     }
-    fit = static_cast<int64_t>(sms) * per;
+    *fit = static_cast<int64_t>(sms) * per;
   }
-  return total_tiles < fit ? total_tiles : fit;
+  return tiles < *fit ? tiles : *fit;
 }
 
 // The function of both TPU kernels, gather_pack_tiled and gather_pack, in
@@ -551,6 +593,7 @@ extern "C" int ceaz_gather_pack(const void* codes, const void* valid,
                                 int64_t nblocks, int64_t w32, void* words,
                                 void* block_nbits, void* scratch,
                                 int64_t bytes, void* stream) {
+  static int64_t fit = 0;
   if (C > 0 && cv > 0) {
     const int64_t tiles = (cv + GP_TILE - 1) / GP_TILE;
     if (bs <= 0 || C * tiles > INT32_MAX)
@@ -559,7 +602,9 @@ extern "C" int ceaz_gather_pack(const void* codes, const void* valid,
     cudaError_t err = cudaMemsetAsync(words, 0, bytes, st);
     if (err != cudaSuccess) return static_cast<int>(err);
     auto* status = static_cast<unsigned long long*>(scratch);
-    gather_pack_kernel<<<static_cast<unsigned>(gather_pack_ctas(C * tiles)),
+    gather_pack_kernel<<<static_cast<unsigned>(
+                             resident_ctas(gather_pack_kernel, &fit,
+                                           C * tiles)),
                          THREADS, 0, st>>>(
         static_cast<const int32_t*>(codes), static_cast<const uint8_t*>(valid),
         static_cast<const int32_t*>(lengths),
@@ -570,35 +615,34 @@ extern "C" int ceaz_gather_pack(const void* codes, const void* valid,
   return static_cast<int>(cudaGetLastError());
 }
 
-// rows (nblocks, R) must be zeroed by the caller; lengths/cwords (1024,).
-extern "C" int ceaz_hufenc_blocks(const void* codes, int64_t n,
-                                  const void* lengths, const void* cwords,
-                                  int64_t bs, int64_t nblocks, int64_t R,
-                                  void* rows, void* nbits, void* stream) {
-  if (nblocks > 0) {
-    blocks_pack_kernel<<<static_cast<unsigned>(nblocks), THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+// The TPU kernel hufenc with the host's concatenation of its rows: the n
+// codes of one stream against one book (lengths, cwords (1024,)) packed
+// into the host stream's w32 u32 words, and block_nbits (nblocks,) the
+// bits of each block of bs symbols (the tail block's real symbols only).
+// words, block_nbits and the scratch (ceaz_gather_pack_scratch_bytes(1,
+// n)) lie in one buffer of `bytes` bytes from `words` on, zeroed here on
+// the stream before the launch, as ceaz_gather_pack's.
+extern "C" int ceaz_hufenc(const void* codes, int64_t n, const void* lengths,
+                           const void* cwords, int64_t bs, int64_t w32,
+                           void* words, void* block_nbits, void* scratch,
+                           int64_t bytes, void* stream) {
+  static int64_t fit = 0;
+  if (n > 0) {
+    const int64_t tiles = (n + GP_TILE - 1) / GP_TILE;
+    if (bs <= 0 || tiles > INT32_MAX)
+      return static_cast<int>(cudaErrorInvalidValue);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    cudaError_t err = cudaMemsetAsync(words, 0, bytes, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    auto* status = static_cast<unsigned long long*>(scratch);
+    hufenc_kernel<<<static_cast<unsigned>(
+                        resident_ctas(hufenc_kernel, &fit, tiles)),
+                    THREADS, 0, st>>>(
         static_cast<const int32_t*>(codes), n,
         static_cast<const int32_t*>(lengths),
-        static_cast<const int32_t*>(cwords), bs, R,
-        static_cast<uint32_t*>(rows), static_cast<int32_t*>(nbits));
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// out (n_out,) must be zeroed by the caller; first_bit is the exclusive
-// int64 cumsum of nbits.
-extern "C" int ceaz_hufenc_stitch(const void* rows, const void* nbits,
-                                  const void* first_bit, int64_t nblocks,
-                                  int64_t R, int64_t n_out, void* out,
-                                  void* stream) {
-  if (nblocks > 0) {
-    stitch_kernel<<<static_cast<unsigned>(nblocks), THREADS, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(rows),
-        static_cast<const int32_t*>(nbits),
-        static_cast<const int64_t*>(first_bit), R, n_out,
-        static_cast<uint32_t*>(out));
+        static_cast<const int32_t*>(cwords), bs, tiles, w32,
+        static_cast<uint32_t*>(words), static_cast<int32_t*>(block_nbits),
+        status, status + tiles);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,11 +28,11 @@ Op calling conventions (tensors on one device):
       launch of one kernel (persistent CTAs taking 4096-symbol tiles by
       ticket, bit offsets by look-back), counted under the TPU kernel each
       op replaces (``gather_pack_tiled``, ``gather_pack``)
-  hufenc_blocks(codes, lengths, cwords, block_size, max_len)
-      -> (rows (nblocks, R) int32 holding u32 bits, nbits (nblocks,))
-  hufenc_stitch(rows, nbits, total_bits) -> words (2*(nwords+1),) int32
-      the staged route's per-block packer and the stitch of its rows into
-      the host stream (kernels/hufenc/ops.py)
+  hufenc_flat(codes, lengths, cwords, block_size, total_bits)
+      -> (words (2*(nwords+1),) int32 holding u32 bits, nbits (nblocks,))
+      the staged route's packer of a large chunk: one flat stream, one
+      book, into the host stream; on the card one launch, counted under
+      the TPU kernel it replaces (``hufenc``; kernels/hufenc/ops.py)
   histogram(codes2, valid2) -> hists (C, 1024) int32
       per-row histograms of the valid codes in [0, 1024)
       (kernels/histogram/ops.py)
@@ -225,9 +225,7 @@ for _op, _module, _plain, _cuda in (
         ("hufenc", "hufenc.ops", "encode_pack_plain", "encode_pack_cuda"),
         ("gather_pack", "hufenc.ops", "encode_pack_plain",
          "gather_pack_cuda"),
-        ("hufenc_blocks", "hufenc.ops", "hufenc_blocks_plain",
-         "hufenc_blocks_cuda"),
-        ("hufenc_stitch", "hufenc.ops", "stitch_plain", "stitch_cuda"),
+        ("hufenc_flat", "hufenc.ops", "hufenc_plain", "hufenc_cuda"),
         ("histogram", "histogram.ops", "histogram_plain", "histogram_cuda"),
         ("ceaz_chunk_dec", "megakernel.ops", "ceaz_chunk_dec_plain",
          "ceaz_chunk_dec_cuda"),

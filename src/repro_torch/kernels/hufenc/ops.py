@@ -4,9 +4,8 @@ staged route's device encoder of one chunk.
     hufenc(codes2, valid2, lengths_tbl, cwords_tbl, block_size, w32)
       -> (words (C, w32) int32 holding u32 bits, block_nbits (C, nblocks))
     gather_pack(...)             the same call and output
-    hufenc_blocks(codes, lengths, cwords, block_size, max_len)
-      -> (rows (nblocks, R) int32 holding u32 bits, nbits (nblocks,) int32)
-    hufenc_stitch(rows, nbits, total_bits) -> words (2*(nwords+1),) int32
+    hufenc_flat(codes, lengths, cwords, block_size, total_bits)
+      -> (words (2*(nwords+1),) int32 holding u32 bits, nbits (nblocks,))
 
 `hufenc` and `gather_pack`: codes2 (C, cv) int32 symbols, valid2 (C, cv)
 bool, one codebook row per chunk: lengths_tbl / cwords_tbl (C, 1024)
@@ -21,29 +20,29 @@ TPU kernel each replaces: one launch of persistent CTAs taking
 4096-symbol tiles of the rows by ticket, each tile's first bit found by
 a decoupled look-back.
 
-`hufenc_blocks` packs a flat stream of n symbols against one codebook,
-one row of ``R = ceil(block_size*max_len/32) + 1`` words per stream
-block (the TPU kernel ``hufenc``'s layout, sized from the codebook's
-length limit instead of a fixed 16 bits and 4096 symbols); the tail
-block holds only the real symbols. `hufenc_stitch` lays the rows end to
-end at their exclusive-cumsum bit offsets into the u32 halves of the
-host stream ``core/huffman.py::encode`` returns (``nwords+1`` u64
-words, the last one zero).
+`hufenc_flat` packs a flat stream of n symbols against one codebook
+(lengths, cwords (1024,) int32) into the u32 halves of the host stream
+``core/huffman.py::encode`` returns (``nwords+1`` u64 words, the last
+one zero; total_bits is the stream's bit count), with each stream
+block's bit count: the TPU kernel ``hufenc`` (one padded row a block)
+followed by the reference's host ``hufenc/ops.py::to_host_stream``. The
+tail block holds only the real symbols.
 
-  * plain PyTorch: :func:`encode_pack_plain` (`hufenc`, `gather_pack`,
-    and `hufenc_blocks` on the (nblocks, block_size) reshape with
-    w32=R): each symbol's shifted codeword halves are summed into their
-    words with ``index_add_`` (bits of distinct symbols are disjoint, so
-    the sum is the OR); u32 words ride in int64 because CPU
-    ``torch.uint32`` has no shifts. :func:`stitch_plain` is a torch port
-    of the reference's ``hufenc/ops.py::to_host_stream``.
+  * plain PyTorch: :func:`encode_pack_plain` (`hufenc`, `gather_pack`):
+    each symbol's shifted codeword halves are summed into their words
+    with ``index_add_`` (bits of distinct symbols are disjoint, so the
+    sum is the OR); u32 words ride in int64 because CPU ``torch.uint32``
+    has no shifts. :func:`hufenc_plain` (`hufenc_flat`) is the two steps
+    of the reference: :func:`hufenc_blocks_plain` (its plain version on
+    the (nblocks, block_size) reshape, a row of :func:`row_words` words a
+    block) and :func:`stitch_plain` (a torch port of ``to_host_stream``).
   * CUDA: the kernels of csrc/hufenc.cu (`hufenc` and `gather_pack`:
-    ``gather_pack_kernel``; `hufenc_blocks`: ``blocks_pack_kernel``;
-    `hufenc_stitch`: ``stitch_kernel``).
+    ``gather_pack_kernel``; `hufenc_flat`: ``hufenc_kernel``, counted
+    under ``hufenc``, the TPU kernel it replaces).
 
 :func:`encode_device` is the counterpart of ``huffman.encode`` on the
-card for one chunk: it packs with `gather_pack` or with `hufenc_blocks`
-+ `hufenc_stitch`, by chunk size.
+card for one chunk: it packs with `gather_pack` or with `hufenc_flat`,
+by chunk size.
 """
 from __future__ import annotations
 
@@ -62,21 +61,20 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _GATHER_ARGS = [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P, _P, _P,
                 _I64, _P]
-_BLOCKS_ARGS = [_P, _I64, _P, _P, _I64, _I64, _I64, _P, _P, _P]
-_STITCH_ARGS = [_P, _P, _P, _I64, _I64, _I64, _P, _P]
+_HUFENC_ARGS = [_P, _I64, _P, _P, _I64, _I64, _P, _P, _P, _I64, _P]
 
-# Chunks of at most this many values pack in ONE `gather_pack` launch
-# (a CTA a 4096-symbol tile, bit offsets by look-back); larger ones pack
-# one stream block per CTA (`hufenc_blocks`, the FPGA's N pipelines) and
-# are stitched — the small-chunk / large-chunk split that the
-# reference's hufenc/kernel.py:86-92 draws between its kernels. Both give
-# the same bits. On the H100 there is no crossover: `gather_pack` is the
-# faster op at every size measured, 2^15 to 2^23 (PERF.md section 6). So
-# the line is a coverage rule, not a speed rule: at 2^22 it keeps the
-# per-block packer on the route of the default 32 MB chunks (T.A's
-# 6.48 M values, T.E's 2^23), at the cost per chunk that PERF.md
-# section 6 gives.
-GATHER_PACK_MAX_VALUES = 1 << 22
+# Chunks of at most this many values pack with `gather_pack` (the
+# multi-row pack, which reads a valid flag beside each code), larger ones
+# with `hufenc_flat` (one book, no flags, the next tile prefetched into
+# the L2) — the small-chunk / large-chunk split that the reference's
+# hufenc/kernel.py:86-92 draws between its kernels. Both give the same
+# bits. On the H100 this is a speed rule: `hufenc_flat` is the faster op
+# at every size chip_smoke.py measures on T.E's codes, 2^15 to 2^23
+# (L2-cold device ms, PERF.md section 6). The crossover lies at or below
+# 2^15, and nothing below 2^15 was measured; the line sits at that
+# smallest size measured, so the reference's section 4.7 chunks of 2^15
+# values keep `gather_pack` on the staged route.
+GATHER_PACK_MAX_VALUES = 1 << 15
 
 
 def _nblocks(cv: int, block_size: int) -> int:
@@ -206,8 +204,8 @@ def gather_pack_cuda(codes2: torch.Tensor, valid2: torch.Tensor,
 
 
 def row_words(block_size: int, max_len: int) -> int:
-    """u32 words of one `hufenc_blocks` row: a full block at the
-    codebook's length limit, plus one."""
+    """u32 words of one :func:`hufenc_blocks_plain` row: a full block at
+    the codebook's length limit, plus one."""
     return -(-block_size * max_len // 32) + 1
 
 
@@ -227,33 +225,6 @@ def hufenc_blocks_plain(codes: torch.Tensor, lengths: torch.Tensor,
         cwords.reshape(1, -1).expand(nblocks, -1), block_size,
         row_words(block_size, max_len))
     return rows, nbits[:, 0]
-
-
-def hufenc_blocks_cuda(codes: torch.Tensor, lengths: torch.Tensor,
-                       cwords: torch.Tensor, block_size: int, max_len: int):
-    """csrc/hufenc.cu blocks_pack_kernel: one CTA per stream block."""
-    dispatch.require_cuda("hufenc_blocks", codes, lengths, cwords)
-    if codes.dtype != torch.int32 or codes.ndim != 1 \
-            or lengths.dtype != torch.int32 or cwords.dtype != torch.int32 \
-            or lengths.shape != (NUM_SYMBOLS,) \
-            or cwords.shape != (NUM_SYMBOLS,):
-        raise ValueError("hufenc_blocks: codes (n,) int32 and codebook "
-                         f"tables ({NUM_SYMBOLS},) int32 expected")
-    n = codes.numel()
-    dev = codes.device
-    nblocks = _nblocks(n, block_size)
-    R = row_words(block_size, max_len)
-    rows = torch.zeros((nblocks, R), dtype=torch.int32, device=dev)
-    nbits = torch.zeros(nblocks, dtype=torch.int32, device=dev)
-    if n == 0:
-        return rows, nbits
-    dispatch.count_launch("hufenc")
-    rc = _build.function("ceaz_hufenc_blocks", _BLOCKS_ARGS)(
-        codes.data_ptr(), n, lengths.data_ptr(), cwords.data_ptr(),
-        block_size, nblocks, R, rows.data_ptr(), nbits.data_ptr(),
-        dispatch.stream_handle())
-    _build.check(rc, "hufenc")
-    return rows, nbits
 
 
 def _stream_words32(total_bits: int) -> int:
@@ -278,26 +249,54 @@ def stitch_plain(rows: torch.Tensor, nbits: torch.Tensor, total_bits: int):
     return words.to(torch.int32)
 
 
-def stitch_cuda(rows: torch.Tensor, nbits: torch.Tensor, total_bits: int):
-    """csrc/hufenc.cu stitch_kernel: each row word ORed in at its block's
-    int64 bit offset (an exclusive torch cumsum of nbits)."""
-    dispatch.require_cuda("hufenc_stitch", rows, nbits)
-    if rows.dtype != torch.int32 or nbits.dtype != torch.int32 \
-            or rows.ndim != 2 or nbits.shape != rows.shape[:1]:
-        raise ValueError("hufenc_stitch: rows (nblocks, R) int32 and nbits "
-                         "(nblocks,) int32 expected")
-    nblocks, R = rows.shape
+def hufenc_plain(codes: torch.Tensor, lengths: torch.Tensor,
+                 cwords: torch.Tensor, block_size: int, total_bits: int):
+    """Plain PyTorch version of `hufenc_flat`: the blocks' rows
+    (:func:`hufenc_blocks_plain`, wide enough for a block at the book's
+    longest code), then their stitch (:func:`stitch_plain`)."""
+    max_len = max(1, int(lengths.max())) if lengths.numel() else 1
+    rows, nbits = hufenc_blocks_plain(codes, lengths, cwords, block_size,
+                                      max_len)
+    return stitch_plain(rows, nbits, total_bits), nbits
+
+
+def hufenc_cuda(codes: torch.Tensor, lengths: torch.Tensor,
+                cwords: torch.Tensor, block_size: int, total_bits: int):
+    """csrc/hufenc.cu ``ceaz_hufenc``: one launch of ``hufenc_kernel``
+    (persistent CTAs taking 4096-symbol tiles by ticket, each CTA's next
+    tile prefetched into the L2 by a TMA bulk prefetch, each tile's first
+    bit by decoupled look-back), counted under ``hufenc``. The stream's words, the blocks' bit counts
+    and the kernel's scratch share one allocation (gather_pack_plan),
+    zeroed by one memset in the C entry. Bits past the stream's
+    ``2*(nwords+1)`` words are dropped."""
+    dispatch.require_cuda("hufenc", codes, lengths, cwords)
+    if codes.dtype != torch.int32 or codes.ndim != 1 \
+            or lengths.dtype != torch.int32 or cwords.dtype != torch.int32 \
+            or lengths.shape != (NUM_SYMBOLS,) \
+            or cwords.shape != (NUM_SYMBOLS,):
+        raise ValueError("hufenc: codes (n,) int32 and codebook tables "
+                         f"({NUM_SYMBOLS},) int32 expected")
+    if block_size < 1 or total_bits < 0:
+        raise ValueError(f"hufenc: block_size >= 1 and total_bits >= 0 "
+                         f"expected, got {block_size}, {total_bits}")
+    n = codes.numel()
+    dev = codes.device
+    nblocks = _nblocks(n, block_size)
     n32 = _stream_words32(total_bits)
-    out = torch.zeros(n32, dtype=torch.int32, device=rows.device)
-    if nblocks == 0:
-        return out
-    first = torch.cumsum(nbits, 0, dtype=torch.int64) - nbits
-    dispatch.count_launch("hufenc_stitch")
-    rc = _build.function("ceaz_hufenc_stitch", _STITCH_ARGS)(
-        rows.data_ptr(), nbits.data_ptr(), first.data_ptr(), nblocks, R, n32,
-        out.data_ptr(), dispatch.stream_handle())
-    _build.check(rc, "hufenc_stitch")
-    return out
+    if n == 0:
+        return (torch.zeros(n32, dtype=torch.int32, device=dev),
+                torch.zeros(nblocks, dtype=torch.int32, device=dev))
+    size, at_nbits, at_scratch = gather_pack_plan(
+        1, nblocks, n32, gather_pack_scratch_bytes(1, n))
+    buf = torch.empty(2 * size, dtype=torch.int32, device=dev)
+    at = buf.data_ptr()
+    dispatch.count_launch("hufenc")
+    rc = _build.function("ceaz_hufenc", _HUFENC_ARGS)(
+        codes.data_ptr(), n, lengths.data_ptr(), cwords.data_ptr(),
+        block_size, n32, at, at + 8 * at_nbits, at + 8 * at_scratch,
+        8 * size, dispatch.stream_handle())
+    _build.check(rc, "hufenc")
+    return (buf[:n32], buf[2 * at_nbits:2 * at_nbits + nblocks])
 
 
 def u32_to_u64(u32: np.ndarray) -> np.ndarray:
@@ -315,8 +314,7 @@ def encode_device(codes: torch.Tensor, cb, block_size: int, freqs=None,
     codes: (n,) int32 symbols; cb: a Codebook; freqs: the chunk's
     1024-bin histogram when the caller has it (else the `histogram` op
     counts it). Chunks of at most GATHER_PACK_MAX_VALUES values pack
-    through `gather_pack`, larger ones through `hufenc_blocks` and
-    `hufenc_stitch`.
+    through `gather_pack`, larger ones through `hufenc_flat`.
 
     Raises ValueError when a present symbol has no code, as ``encode``
     does; the check runs on the host from the histogram, before any pack.
@@ -346,11 +344,9 @@ def encode_device(codes: torch.Tensor, cb, block_size: int, freqs=None,
                 tables[0:1], tables[1:2], block_size, _stream_words32(total))
         words, nbits = words[0], nbits[0]
     else:
-        blocks = dispatch.resolve("hufenc_blocks", kernel_impl, dev)
-        stitch = dispatch.resolve("hufenc_stitch", kernel_impl, dev)
-        with dispatch.measure("hufenc_blocks", kernel_impl, dev):
-            rows, nbits = blocks(codes, tables[0], tables[1], block_size,
-                                 int(cb.max_len))
-            words = stitch(rows, nbits, total)
+        pack = dispatch.resolve("hufenc_flat", kernel_impl, dev)
+        with dispatch.measure("hufenc_flat", kernel_impl, dev):
+            words, nbits = pack(codes, tables[0], tables[1], block_size,
+                                total)
     return (u32_to_u64(words.cpu().numpy().view(np.uint32)),
             nbits.cpu().numpy().astype(np.int64), total)

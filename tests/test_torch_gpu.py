@@ -571,11 +571,18 @@ def test_gather_pack_kernel_matches_plain(dev, cv, bs):
 
 @pytest.mark.parametrize("n,bs,max_len", [(1, 4096, 16), (4096 * 3, 4096, 16),
                                           (100003, 4096, 12), (999, 16, 16),
-                                          (70000, 1024, 16)])
+                                          (70000, 1024, 16), (70001, 1000, 16),
+                                          (20001, 8192, 16),
+                                          ((1 << 23) + 5, 4096, 16)])
 def test_hufenc_blocks_and_stitch_match_plain(dev, n, bs, max_len):
-    """Full blocks, a ragged tail, 12-bit books, and 16-symbol blocks
-    whose u32 output words gather bits of several blocks (a one-symbol
-    book: 1-bit codes)."""
+    """The `hufenc_flat` op's one launch (`hufenc_cuda`) against its plain
+    version (`hufenc_plain`: the blocks' rows and their stitch) and
+    against `gather_pack_cuda` on the same codes: full blocks, a ragged
+    tail, 12-bit books, 16-symbol blocks whose u32 output words gather
+    bits of several blocks (a one-symbol book: 1-bit codes), blocks of
+    1000 symbols, blocks wider than a 4096-symbol tile, 2^23+5 values;
+    the codes also 1-3 words past a 16-byte boundary (a tile's stage
+    filled partly by plain loads)."""
     rng = np.random.default_rng(n)
     for book in (Codebook.from_freqs(rng.integers(0, 1000, 1024) ** 2,
                                      max_len=max_len),
@@ -583,15 +590,22 @@ def test_hufenc_blocks_and_stitch_match_plain(dev, n, bs, max_len):
                                      smoothing=False)):
         codes = (rng.integers(0, 1024, n) if book.lengths[0] else
                  np.full(n, 7)).astype(np.int32)
+        total = int(book.lengths.astype(np.int64)[codes].sum())
         c = torch.from_numpy(codes).to(dev)
         ln = torch.from_numpy(book.lengths.astype(np.int32)).to(dev)
         cw = torch.from_numpy(book.codes.astype(np.int32)).to(dev)
-        rows, nbits = HE.hufenc_blocks_cuda(c, ln, cw, bs, book.max_len)
-        _eq((rows, nbits), HE.hufenc_blocks_plain(c, ln, cw, bs,
-                                                  book.max_len))
-        total = int(nbits.sum())
-        _eq(HE.stitch_cuda(rows, nbits, total),
-            HE.stitch_plain(rows, nbits, total))
+        want = HE.hufenc_plain(c, ln, cw, bs, total)
+        words, nbits = HE.gather_pack_cuda(
+            c[None], dispatch.all_valid(n, dev), ln[None], cw[None], bs,
+            want[0].numel())
+        _eq(want, (words[0], nbits[0]))
+        for off in ((0, 1, 2, 3) if n < 1 << 20 else (0, 3)):
+            shifted = torch.zeros(off + n, dtype=torch.int32, device=dev)
+            shifted[off:] = c
+            dispatch.reset_launches()
+            got = HE.hufenc_cuda(shifted[off:], ln, cw, bs, total)
+            assert dispatch.launches() == {"hufenc": 1}
+            _eq(got, want)
 
 
 @pytest.mark.parametrize("kw", [

@@ -3,9 +3,10 @@ one the card's kernel is held against) vs the reference's jnp
 ``encode_pack`` and its gather-pack Pallas kernel (interpret mode).
 Bitwise: payload words and per-block bit counts.
 
-The staged route's packers: the `hufenc_blocks` op's plain version vs
-the reference's serial per-block Pallas ``hufenc`` (interpret mode),
-the stitch vs the reference's numpy ``to_host_stream``, and
+The staged route's packers: the `hufenc_flat` op's plain version's two
+steps, the blocks (``hufenc_blocks_plain``) vs the reference's serial
+per-block Pallas ``hufenc`` (interpret mode) and their stitch
+(``stitch_plain``) vs the reference's numpy ``to_host_stream``, and
 ``encode_device`` (on the CPU: the plain versions) vs
 ``core/huffman.py::encode``.
 
@@ -141,8 +142,8 @@ def test_blocks_packer_matches_pallas_hufenc(sigma, tail):
     padded = np.full(kw.shape[0] * EK.BLOCK, 512, np.int32)
     padded[:n] = x
     ln, cw = _tables(cb)
-    rows, nbits = dispatch.resolve("hufenc_blocks", "auto", "cpu")(
-        torch.from_numpy(padded), ln, cw, EK.BLOCK, cb.max_len)
+    rows, nbits = TO.hufenc_blocks_plain(torch.from_numpy(padded), ln, cw,
+                                         EK.BLOCK, cb.max_len)
     rows = rows.numpy().view(np.uint32)
     assert rows.shape == (kw.shape[0], EK.WORDS + 1)
     np.testing.assert_array_equal(rows[:, :EK.WORDS], np.asarray(kw))
@@ -150,8 +151,8 @@ def test_blocks_packer_matches_pallas_hufenc(sigma, tail):
     np.testing.assert_array_equal(nbits.numpy(), np.asarray(kn))
     # the stitch of those rows is the reference's host stream
     total = int(nbits.sum())
-    words = dispatch.resolve("hufenc_stitch", "auto", "cpu")(
-        torch.from_numpy(rows.view(np.int32)), nbits, total)
+    words = TO.stitch_plain(torch.from_numpy(rows.view(np.int32)), nbits,
+                            total)
     stream, bits = EO.to_host_stream(kw, kn, len(padded), cb.lengths)
     assert bits == total
     np.testing.assert_array_equal(
@@ -205,9 +206,7 @@ def test_new_cuda_impls_refuse_cpu_tensors():
     z = torch.zeros(8, dtype=torch.int32)
     t = torch.zeros(1024, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        TO.hufenc_blocks_cuda(z, t, t, 4, 16)
-    with pytest.raises(ValueError, match="CUDA"):
-        TO.stitch_cuda(z.reshape(1, 8), z[:1], 0)
+        TO.hufenc_cuda(z, t, t, 4, 16)
     with pytest.raises(ValueError, match="CUDA"):
         TO.gather_pack_cuda(z.reshape(1, 8), z.reshape(1, 8).bool(),
                             t.reshape(1, -1), t.reshape(1, -1), 4, 4)
@@ -215,8 +214,8 @@ def test_new_cuda_impls_refuse_cpu_tensors():
 
 def _encode_through_both_packers(codes, cb, bs, monkeypatch):
     """With the rule's constant put at n, then at n - 1, the same chunk
-    packs through `gather_pack`, then through `hufenc_blocks` +
-    `hufenc_stitch` (their plain versions here): the same (words,
+    packs through `gather_pack`, then through `hufenc_flat` (their
+    plain versions here): the same (words,
     block_nbits, total) as ``huffman.encode`` both times."""
     n = codes.size
     resolve, asked = TO.dispatch.resolve, []
@@ -226,7 +225,7 @@ def _encode_through_both_packers(codes, cb, bs, monkeypatch):
         return resolve(op, *a)
     monkeypatch.setattr(TO.dispatch, "resolve", spy)
     outs = []
-    for limit, packer in ((n, "gather_pack"), (n - 1, "hufenc_blocks")):
+    for limit, packer in ((n, "gather_pack"), (n - 1, "hufenc_flat")):
         monkeypatch.setattr(TO, "GATHER_PACK_MAX_VALUES", limit)
         asked.clear()
         outs.append(_encode_both(codes, cb, bs))
@@ -253,8 +252,8 @@ def test_encode_device_packers_agree_on_each_side_of_the_rule(
 
 @pytest.mark.parametrize("n", [1, 999, (1 << 16) + 7])
 def test_encode_device_packers_agree_on_a_one_symbol_book(n, monkeypatch):
-    """1-bit codes in 16-symbol blocks through both packers: a stitched
-    output word gathers the bits of two blocks."""
+    """1-bit codes in 16-symbol blocks through both packers: an output
+    word of either gathers the bits of two blocks."""
     codes = np.full(n, 512, np.int32)
     cb = _book(codes, one_symbol=True)
     words, nbits, total = _encode_through_both_packers(codes, cb, 16,
