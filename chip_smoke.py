@@ -86,7 +86,28 @@ through the public facade, at rel eb 1e-4 unless said otherwise:
            of error feedback + ``compressed_cross_pod_mean`` at 8 bits,
            then ``adamw_update`` on the pod mean: pack and unpack a leaf;
   Q.snap   ``snapshot_grads`` then ``restore_grad_snapshot`` on five of
-           the last step's pod-mean leaves, through the facade.
+           the last step's pod-mean leaves, through the facade;
+  phase W  the paper's MPI_File_write: phase P's 4 Nyx ranks through
+           ``io.filewrite.parallel_compressed_write`` (the default facade
+           on the card, overlapped, fsync) into one ``.ceazs`` stream in a
+           temporary directory under ``build/``, read back by
+           ``parallel_read`` (self-configured): every payload equals the
+           facade's compress of its rank, the read bytes its decompress;
+           ``overlap=False`` gives the same records, and ``write_stream``
+           with telemetry off the same file sync and async (rank-3
+           Lorenzo runs as the torch twin; histogram, pack, tiled walk);
+  W.staged the HACC field as 4 shards of 2^21 through the dump with
+           ``use_fused=False``: payloads equal the fused route's;
+  W.bank   the same shards through ``write_stream`` with the codebook bank:
+           the footer carries the bank, the default reader resolves it and
+           every chunk stays on the bank route;
+  W.fuzz   tests/test_engine.py's fuzz stream written on the card; every
+           stream-level case of tests/corpus/decode_fuzz_corpus.json must
+           be judged corrupt by the card's mega, split and staged decode
+           routes, and the pristine stream decode to the same bytes on all
+           three. W, W.staged and W.bank print wall, compress, serialize
+           and write seconds, overlap efficiency, ratio and write and read
+           GB/s of raw input beside the card.
 
 Each phase is run with the kernels' launch counts set to 0 just before
 and read just after, and must launch every kernel of its path. Phases P
@@ -127,7 +148,8 @@ walked by the serial walk, most sync rounds); no block of a valid
 stream may take the serial walk, and some of each walk's garbage blocks
 must. The script prints the card
 (nvidia-smi name and power limit), the build time, per-kernel results,
-compress/decompress throughput, one JSON line of kernels and, last,
+compress/decompress throughput, the W phases' stream figures, one JSON
+line of kernels and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit
 code is then non-zero and the last line is not printed.
 
@@ -217,6 +239,13 @@ PHASE_KERNELS = {
     "BATCH": ("dq1d", "histogram", "gather_pack_tiled", "hufdec_tiles"),
     # + the packer the imported package's rule picks (staged_packers)
     "BATCH.staged": ("dq1d", "histogram"),
+    # the stream phases (rank-3 Lorenzo has no kernel in the reference:
+    # W's pass 1 is the torch twin on the card)
+    "W": ("histogram", "gather_pack_tiled", "hufdec_tiles"),
+    "W.staged": ("dq1d", "histogram", "hufdec_tiles"),
+    "W.bank": ("lorenzo_tiles", "gather_pack_tiled", "hufdec_tiles"),
+    "W.fuzz": ("dq1d", "histogram", "gather_pack_tiled",
+               "ceaz_chunk_dec_fused", "hufdec"),
 }
 # the staged phases' fused counterparts at the same settings: the
 # streams must be identical (T.G's counterpart is run there)
@@ -1811,6 +1840,270 @@ def staged_kernel_rows(inputs, census, rows):
         rows[name]["launch_floor"] = floor
 
 
+# -- the .ceazs stream engine and the file write (phases W) -------------------
+
+CORPUS = os.path.join(ROOT, "tests", "corpus", "decode_fuzz_corpus.json")
+# W.fuzz's stream: tests/test_engine.py's fuzz target (3 walks of 6000
+# values, books shipped with every chunk of 2048)
+FUZZ_KW = dict(mode="rel", eb=1e-4, adaptive=False, chunk_bytes=1 << 13)
+
+
+def corpus_cases(n_records):
+    """The fuzz corpus's stream-level cases, then its derandomized flips
+    (tests/test_engine.py::test_decode_differential_fuzz_fence)."""
+    import numpy as np
+    with open(CORPUS) as f:
+        corpus = json.load(f)
+    cases = list(corpus["cases"])
+    rng = np.random.default_rng(corpus["random"]["seed"])
+    for _ in range(corpus["random"]["n_bitflips"]):
+        cases.append({"kind": "bitflip",
+                      "record": int(rng.integers(n_records)),
+                      "rel_off": int(rng.integers(1 << 16)),
+                      "bit": int(rng.integers(8))})
+    return cases
+
+
+def apply_corpus_case(data, records, case):
+    """One corpus case -> the mutated stream bytes (offsets relative to a
+    record, or to the live trailer)."""
+    from repro_torch.io import engine as E
+    if case["kind"] == "truncate_index":
+        foot_off, foot_len, _, _ = E.TRAILER.unpack(data[-E.TRAILER.size:])
+        cut = {"mid_footer": foot_off + foot_len // 2,
+               "mid_trailer": len(data) - E.TRAILER.size // 2}[case["at"]]
+        return data[:cut]
+    rec = records[case["record"] % len(records)]
+    body = rec["offset"] + E.RECORD_HEADER.size
+    if case["kind"] == "bitflip":
+        mut = bytearray(data)
+        mut[body + case["rel_off"] % rec["nbytes"]] ^= 1 << (case["bit"] & 7)
+        return bytes(mut)
+    check(case["kind"] == "truncate", f"unknown corpus case {case}")
+    cut = {"after_header": body,
+           "mid_payload": body + rec["nbytes"] // 2,
+           "after_payload": body + rec["nbytes"]}[case["at"]]
+    return data[:cut]
+
+
+def counted_run(name, fn, dispatch, census, captured, also=()):
+    """fn() on the card with the launch counts set to 0 just before and
+    read just after, inside the censuses; every kernel of the phase (and
+    of `also`) must have launched, and no block of its valid streams may
+    take walk_lane. -> (fn's result, counts, the ops' captured inputs)."""
+    import torch
+    torch.cuda.synchronize()
+    counters = walk_counters()
+    if counters:
+        counters[0]()
+    captured.clear()
+    dispatch.reset_launches()
+    census.start(name)
+    out = fn()
+    torch.cuda.synchronize()
+    counts = dispatch.launches()
+    census.stop(counts)
+    inputs = dict(captured)
+    check_walk_counters(name, counts, counters)
+    for k in PHASE_KERNELS[name] + tuple(also):
+        check(counts.get(k, 0) > 0,
+              f"phase {name}: kernel {k} was not launched ({counts})")
+    return out, counts, inputs
+
+
+def stream_figures(name, st, read_s, card):
+    """W's figures: the engine's stage seconds and overlap, the ratio,
+    and write and read GB/s of raw input."""
+    gb = st["raw_bytes"] / 1e9
+    out = {k: st[k] for k in ("wall_s", "compress_s", "serialize_s",
+                              "write_s", "overlap_efficiency", "ratio",
+                              "raw_bytes", "stored_bytes")}
+    out.update(read_s=read_s, write_GBps=gb / st["wall_s"],
+               read_GBps=gb / read_s)
+    print(f"stream phase {name} [{card}]: wall {out['wall_s']} s, "
+          f"compress_s {out['compress_s']}, serialize_s "
+          f"{out['serialize_s']}, write_s {out['write_s']}, "
+          f"overlap_efficiency {out['overlap_efficiency']}, ratio "
+          f"{out['ratio']}; write {out['write_GBps']} GB/s, read "
+          f"{out['read_GBps']} GB/s ({read_s} s) of raw input")
+    return out
+
+
+def records_and_payloads(path):
+    from repro_torch.io import engine as E
+    with E.StreamReader(path) as r:
+        return r.records, [r.payload(i) for i in range(len(r))]
+
+
+def run_stream_phases(nyx, hacc, dispatch, census, captured, card, tmp):
+    """Phases W, W.staged, W.bank and W.fuzz on the card, each counted;
+    -> (counts, inputs, figures)."""
+    import numpy as np
+    from repro_torch.core import CEAZ, CEAZConfig
+    from repro_torch.core.dualquant import value_range
+    from repro_torch.io import engine as E
+    from repro_torch.io import filewrite as FW
+    counts, inputs, figs = {}, {}, {}
+    comp = CEAZ(CEAZConfig(mode="rel", eb=1e-4, use_fused=True,
+                           device="cuda"))
+
+    # W: the paper's MPI_File_write, 4 Nyx ranks, default facade on the card
+    d_w, d_sync = os.path.join(tmp, "w"), os.path.join(tmp, "w_sync")
+
+    def write_read():
+        st = FW.parallel_compressed_write(d_w, nyx, overlap=True,
+                                          fsync=True)
+        t0 = time.perf_counter()
+        back = FW.parallel_read(d_w)
+        return st, back, time.perf_counter() - t0
+    (st, back, read_s), counts["W"], inputs["W"] = counted_run(
+        "W", write_read, dispatch, census, captured)
+    recs, pays = records_and_payloads(os.path.join(d_w, FW.DUMP_NAME))
+    check(len(recs) == len(nyx), "phase W: record count")
+    for r, x in enumerate(nyx):
+        c = comp.compress(x)
+        check(pays[r] == E.serialize_payload(c)[0],
+              f"phase W: rank {r}'s payload differs from the facade's "
+              "compress on the card")
+        check(back[r].tobytes() == comp.decompress(c).tobytes(),
+              f"phase W: rank {r} reads back to other bytes than the "
+              "facade's decompress")
+        err = float(np.abs(back[r].astype(np.float64) - x).max())
+        check(err <= 1e-4 * value_range(x),
+              f"phase W: rank {r} max error {err} over the bound")
+    FW.parallel_compressed_write(d_sync, nyx, overlap=False, fsync=True)
+    check(records_and_payloads(os.path.join(d_sync, FW.DUMP_NAME))
+          == (recs, pays), "phase W: overlap=False changed the records")
+    files = []
+    for sync in (True, False):
+        path = os.path.join(tmp, f"w_telemetry_off_{sync}.ceazs")
+        E.write_stream(path, nyx, comp, sync=sync, telemetry=False)
+        with open(path, "rb") as f:
+            files.append(f.read())
+    check(files[0] == files[1],
+          "phase W: write_stream sync=True and sync=False files differ")
+    figs["W"] = stream_figures("W", st, read_s, card)
+    print(f"phase W: {len(nyx)} ranks of {nyx[0].shape}, payloads == "
+          "facade compress, bytes == facade decompress, overlap=False "
+          "records == overlap, sync file == async file: True "
+          f"launches={counts['W']}")
+
+    # W.staged: the staged route's dump of the HACC shards
+    shards = list(hacc.reshape(N_SHARDS, -1))
+    d_st = os.path.join(tmp, "w_staged")
+
+    def staged():
+        st = FW.parallel_compressed_write(d_st, shards, comp=comp,
+                                          use_fused=False, fsync=True)
+        t0 = time.perf_counter()
+        back = FW.parallel_read(d_st)
+        return st, back, time.perf_counter() - t0
+    (st, back, read_s), counts["W.staged"], inputs["W.staged"] = \
+        counted_run("W.staged", staged, dispatch, census, captured,
+                    also=staged_packers(shards[0].size))
+    _, pays = records_and_payloads(os.path.join(d_st, FW.DUMP_NAME))
+    for r, x in enumerate(shards):
+        check(pays[r] == E.serialize_payload(comp.compress(x))[0],
+              f"phase W.staged: shard {r}'s payload differs from the fused "
+              "route's")
+        err = float(np.abs(back[r].astype(np.float64) - x).max())
+        check(err <= 1e-4 * value_range(x),
+              f"phase W.staged: shard {r} max error {err} over the bound")
+    figs["W.staged"] = stream_figures("W.staged", st, read_s, card)
+    print(f"phase W.staged: {N_SHARDS} shards of {shards[0].size}, "
+          f"payloads == fused route's: True launches={counts['W.staged']}")
+
+    # W.bank: write_stream with the codebook bank, read back self-configured
+    bank = CEAZ(CEAZConfig(mode="rel", eb=1e-4, codebook="bank",
+                           device="cuda"))
+    p_bank = os.path.join(tmp, "w_bank.ceazs")
+
+    def banked():
+        st = E.write_stream(p_bank, shards, bank).as_dict()
+        t0 = time.perf_counter()
+        back = E.read_stream_arrays(p_bank)
+        return st, back, time.perf_counter() - t0
+    (st, back, read_s), counts["W.bank"], inputs["W.bank"] = counted_run(
+        "W.bank", banked, dispatch, census, captured)
+    check("bank_select" not in counts["W.bank"],
+          "phase W.bank: the bank encode launched its select apart")
+    with E.StreamReader(p_bank) as r:
+        check(r.meta.get("codebook_bank", {}).get("id") == bank.bank.id,
+              "phase W.bank: the footer does not carry the bank")
+        objs = [o for _, o in r.iter_objects()]
+        check(all(min(rec["bank_delta"]) >= 0 for rec in r.records),
+              "phase W.bank: a record's bank_delta left the bank")
+    check(all(ch.action == "bank" for o in objs for ch in o.chunks),
+          "phase W.bank: a chunk left the bank route")
+    for r, x in enumerate(shards):
+        check(back[r].tobytes() == bank.decompress(objs[r]).tobytes(),
+              f"phase W.bank: shard {r} reads back to other bytes than the "
+              "facade's decompress")
+        err = float(np.abs(back[r].astype(np.float64) - x).max())
+        check(err <= 1e-4 * value_range(x),
+              f"phase W.bank: shard {r} max error {err} over the bound")
+    figs["W.bank"] = stream_figures("W.bank", st, read_s, card)
+    print(f"phase W.bank: every chunk on the bank route, footer bank "
+          f"{bank.bank.id}: True launches={counts['W.bank']}")
+
+    counts["W.fuzz"], inputs["W.fuzz"] = run_fuzz_phase(dispatch, census,
+                                                        captured, tmp)
+    return counts, inputs, figs
+
+
+def run_fuzz_phase(dispatch, census, captured, tmp):
+    """W.fuzz: a small stream written on the card; every stream-level case
+    of the fuzz corpus must be judged corrupt by the card's mega, split
+    and staged routes alike, and the pristine stream decode to the same
+    bytes on all three."""
+    import numpy as np
+    from repro_torch.core import CEAZ, CEAZConfig
+    from repro_torch.io import engine as E
+    routes = [("mega", dict(decode_megakernel="mega")),
+              ("split", dict(decode_megakernel="split")),
+              ("staged", dict(use_fused=False))]
+    comps = [(n, CEAZ(CEAZConfig(device="cuda", **FUZZ_KW, **kw)))
+             for n, kw in routes]
+    path = os.path.join(tmp, "fuzz.ceazs")
+    shards = [np.cumsum(np.random.default_rng(4 + i).standard_normal(6000))
+              .astype(np.float32) for i in range(3)]
+
+    def verdicts():
+        out = []
+        for name, comp in comps:
+            try:
+                arrs = E.read_stream_arrays(path, comp, sync=True)
+                out.append((name, "ok", tuple(a.tobytes() for a in arrs)))
+            except E.StreamCorruptionError:
+                out.append((name, "corrupt", None))
+        return out
+
+    def pristine():
+        E.write_stream(path, shards, comps[0][1])
+        return verdicts()
+    clean, counts, inputs = counted_run("W.fuzz", pristine, dispatch,
+                                        census, captured)
+    check(all(v == "ok" for _, v, _ in clean)
+          and len({b for _, _, b in clean}) == 1,
+          f"phase W.fuzz: the pristine stream decodes differently "
+          f"{[(n, v) for n, v, _ in clean]}")
+    with E.StreamReader(path) as r:
+        records = list(r.records)
+    with open(path, "rb") as f:
+        data = f.read()
+    cases = corpus_cases(len(records))
+    for case in cases:
+        with open(path, "wb") as f:
+            f.write(apply_corpus_case(data, records, case))
+        got = verdicts()
+        check(all(v == "corrupt" for _, v, _ in got),
+              f"phase W.fuzz: {case} judged {[(n, v) for n, v, _ in got]}")
+    print(f"phase W.fuzz: {len(cases)} corpus cases judged corrupt by the "
+          "mega, split and staged routes; pristine bytes equal on all "
+          f"three: True launches={counts}")
+    return counts, inputs
+
+
 PHASES = (
     # name, field, facade options (rel eb 1e-4 unless given)
     ("A", "cesm", {}),
@@ -1968,13 +2261,29 @@ def main():
     check(all(f.shape == (256, 256, 256) for f in nyx),
           "unexpected phase P shapes")
     c, i, wire_stats = run_gather_phases(nyx, dispatch, captured, "cuda")
-    del nyx
     counts.update(c)
     inputs.update(i)
     counts["Q"], inputs["Q"], wire_stats["Q"], q_mean = run_exchange_phase(
         dispatch, captured, "cuda", args.seed)
     counts["Q.snap"] = run_snapshot_phase(q_mean, dispatch, "cuda", census)
     del q_mean
+
+    # the .ceazs stream engine and the file write: W, W.staged, W.bank,
+    # W.fuzz (a tree without the engine, under --src, runs none of them)
+    import importlib.util
+    if importlib.util.find_spec("repro_torch.io.engine") is None:
+        print("phases W: the stream engine is not in this tree")
+    else:
+        import tempfile
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(ROOT, "build")) as tmp:
+            c, i, figs = run_stream_phases(nyx, fields["hacc"], dispatch,
+                                           census, captured, card, tmp)
+        counts.update(c)
+        inputs.update(i)
+        thr.update(figs)
+    del nyx
     for p in [n for n, _, _ in GATHER_PHASES] + ["Q"]:
         check(all(op in inputs[p] for op in WIRE_OPS),
               f"pack/unpack inputs of phase {p} not captured")
@@ -1998,6 +2307,8 @@ def main():
         check(rows[name]["launches"] == sum(cen.totals().values()),
               f"{name} launched outside the phases its census covers")
     for name, t in thr.items():
+        if "write_GBps" in t:
+            continue                # a W phase: printed by stream_figures
         enc = (f"compress {t['compress_GBps']} GB/s ({t['compress_s']} s), "
                if "compress_s" in t else "")
         print(f"throughput phase {name} [{card}]: {enc}decompress "

@@ -181,16 +181,16 @@ def ceaz_gather_decode(comps, block_size: int = 4096):
 
 def read_gather_stream(path: str, block_size: Optional[int] = None,
                        group: int = 4):
-    _not_ported("read_gather_stream (the .ceazs engine, then the gather "
-                "streams)", "Queue 1 items 1 and 2")
+    _not_ported("read_gather_stream (the gather streams)",
+                "Queue 1 item 2")
 
 
 def ceaz_gather_stream(shards, path: str, eb_rel: float = 1e-4,
                        plan=None, chunk_values: int = 1 << 20,
                        block_size: int = 4096, group: int = 2,
                        overlap: bool = True):
-    _not_ported("ceaz_gather_stream (the .ceazs engine, then the gather "
-                "streams)", "Queue 1 items 1 and 2")
+    _not_ported("ceaz_gather_stream (the gather streams)",
+                "Queue 1 item 2")
 
 
 @dataclasses.dataclass

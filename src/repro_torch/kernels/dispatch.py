@@ -71,6 +71,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from typing import Callable, Dict, Tuple
 
@@ -82,6 +83,7 @@ from ..obs import trace as ot
 _LOADERS: Dict[Tuple[str, str], Callable[[], Callable]] = {}
 _RESOLVED: Dict[Tuple[str, str], Callable] = {}
 _LAUNCHES: Dict[str, int] = {}
+_LAUNCHES_LOCK = threading.Lock()   # the stream engines launch off-thread
 
 
 def register(op: str, impl: str, loader: Callable[[], Callable]) -> None:
@@ -133,16 +135,19 @@ def resolve(op: str, impl: str, device) -> Callable:
 
 def count_launch(kernel: str) -> None:
     """Called by a CUDA wrapper where it launches `kernel`."""
-    _LAUNCHES[kernel] = _LAUNCHES.get(kernel, 0) + 1
+    with _LAUNCHES_LOCK:
+        _LAUNCHES[kernel] = _LAUNCHES.get(kernel, 0) + 1
 
 
 def launches() -> Dict[str, int]:
     """Launch counts per kernel since the last :func:`reset_launches`."""
-    return dict(_LAUNCHES)
+    with _LAUNCHES_LOCK:
+        return dict(_LAUNCHES)
 
 
 def reset_launches() -> None:
-    _LAUNCHES.clear()
+    with _LAUNCHES_LOCK:
+        _LAUNCHES.clear()
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -264,11 +264,11 @@ def snapshot_grads_to_stream(path: str, grads, eb_rel: float = 1e-3,
                              min_compress: int = 4096,
                              overlap: bool = True):
     from ..core.ceaz import _not_ported
-    _not_ported("snapshot_grads_to_stream (the .ceazs engine, then the "
-                "snapshot streams)", "Queue 1 items 1 and 2")
+    _not_ported("snapshot_grads_to_stream (the snapshot streams)",
+                "Queue 1 item 2")
 
 
 def restore_grad_snapshot_stream(path: str, group: int = 8):
     from ..core.ceaz import _not_ported
-    _not_ported("restore_grad_snapshot_stream (the .ceazs engine, then "
-                "the snapshot streams)", "Queue 1 items 1 and 2")
+    _not_ported("restore_grad_snapshot_stream (the snapshot streams)",
+                "Queue 1 item 2")

@@ -264,9 +264,9 @@ def test_gather_entry_points_device_and_not_ported():
     for fn, args, item in ((COL.ceaz_gather, ([x[0]],), "Queue 1 item 2"),
                            (COL.ceaz_gather_decode, ([],), "Queue 1 item 2"),
                            (COL.read_gather_stream, ("p",),
-                            "Queue 1 items 1 and 2"),
+                            "Queue 1 item 2"),
                            (COL.ceaz_gather_stream, ([x[0]], "p"),
-                            "Queue 1 items 1 and 2")):
+                            "Queue 1 item 2")):
         with pytest.raises(NotImplementedError, match=item):
             fn(*args)
     assert COL.wire_bytes(4, 4099, 8) == 4 * (4 * 1025 + 4)

@@ -1048,3 +1048,70 @@ def test_warp_walks_raise_on_tables_out_of_range(dev, bad):
         HD.hufdec_cuda(*walk, 512)
     with pytest.raises(ValueError):
         MK.ceaz_chunk_dec_fused_cuda(*walk, *meta, 512)
+
+
+# -- the .ceazs stream engine and the file write on the card ------------------
+
+def _stream_rows(path):
+    from repro_torch.io import engine as E
+    with E.StreamReader(path) as r:
+        return r.records, [r.payload(i) for i in range(len(r))]
+
+
+@pytest.mark.parametrize("route", ["fused", "staged", "bank"])
+def test_stream_round_trip_on_card(dev, tmp_path, route):
+    """chip_smoke.py's W phases at a small size: the dump written on the
+    card (the compress stage on the engine's thread) holds the CPU run's
+    payloads bit for bit, overlap=False writes the same records, the
+    default reader (on the card) decodes to the CPU run's bytes, and the
+    kernels of the route launched from the compress thread."""
+    from repro_torch.io import engine as E
+    from repro_torch.io import filewrite as FW
+    kw = {"fused": {}, "staged": dict(use_fused=False),
+          "bank": dict(codebook="bank")}[route]
+    shards = ([F.nyx_proxy(seed=5 + r) for r in range(3)] if route == "fused"
+              else list(F.hacc_proxy().reshape(4, -1)))
+    card = CEAZ(CEAZConfig(device="cuda", **kw))
+    cpu = CEAZ(CEAZConfig(device="cpu", **kw))
+    dispatch.reset_launches()
+    st = FW.parallel_compressed_write(str(tmp_path / "a"), shards, comp=card,
+                                      fsync=False)
+    counts = dispatch.launches()
+    assert counts.get("gather_pack_tiled", 0) + counts.get("hufenc", 0) \
+        + counts.get("gather_pack", 0) > 0, counts
+    FW.parallel_compressed_write(str(tmp_path / "b"), shards, comp=card,
+                                 overlap=False, fsync=False)
+    recs, pays = _stream_rows(str(tmp_path / "a" / FW.DUMP_NAME))
+    assert _stream_rows(str(tmp_path / "b" / FW.DUMP_NAME)) == (recs, pays)
+    cs = [cpu.compress(x) for x in shards]
+    assert pays == [E.serialize_payload(c)[0] for c in cs]
+    dispatch.reset_launches()
+    back = FW.parallel_read(str(tmp_path / "a"))
+    assert sum(dispatch.launches().values()) > 0
+    for b, c, x in zip(back, cs, shards):
+        assert b.tobytes() == cpu.decompress(c).tobytes()
+        assert np.abs(b.astype(np.float64) - x).max() \
+            <= 1e-4 * (float(x.max()) - float(x.min()))
+    assert st["ratio"] > 1 and st["raw_bytes"] == sum(x.nbytes
+                                                      for x in shards)
+    files = []
+    for sync in (True, False):
+        path = str(tmp_path / f"t{sync}.ceazs")
+        E.write_stream(path, shards, card, sync=sync, telemetry=False,
+                       fsync=False)
+        files.append(open(path, "rb").read())
+    assert files[0] == files[1]
+
+
+def test_stream_defaults_run_on_card(dev, tmp_path):
+    """The entry points' default facades run on the card."""
+    from repro_torch.io import engine as E
+    shards = [F.nyx_proxy(seed=1)]
+    path = str(tmp_path / "d.ceazs")
+    dispatch.reset_launches()
+    E.write_stream(path, shards, fsync=False)
+    assert dispatch.launches().get("gather_pack_tiled", 0) > 0
+    with E.AsyncDecodeReadEngine(path) as eng:
+        assert eng._comp.device.type == "cuda"
+        (out,) = [o for _, o in eng]
+    assert out.shape == shards[0].shape

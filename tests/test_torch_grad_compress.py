@@ -352,6 +352,6 @@ def test_entry_points_need_a_card_unless_cpu():
     for fn, args in ((GC.snapshot_grads_to_stream, ("p", {})),
                      (GC.restore_grad_snapshot_stream, ("p",))):
         with pytest.raises(NotImplementedError,
-                           match="Queue 1 items 1 and 2"):
+                           match="Queue 1 item 2"):
             fn(*args)
     assert GC.payload_fraction(8) == RG.payload_fraction(8) == 0.5

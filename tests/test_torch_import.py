@@ -26,7 +26,8 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.optim.adamw, repro_torch.optim.grad_compress, "
             "repro_torch.io, repro_torch.io.collectives, "
             "repro_torch.kernels.histogram.ops, "
-            "repro_torch.kernels.hufenc.ops\n"
+            "repro_torch.kernels.hufenc.ops, repro_torch.io.engine, "
+            "repro_torch.io.filewrite, repro_torch.obs.report\n"
             # the staged route and compress_batch import lazily: run them
             "import numpy as np\n"
             "from repro_torch.core import CEAZ\n"
@@ -35,6 +36,19 @@ def test_import_leaves_jax_and_reference_out():
             "    c = CEAZ(use_fused=False, backend=b, device='cpu')\n"
             "    c.decompress(c.compress(x))\n"
             "CEAZ(device='cpu').compress_batch([x, x])\n"
+            # a ceaz stream written, read back and reported on
+            "import tempfile, os\n"
+            "from repro_torch.io import engine as E, filewrite as FW\n"
+            "from repro_torch.obs import report\n"
+            "d = tempfile.mkdtemp()\n"
+            "FW.parallel_compressed_write(d, [x, x[::-1].copy()], "
+            "comp=CEAZ(device='cpu'), fsync=False)\n"
+            "back = FW.parallel_read(d, device='cpu')\n"
+            "assert len(back) == 2\n"
+            "with E.StreamReader(os.path.join(d, FW.DUMP_NAME)) as r:\n"
+            "    assert type(r.read_seq(0)).__module__ == "
+            "'repro_torch.core.ceaz'\n"
+            "assert report.main([os.path.join(d, FW.DUMP_NAME)]) == 0\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n")
@@ -48,7 +62,8 @@ def test_no_source_imports_jax_or_reference():
     files = _port_files()
     assert len(files) > 20
     for new in ("kernels/histogram/ops.py", "kernels/hufenc/ops.py",
-                "core/ceaz.py", "runtime/fused.py"):
+                "core/ceaz.py", "runtime/fused.py", "io/engine.py",
+                "io/filewrite.py", "obs/manifest.py", "obs/report.py"):
         assert os.path.join(PORT, new) in files, new
     for path in files:
         tree = ast.parse(open(path).read(), path)
