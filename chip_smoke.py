@@ -92,7 +92,8 @@ through the public facade, at rel eb 1e-4 unless said otherwise:
            on the card, overlapped, fsync) into one ``.ceazs`` stream in a
            temporary directory under ``build/``, read back by
            ``parallel_read`` (self-configured): every payload equals the
-           facade's compress of its rank, the read bytes its decompress;
+           facade's compress of its rank on the card and on the CPU, the
+           read bytes its decompress on both;
            ``overlap=False`` gives the same records, and ``write_stream``
            with telemetry off the same file sync and async (rank-3
            Lorenzo runs as the torch twin; histogram, pack, tiled walk);
@@ -102,12 +103,15 @@ through the public facade, at rel eb 1e-4 unless said otherwise:
            the footer carries the bank, the default reader resolves it and
            every chunk stays on the bank route;
   W.fuzz   tests/test_engine.py's fuzz stream written on the card; every
-           stream-level case of tests/corpus/decode_fuzz_corpus.json must
-           be judged corrupt by the card's mega, split and staged decode
-           routes, and the pristine stream decode to the same bytes on all
-           three. W, W.staged and W.bank print wall, compress, serialize
-           and write seconds, overlap efficiency, ratio and write and read
-           GB/s of raw input beside the card.
+           stream-level case of tests/corpus/decode_fuzz_corpus.json
+           (replayed by tests/corpus/stream_cases.py) must be judged
+           corrupt by the card's mega, split and staged decode routes, and
+           the pristine stream decode to the same bytes on all three. W,
+           W.staged and W.bank print write and read GB/s of raw input (the
+           whole write call, footer, fsync and rename included, and the
+           whole read call, each on the host clock after a device sync)
+           beside the card, and the engine's wall, compress, serialize and
+           write seconds, overlap efficiency and ratio.
 
 Each phase is run with the kernels' launch counts set to 0 just before
 and read just after, and must launch every kernel of its path. Phases P
@@ -1842,50 +1846,6 @@ def staged_kernel_rows(inputs, census, rows):
 
 # -- the .ceazs stream engine and the file write (phases W) -------------------
 
-CORPUS = os.path.join(ROOT, "tests", "corpus", "decode_fuzz_corpus.json")
-# W.fuzz's stream: tests/test_engine.py's fuzz target (3 walks of 6000
-# values, books shipped with every chunk of 2048)
-FUZZ_KW = dict(mode="rel", eb=1e-4, adaptive=False, chunk_bytes=1 << 13)
-
-
-def corpus_cases(n_records):
-    """The fuzz corpus's stream-level cases, then its derandomized flips
-    (tests/test_engine.py::test_decode_differential_fuzz_fence)."""
-    import numpy as np
-    with open(CORPUS) as f:
-        corpus = json.load(f)
-    cases = list(corpus["cases"])
-    rng = np.random.default_rng(corpus["random"]["seed"])
-    for _ in range(corpus["random"]["n_bitflips"]):
-        cases.append({"kind": "bitflip",
-                      "record": int(rng.integers(n_records)),
-                      "rel_off": int(rng.integers(1 << 16)),
-                      "bit": int(rng.integers(8))})
-    return cases
-
-
-def apply_corpus_case(data, records, case):
-    """One corpus case -> the mutated stream bytes (offsets relative to a
-    record, or to the live trailer)."""
-    from repro_torch.io import engine as E
-    if case["kind"] == "truncate_index":
-        foot_off, foot_len, _, _ = E.TRAILER.unpack(data[-E.TRAILER.size:])
-        cut = {"mid_footer": foot_off + foot_len // 2,
-               "mid_trailer": len(data) - E.TRAILER.size // 2}[case["at"]]
-        return data[:cut]
-    rec = records[case["record"] % len(records)]
-    body = rec["offset"] + E.RECORD_HEADER.size
-    if case["kind"] == "bitflip":
-        mut = bytearray(data)
-        mut[body + case["rel_off"] % rec["nbytes"]] ^= 1 << (case["bit"] & 7)
-        return bytes(mut)
-    check(case["kind"] == "truncate", f"unknown corpus case {case}")
-    cut = {"after_header": body,
-           "mid_payload": body + rec["nbytes"] // 2,
-           "after_payload": body + rec["nbytes"]}[case["at"]]
-    return data[:cut]
-
-
 def counted_run(name, fn, dispatch, census, captured, also=()):
     """fn() on the card with the launch counts set to 0 just before and
     read just after, inside the censuses; every kernel of the phase (and
@@ -1911,21 +1871,38 @@ def counted_run(name, fn, dispatch, census, captured, also=()):
     return out, counts, inputs
 
 
-def stream_figures(name, st, read_s, card):
-    """W's figures: the engine's stage seconds and overlap, the ratio,
-    and write and read GB/s of raw input."""
+def timed_calls(write, read):
+    """write() then read(), each timed whole on the host clock between
+    device syncs -> (write's result, read's result, write s, read s)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = write()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    back = read()
+    torch.cuda.synchronize()
+    return st, back, t1 - t0, time.perf_counter() - t1
+
+
+def stream_figures(name, st, write_call_s, read_call_s, card):
+    """W's figures: write and read GB/s of raw input over the whole calls
+    (the write's footer, fsync and rename, the read's self-configured
+    facade included), and the engine's stage seconds beside them (its
+    wall_s stops before the footer is written)."""
     gb = st["raw_bytes"] / 1e9
     out = {k: st[k] for k in ("wall_s", "compress_s", "serialize_s",
                               "write_s", "overlap_efficiency", "ratio",
                               "raw_bytes", "stored_bytes")}
-    out.update(read_s=read_s, write_GBps=gb / st["wall_s"],
-               read_GBps=gb / read_s)
-    print(f"stream phase {name} [{card}]: wall {out['wall_s']} s, "
-          f"compress_s {out['compress_s']}, serialize_s "
+    out.update(write_call_s=write_call_s, read_call_s=read_call_s,
+               write_GBps=gb / write_call_s, read_GBps=gb / read_call_s)
+    print(f"stream phase {name} [{card}]: write {out['write_GBps']} GB/s "
+          f"({write_call_s} s), read {out['read_GBps']} GB/s "
+          f"({read_call_s} s) of raw input, whole calls; engine wall "
+          f"{out['wall_s']} s, compress_s {out['compress_s']}, serialize_s "
           f"{out['serialize_s']}, write_s {out['write_s']}, "
           f"overlap_efficiency {out['overlap_efficiency']}, ratio "
-          f"{out['ratio']}; write {out['write_GBps']} GB/s, read "
-          f"{out['read_GBps']} GB/s ({read_s} s) of raw input")
+          f"{out['ratio']}")
     return out
 
 
@@ -1951,26 +1928,36 @@ def run_stream_phases(nyx, hacc, dispatch, census, captured, card, tmp):
     d_w, d_sync = os.path.join(tmp, "w"), os.path.join(tmp, "w_sync")
 
     def write_read():
-        st = FW.parallel_compressed_write(d_w, nyx, overlap=True,
-                                          fsync=True)
-        t0 = time.perf_counter()
-        back = FW.parallel_read(d_w)
-        return st, back, time.perf_counter() - t0
-    (st, back, read_s), counts["W"], inputs["W"] = counted_run(
+        return timed_calls(
+            lambda: FW.parallel_compressed_write(d_w, nyx, overlap=True,
+                                                 fsync=True),
+            lambda: FW.parallel_read(d_w))
+    (st, back, write_s, read_s), counts["W"], inputs["W"] = counted_run(
         "W", write_read, dispatch, census, captured)
     recs, pays = records_and_payloads(os.path.join(d_w, FW.DUMP_NAME))
     check(len(recs) == len(nyx), "phase W: record count")
+    # the card's 3-D path against the CPU's, which the CPU tests hold to
+    # the reference's bytes
+    cpu = CEAZ(CEAZConfig(mode="rel", eb=1e-4, use_fused=True,
+                          device="cpu"))
+    t0 = time.perf_counter()
     for r, x in enumerate(nyx):
         c = comp.compress(x)
         check(pays[r] == E.serialize_payload(c)[0],
               f"phase W: rank {r}'s payload differs from the facade's "
               "compress on the card")
-        check(back[r].tobytes() == comp.decompress(c).tobytes(),
+        c_cpu = cpu.compress(x)
+        check(pays[r] == E.serialize_payload(c_cpu)[0],
+              f"phase W: rank {r}'s payload differs from the facade's "
+              "compress on the CPU")
+        check(back[r].tobytes() == comp.decompress(c).tobytes()
+              == cpu.decompress(c_cpu).tobytes(),
               f"phase W: rank {r} reads back to other bytes than the "
-              "facade's decompress")
+              "facade's decompress on the card or the CPU")
         err = float(np.abs(back[r].astype(np.float64) - x).max())
         check(err <= 1e-4 * value_range(x),
               f"phase W: rank {r} max error {err} over the bound")
+    cpu_s = time.perf_counter() - t0
     FW.parallel_compressed_write(d_sync, nyx, overlap=False, fsync=True)
     check(records_and_payloads(os.path.join(d_sync, FW.DUMP_NAME))
           == (recs, pays), "phase W: overlap=False changed the records")
@@ -1982,10 +1969,11 @@ def run_stream_phases(nyx, hacc, dispatch, census, captured, card, tmp):
             files.append(f.read())
     check(files[0] == files[1],
           "phase W: write_stream sync=True and sync=False files differ")
-    figs["W"] = stream_figures("W", st, read_s, card)
+    figs["W"] = stream_figures("W", st, write_s, read_s, card)
     print(f"phase W: {len(nyx)} ranks of {nyx[0].shape}, payloads == "
-          "facade compress, bytes == facade decompress, overlap=False "
-          "records == overlap, sync file == async file: True "
+          "facade compress on the card == on the CPU, bytes == facade "
+          "decompress on both, overlap=False records == overlap, sync "
+          f"file == async file: True (cpu runs {cpu_s:.2f} s) "
           f"launches={counts['W']}")
 
     # W.staged: the staged route's dump of the HACC shards
@@ -1993,12 +1981,11 @@ def run_stream_phases(nyx, hacc, dispatch, census, captured, card, tmp):
     d_st = os.path.join(tmp, "w_staged")
 
     def staged():
-        st = FW.parallel_compressed_write(d_st, shards, comp=comp,
-                                          use_fused=False, fsync=True)
-        t0 = time.perf_counter()
-        back = FW.parallel_read(d_st)
-        return st, back, time.perf_counter() - t0
-    (st, back, read_s), counts["W.staged"], inputs["W.staged"] = \
+        return timed_calls(
+            lambda: FW.parallel_compressed_write(
+                d_st, shards, comp=comp, use_fused=False, fsync=True),
+            lambda: FW.parallel_read(d_st))
+    (st, back, write_s, read_s), counts["W.staged"], inputs["W.staged"] = \
         counted_run("W.staged", staged, dispatch, census, captured,
                     also=staged_packers(shards[0].size))
     _, pays = records_and_payloads(os.path.join(d_st, FW.DUMP_NAME))
@@ -2009,7 +1996,8 @@ def run_stream_phases(nyx, hacc, dispatch, census, captured, card, tmp):
         err = float(np.abs(back[r].astype(np.float64) - x).max())
         check(err <= 1e-4 * value_range(x),
               f"phase W.staged: shard {r} max error {err} over the bound")
-    figs["W.staged"] = stream_figures("W.staged", st, read_s, card)
+    figs["W.staged"] = stream_figures("W.staged", st, write_s, read_s,
+                                      card)
     print(f"phase W.staged: {N_SHARDS} shards of {shards[0].size}, "
           f"payloads == fused route's: True launches={counts['W.staged']}")
 
@@ -2019,12 +2007,11 @@ def run_stream_phases(nyx, hacc, dispatch, census, captured, card, tmp):
     p_bank = os.path.join(tmp, "w_bank.ceazs")
 
     def banked():
-        st = E.write_stream(p_bank, shards, bank).as_dict()
-        t0 = time.perf_counter()
-        back = E.read_stream_arrays(p_bank)
-        return st, back, time.perf_counter() - t0
-    (st, back, read_s), counts["W.bank"], inputs["W.bank"] = counted_run(
-        "W.bank", banked, dispatch, census, captured)
+        return timed_calls(
+            lambda: E.write_stream(p_bank, shards, bank).as_dict(),
+            lambda: E.read_stream_arrays(p_bank))
+    (st, back, write_s, read_s), counts["W.bank"], inputs["W.bank"] = \
+        counted_run("W.bank", banked, dispatch, census, captured)
     check("bank_select" not in counts["W.bank"],
           "phase W.bank: the bank encode launched its select apart")
     with E.StreamReader(p_bank) as r:
@@ -2042,7 +2029,7 @@ def run_stream_phases(nyx, hacc, dispatch, census, captured, card, tmp):
         err = float(np.abs(back[r].astype(np.float64) - x).max())
         check(err <= 1e-4 * value_range(x),
               f"phase W.bank: shard {r} max error {err} over the bound")
-    figs["W.bank"] = stream_figures("W.bank", st, read_s, card)
+    figs["W.bank"] = stream_figures("W.bank", st, write_s, read_s, card)
     print(f"phase W.bank: every chunk on the bank route, footer bank "
           f"{bank.bank.id}: True launches={counts['W.bank']}")
 
@@ -2059,6 +2046,8 @@ def run_fuzz_phase(dispatch, census, captured, tmp):
     import numpy as np
     from repro_torch.core import CEAZ, CEAZConfig
     from repro_torch.io import engine as E
+    sys.path.insert(0, os.path.join(ROOT, "tests", "corpus"))
+    from stream_cases import FUZZ_KW, apply_corpus_case, corpus_cases
     routes = [("mega", dict(decode_megakernel="mega")),
               ("split", dict(decode_megakernel="split")),
               ("staged", dict(use_fused=False))]
@@ -2269,20 +2258,15 @@ def main():
     del q_mean
 
     # the .ceazs stream engine and the file write: W, W.staged, W.bank,
-    # W.fuzz (a tree without the engine, under --src, runs none of them)
-    import importlib.util
-    if importlib.util.find_spec("repro_torch.io.engine") is None:
-        print("phases W: the stream engine is not in this tree")
-    else:
-        import tempfile
-        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-        with tempfile.TemporaryDirectory(
-                dir=os.path.join(ROOT, "build")) as tmp:
-            c, i, figs = run_stream_phases(nyx, fields["hacc"], dispatch,
-                                           census, captured, card, tmp)
-        counts.update(c)
-        inputs.update(i)
-        thr.update(figs)
+    # W.fuzz
+    import tempfile
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        c, i, figs = run_stream_phases(nyx, fields["hacc"], dispatch,
+                                       census, captured, card, tmp)
+    counts.update(c)
+    inputs.update(i)
+    thr.update(figs)
     del nyx
     for p in [n for n, _, _ in GATHER_PHASES] + ["Q"]:
         check(all(op in inputs[p] for op in WIRE_OPS),

@@ -41,9 +41,8 @@ from repro_torch.obs import metrics as om
 from repro_torch.obs import report
 from repro_torch.obs import trace as ot
 
-from conftest import REPO
-sys.path.insert(0, REPO)
-import chip_smoke as smoke  # noqa: E402  (the corpus replay W.fuzz runs)
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "corpus"))
+import stream_cases  # noqa: E402  (the corpus replay, shared with W.fuzz)
 
 
 def _port(**kw):
@@ -692,7 +691,7 @@ def _ceaz_stream(tmp_path):
     writes it on the card."""
     path = str(tmp_path / "fuzz.ceazs")
     shards = [_walk(6000, 4 + i) for i in range(3)]
-    E.write_stream(path, shards, _port(**smoke.FUZZ_KW), fsync=False)
+    E.write_stream(path, shards, _port(**stream_cases.FUZZ_KW), fsync=False)
     return path, shards
 
 
@@ -751,7 +750,7 @@ def test_fuzz_truncation_at_every_section_boundary(tmp_path):
 def _decode_impl_comps():
     """The port's three decode routes: staged (host table walk), split
     (the `hufdec` walk) and the decode megakernel."""
-    base = smoke.FUZZ_KW
+    base = stream_cases.FUZZ_KW
     return [("staged", _port(use_fused=False, **base)),
             ("split", _port(decode_megakernel="split", **base)),
             ("mega", _port(decode_megakernel="mega", **base))]
@@ -784,10 +783,11 @@ def test_decode_differential_fuzz_fence(tmp_path):
         mode="rel", eb=1e-4, use_fused=True, adaptive=False,
         chunk_bytes=1 << 13)), sync=True)
     assert clean[0][2] == tuple(a.tobytes() for a in ref)
-    cases = smoke.corpus_cases(len(records))
+    cases = stream_cases.corpus_cases(len(records))
     assert len(cases) == 22
     for case in cases:
-        open(path, "wb").write(smoke.apply_corpus_case(data, records, case))
+        open(path, "wb").write(
+            stream_cases.apply_corpus_case(data, records, case))
         verdicts = _decode_verdicts(path)
         assert len({(v, b) for _, v, b in verdicts}) == 1, (case, verdicts)
         assert verdicts[0][1] == "corrupt", (case, verdicts)
