@@ -111,7 +111,39 @@ through the public facade, at rel eb 1e-4 unless said otherwise:
            whole write call, footer, fsync and rename included, and the
            whole read call, each on the host clock after a device sync)
            beside the card, and the engine's wall, compress, serialize and
-           write seconds, overlap efficiency and ratio.
+           write seconds, overlap efficiency and ratio;
+  phase R  the paper's MPI_Gather through the Huffman codec: P's 4 Nyx
+           ranks through ``io.collectives.ceaz_gather`` at the reference's
+           defaults (rel 1e-4, 2^20-value chunks, block 4096): ONE batched
+           pass pair (the ``ceaz.batch_fused_pass`` span opens once, n=4),
+           each rank's stream equal to the card's single compress, rank
+           0's to the CPU facade's; ``ceaz_gather_decode`` gives rank 0
+           the CPU's bytes, every rank within the bound; a ragged set
+           (the last rank 256x256x200)
+           batches 3 and passes the last alone; ``ceaz_gather_stream``
+           overlapped and sync give the same records, and
+           ``read_gather_stream`` the decode's bytes;
+  Q.stream Q's pod-mean gradient tree (53.7 M values) through
+           ``snapshot_grads_to_stream`` and ``restore_grad_snapshot_stream``
+           on the card: SNAP_LEAVES' records and bytes equal the CPU
+           run's, lossy leaves within 1e-3 x range, raw leaves bit-exact;
+  phase K  Q's parameter tree (214.7 MB f32) and a second one through
+           ``checkpoint.ckpt.save_checkpoint`` (step 1 synchronous, step 2
+           in the background) and ``restore_checkpoint`` (plan=None: host
+           arrays within 5e-4 x range, raw leaves bit-exact; a one-device
+           mesh on cuda:0 with a bf16 ``leaf_transform``: the bf16 cast
+           there); ``mode='raw'`` bit-exact; layer 0's records equal a
+           device='cpu' save's; after V, bytes flipped in step 2's stream
+           make the restore fall back to step 1;
+  phase V  a ``serve.PagedParamStore`` over K's step-1 stream (bf16, a
+           budget of one layer's decoded bytes): 64 seeded gets, each leaf
+           the full restore's bf16 cast bit for bit, resident bytes within
+           the budget after every get, counters and gauge consistent; a
+           swap to step 2 while a pin on the first generation is held: the
+           pin reads step 1, new pins step 2. R, Q.stream, K and V print
+           host-clock seconds and GB/s of raw input of their whole calls
+           (V: page-in and cache-hit ms) beside the card, and each phase's
+           seconds.
 
 Each phase is run with the kernels' launch counts set to 0 just before
 and read just after, and must launch every kernel of its path. Phases P
@@ -152,8 +184,8 @@ walked by the serial walk, most sync rounds); no block of a valid
 stream may take the serial walk, and some of each walk's garbage blocks
 must. The script prints the card
 (nvidia-smi name and power limit), the build time, per-kernel results,
-compress/decompress throughput, the W phases' stream figures, one JSON
-line of kernels and, last,
+compress/decompress throughput, the W phases' stream figures, the
+consumer phases' figures, one JSON line of kernels and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit
 code is then non-zero and the last line is not printed.
 
@@ -250,6 +282,14 @@ PHASE_KERNELS = {
     "W.bank": ("lorenzo_tiles", "gather_pack_tiled", "hufdec_tiles"),
     "W.fuzz": ("dq1d", "histogram", "gather_pack_tiled",
                "ceaz_chunk_dec_fused", "hufdec"),
+    # the consumers: R (rank-3 Lorenzo: the torch twin, as W); Q.stream,
+    # K and V choose their predictor per leaf and their decode walk by
+    # chunk length, so their walks are checked apart
+    # (check_decoded_on_card)
+    "R": ("histogram", "gather_pack_tiled", "hufdec_tiles"),
+    "Q.stream": ("gather_pack_tiled",),
+    "K": ("gather_pack_tiled",),
+    "V": (),
 }
 # the staged phases' fused counterparts at the same settings: the
 # streams must be identical (T.G's counterpart is run there)
@@ -2093,6 +2133,477 @@ def run_fuzz_phase(dispatch, census, captured, tmp):
     return counts, inputs
 
 
+# ---------------------------------------------------------------------------
+# The .ceazs consumers: R (the gather through the Huffman codec), Q.stream
+# (the gradient-snapshot streams), K (compressed checkpoints), V (the pager)
+# ---------------------------------------------------------------------------
+
+# the reference's ceaz_gather defaults: rel 1e-4, 2^20-value chunks, block
+# 4096
+GATHER_KW = dict(eb_rel=1e-4, chunk_values=1 << 20, block_size=4096)
+PAGER_GETS = 64
+# kernels whose launch shows a decode ran on the card (the walk the route
+# picks depends on the chunk length)
+DECODE_WALKS = ("hufdec_tiles", "ceaz_chunk_dec_fused")
+
+
+def synced(fn):
+    """fn() timed whole on the host clock between device syncs ->
+    (result, seconds)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def batched_passes(fn):
+    """fn() under the tracer -> (result, the n of every
+    ceaz.batch_fused_pass span it opened)."""
+    from repro_torch.obs import trace as ot
+    tracer = ot.enable()
+    tracer.clear()
+    try:
+        out = fn()
+    finally:
+        ot.disable()
+    return out, [ev["args"]["n"] for ev in tracer.events()
+                 if ev["name"] == "ceaz.batch_fused_pass"]
+
+
+def check_decoded_on_card(phase, counts, encode=True):
+    """The facade's kernels launched in a consumer phase: the pass-2 pack
+    (for an encode) and one of the decode walks."""
+    check((not encode or counts.get("gather_pack_tiled", 0) > 0)
+          and any(counts.get(k, 0) > 0 for k in DECODE_WALKS),
+          f"phase {phase}: the facade's kernels did not launch ({counts})")
+
+
+def same_records(a, b, keys=None):
+    """Two streams hold the same records under `keys` (all of a's when
+    None): every index field but seq and offset, and the payload bytes."""
+    from repro_torch.io import engine as E
+    with E.StreamReader(a) as ra, E.StreamReader(b) as rb:
+        keys = [r["key"] for r in ra.records] if keys is None else keys
+        for k in keys:
+            x = {f: v for f, v in ra.records[ra.seq_of(k)].items()
+                 if f not in ("seq", "offset")}
+            y = {f: v for f, v in rb.records[rb.seq_of(k)].items()
+                 if f not in ("seq", "offset")}
+            if x != y or ra.payload(ra.seq_of(k)) != rb.payload(
+                    rb.seq_of(k)):
+                return False
+    return True
+
+
+def consumer_figures(name, raw_bytes, calls, card):
+    """Host-clock seconds and GB/s of raw input of a phase's whole calls
+    ({what: seconds}), printed beside the card."""
+    out = {f"{what}_s": s for what, s in calls.items()}
+    out.update({f"{what}_GBps": raw_bytes / 1e9 / s
+                for what, s in calls.items()})
+    out["raw_bytes"] = raw_bytes
+    print(f"consumer phase {name} [{card}]: " + ", ".join(
+        f"{what} {s} s ({raw_bytes / 1e9 / s} GB/s)"
+        for what, s in calls.items()) + " of raw input, whole calls, host "
+        "clock after device syncs")
+    return out
+
+
+def run_gather_codec_phase(nyx, dispatch, census, captured, card, tmp):
+    """Phase R: the paper's MPI_Gather through the Huffman codec, P's 4
+    Nyx ranks on the card at the reference's defaults: ceaz_gather (ONE
+    batched pass pair), ceaz_gather_decode, then ceaz_gather_stream and
+    read_gather_stream. -> (counts, inputs, figures)."""
+    import numpy as np
+    from repro_torch.core import CEAZ, CEAZConfig
+    from repro_torch.core.dualquant import value_range
+    from repro_torch.io import collectives as COL
+    path = os.path.join(tmp, "gather.ceazs")
+
+    def run():
+        (res, g_s), passes = batched_passes(
+            lambda: synced(lambda: COL.ceaz_gather(nyx, **GATHER_KW)))
+        back, d_s = synced(lambda: COL.ceaz_gather_decode(
+            res[0], block_size=GATHER_KW["block_size"]))
+        st, w_s = synced(lambda: COL.ceaz_gather_stream(nyx, path,
+                                                        **GATHER_KW))
+        (arrays, _), r_s = synced(lambda: COL.read_gather_stream(path))
+        return res, passes, back, st, arrays, dict(
+            gather=g_s, decode=d_s, stream_write=w_s, stream_read=r_s)
+    (res, passes, back, st, arrays, calls), counts, inputs = counted_run(
+        "R", run, dispatch, census, captured)
+    (comps, stats) = res
+    check(passes == [N_RANKS], f"phase R: batched passes {passes}, want "
+          f"one of n={N_RANKS}")
+    one = CEAZ(CEAZConfig(mode="rel", eb=GATHER_KW["eb_rel"],
+                          chunk_bytes=4 * GATHER_KW["chunk_values"],
+                          block_size=GATHER_KW["block_size"],
+                          device="cuda"))
+    for r, x in enumerate(nyx):
+        assert_same_stream(comps[r], one.compress(x),
+                           f"phase R rank {r} vs the card's compress")
+    check(stats["raw_bytes"] == sum(x.nbytes for x in nyx)
+          and stats["wire_bytes"] == sum(c.nbytes() for c in comps),
+          f"phase R: stats {stats}")
+    # the CPU run on rank 0 only (~6 s a rank): the whole smoke run stays
+    # under ~550 s; the card's single compress above holds every rank
+    t0 = time.perf_counter()
+    cpu, _ = COL.ceaz_gather(nyx[:1], device="cpu", **GATHER_KW)
+    assert_same_stream(comps[0], cpu[0], "phase R rank 0 vs the cpu")
+    back_c = COL.ceaz_gather_decode(cpu, block_size=GATHER_KW["block_size"],
+                                    device="cpu")
+    cpu_s = time.perf_counter() - t0
+    check(back[0].tobytes() == back_c[0].tobytes(),
+          "phase R: rank 0 decodes to other bytes than the CPU run")
+    for r, x in enumerate(nyx):
+        check(back[r].tobytes() == arrays[r].tobytes(), f"phase R: rank {r} "
+              "reads back from the gather stream to other bytes")
+        err = float(np.abs(back[r].astype(np.float64) - x).max())
+        check(err <= GATHER_KW["eb_rel"] * value_range(x),
+              f"phase R: rank {r} max error {err} over the bound")
+    # a ragged set: the last rank cut to 256x256x200 takes its own pass
+    cut = nyx[-1].shape[2] * 25 // 32
+    ragged = list(nyx[:-1]) + [np.ascontiguousarray(nyx[-1][:, :, :cut])]
+    (rc, _), rpasses = batched_passes(
+        lambda: COL.ceaz_gather(ragged, **GATHER_KW))
+    check(rpasses == [N_RANKS - 1], f"phase R: ragged set batched "
+          f"{rpasses}, want one pass of n={N_RANKS - 1}")
+    for r in range(N_RANKS - 1):
+        assert_same_stream(rc[r], comps[r], f"phase R ragged rank {r}")
+    assert_same_stream(rc[-1], one.compress(ragged[-1]),
+                       "phase R ragged last rank vs the card's compress")
+    sync_path = os.path.join(tmp, "gather_sync.ceazs")
+    COL.ceaz_gather_stream(nyx, sync_path, overlap=False, **GATHER_KW)
+    check(same_records(path, sync_path)
+          and records_and_payloads(path)[0] == records_and_payloads(
+              sync_path)[0], "phase R: the sync gather stream's records "
+          "differ from the overlapped one's")
+    check(st["n_ranks"] == N_RANKS and st["raw_bytes"] == stats["raw_bytes"],
+          f"phase R: gather stream stats {st}")
+    figs = consumer_figures("R", stats["raw_bytes"], calls, card)
+    figs.update(ratio=stats["ratio"], wire_bytes=stats["wire_bytes"],
+                stream_overlap_efficiency=st["overlap_efficiency"],
+                cpu_comparison_s=cpu_s)
+    print(f"phase R: {N_RANKS} ranks of {nyx[0].shape} in one batched pass "
+          f"pair, payloads == the card's compress (rank 0 == the CPU's), "
+          f"decode == stream read (rank 0 == the CPU's bytes), ragged set "
+          f"per-rank last pass, sync "
+          f"stream records == overlapped: True (cpu runs {cpu_s:.2f} s) "
+          f"ratio {stats['ratio']} launches={counts}")
+    return counts, inputs, figs
+
+
+def run_snapshot_stream_phase(mean, dispatch, census, captured, card, tmp):
+    """Phase Q.stream: Q's pod-mean gradient tree through
+    snapshot_grads_to_stream and restore_grad_snapshot_stream on the
+    card; SNAP_LEAVES' records and bytes against the CPU run."""
+    import numpy as np
+    from repro_torch.core.dualquant import value_range
+    from repro_torch.io import engine as E
+    from repro_torch.optim import grad_compress as GC
+    path = os.path.join(tmp, "grads.ceazs")
+
+    def run():
+        st, w_s = synced(lambda: GC.snapshot_grads_to_stream(path, mean))
+        back, r_s = synced(lambda: GC.restore_grad_snapshot_stream(path))
+        return st, back, dict(write=w_s, restore=r_s)
+    (st, back, calls), counts, inputs = counted_run(
+        "Q.stream", run, dispatch, census, captured)
+    check_decoded_on_card("Q.stream", counts)
+    host = {k: v.cpu().numpy() for k, v in mean.items()}
+    path_c = os.path.join(tmp, "grads_cpu.ceazs")
+    t0 = time.perf_counter()
+    GC.snapshot_grads_to_stream(path_c, {k: host[k] for k in SNAP_LEAVES},
+                                device="cpu")
+    back_c = GC.restore_grad_snapshot_stream(path_c, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    check(same_records(path, path_c, SNAP_LEAVES),
+          "phase Q.stream: SNAP_LEAVES' records differ from the CPU run's")
+    for k in SNAP_LEAVES:
+        check(back[k].tobytes() == back_c[k].tobytes(),
+              f"phase Q.stream: {k} restores to other bytes than the CPU's")
+    with E.StreamReader(path) as r:
+        codecs = {rec["key"]: rec["codec"] for rec in r.records}
+    check(sorted(back) == sorted(host) == sorted(codecs),
+          "phase Q.stream: the restored keys differ from the tree's")
+    n_lossy = 0
+    for k, x in host.items():
+        if codecs[k] == "ceaz":
+            n_lossy += 1
+            err = float(np.abs(back[k].astype(np.float64) - x).max())
+            check(err <= 1e-3 * value_range(x),
+                  f"phase Q.stream: {k} error {err} over its bound")
+        else:
+            check(back[k].tobytes() == x.tobytes(),
+                  f"phase Q.stream: raw leaf {k} changed")
+    raw = sum(x.nbytes for x in host.values())
+    figs = consumer_figures("Q.stream", raw, calls, card)
+    figs.update(ratio=st["raw_bytes"] / st["stored_bytes"],
+                overlap_efficiency=st["overlap_efficiency"],
+                cpu_comparison_s=cpu_s)
+    print(f"phase Q.stream: {len(host)} leaves ({n_lossy} lossy, "
+          f"{sum(x.size for x in host.values())} values), SNAP_LEAVES' "
+          f"records+bytes == cpu run, lossy leaves within 1e-3 x range, raw "
+          f"leaves bit-exact: True (cpu runs {cpu_s:.2f} s) "
+          f"launches={counts}")
+    return counts, inputs, figs
+
+
+def bf16_on_card(arr):
+    """A restored host leaf as the card's bf16 cast (ints as they are)."""
+    import torch
+    t = torch.from_numpy(arr).cuda()
+    return t.to(torch.bfloat16) if t.is_floating_point() else t
+
+
+def run_checkpoint_phase(dispatch, census, captured, card, tmp, seed):
+    """Phase K: Q's parameter tree (and a second one from seed + 1)
+    through save_checkpoint (step 1 synchronous, step 2 in the
+    background) and restore_checkpoint (plan=None; a one-device mesh on
+    cuda:0 with a bf16 leaf_transform) on the card. Returns the phase's
+    results and the two steps' full restores for V."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import ckpt as C
+    from repro_torch.core.dualquant import value_range
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.sharding import make_plan
+    d = os.path.join(tmp, "ckpt")
+    params = {1: _q_state("cuda", seed), 2: _q_state("cuda", seed + 1)}
+    plan = make_plan(make_mesh((1, 1), ("data", "model")))
+    seen = []
+
+    def cast(key, arr):
+        seen.append(isinstance(arr, np.ndarray))
+        t = torch.from_numpy(arr)
+        return t.to(torch.bfloat16) if t.is_floating_point() else t
+
+    def run():
+        _, s1 = synced(lambda: C.save_checkpoint(d, params[1], 1))
+        _, s2 = synced(lambda: (C.save_checkpoint(d, params[2], 2,
+                                                  background=True),
+                                C.wait_for_pending()))
+        (full2, meta), r_s = synced(lambda: C.restore_checkpoint(d))
+        (placed, _), p_s = synced(lambda: C.restore_checkpoint(
+            d, plan=plan, leaf_transform=cast))
+        full1, _ = C.restore_checkpoint(d, step=1)
+        return full1, full2, meta, placed, dict(
+            save=s1, save_background=s2, restore=r_s, restore_mesh_bf16=p_s)
+    (full1, full2, meta, placed, calls), counts, inputs = counted_run(
+        "K", run, dispatch, census, captured)
+    check_decoded_on_card("K", counts)
+    check(meta == {"step": 2}, f"phase K: restored {meta}, want step 2")
+    check(sorted(os.listdir(d)) == [C.LATEST, "step_00000001",
+                                    "step_00000002"],
+          f"phase K: directory holds {sorted(os.listdir(d))}")
+    flat = {k: dict(C.tree_items(f)) for k, f in ((1, full1), (2, full2))}
+    host = {s: {k: v.cpu().numpy() for k, v in p.items()}
+            for s, p in params.items()}
+    n_lossy = 0
+    for s in (1, 2):
+        check(sorted(flat[s]) == sorted(host[s]),
+              f"phase K: step {s} restores other keys")
+        for k, x in host[s].items():
+            y = flat[s][k]
+            check(isinstance(y, np.ndarray) and y.dtype == x.dtype
+                  and y.shape == x.shape, f"phase K: step {s} leaf {k}")
+            if x.size >= C.CheckpointConfig.min_compress:
+                n_lossy += s == 1
+                err = float(np.abs(y.astype(np.float64) - x).max())
+                check(err <= 5e-4 * value_range(x),
+                      f"phase K: step {s} {k} error {err} over its bound")
+            else:
+                check(y.tobytes() == x.tobytes(),
+                      f"phase K: raw leaf {k} changed")
+    pf = dict(C.tree_items(placed))
+    check(seen and all(seen), "phase K: leaf_transform saw a leaf that "
+          "was not a host array")
+    dev0 = plan.mesh.device_set[0]
+    for k, y in flat[2].items():
+        t, want = pf[k], bf16_on_card(y)
+        check(t.device == dev0 == want.device and torch.equal(t, want),
+              f"phase K: the mesh restore's {k} is not the bf16 cast on "
+              f"{dev0}")
+    d_raw = os.path.join(tmp, "ckpt_raw")
+    raw_cfg = C.CheckpointConfig(mode="raw")
+    C.save_checkpoint(d_raw, params[1], 1, cfg=raw_cfg)
+    raw = dict(C.tree_items(C.restore_checkpoint(d_raw, cfg=raw_cfg)[0]))
+    check(all(raw[k].tobytes() == x.tobytes() for k, x in host[1].items()),
+          "phase K: mode='raw' is not bit-exact")
+    # layer 0 saved on the CPU: the same records
+    layer0 = {k: x for k, x in host[1].items() if k.startswith("layers/0/")}
+    d_cpu = os.path.join(tmp, "ckpt_cpu")
+    t0 = time.perf_counter()
+    C.save_checkpoint(d_cpu, layer0, 1, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    stream = lambda dd, s: os.path.join(dd, f"step_{s:08d}", C.LEAVES_STREAM)
+    check(same_records(stream(d_cpu, 1), stream(d, 1)),
+          "phase K: layer 0's records differ from a device='cpu' save's")
+    raw_bytes = sum(x.nbytes for x in host[1].values())
+    figs = consumer_figures("K", raw_bytes, calls, card)
+    with open(os.path.join(d, "step_00000001", "manifest.json")) as f:
+        stored = sum(v["nbytes"] for v in json.load(f)["leaves"].values())
+    figs.update(ratio=raw_bytes / stored, cpu_comparison_s=cpu_s)
+    print(f"phase K: {len(host[1])} leaves ({n_lossy} lossy, "
+          f"{raw_bytes} B), steps 1 (sync) and 2 (background) restore "
+          f"within 5e-4 x range, raw leaves and mode='raw' bit-exact, mesh "
+          f"restore == bf16 cast on {dev0}, layer 0 records == cpu save: "
+          f"True (cpu save {cpu_s:.2f} s) launches={counts}")
+    return counts, inputs, figs, (d, stream, flat)
+
+
+def run_pager_phase(ckpt, dispatch, census, captured, card, seed):
+    """Phase V: a PagedParamStore over K's step-1 stream on the card (bf16,
+    a budget of one layer's decoded bytes): PAGER_GETS seeded gets, each
+    leaf the full restore's bf16 cast bit for bit, the budget held after
+    every get and the counters consistent; then a swap to step 2 while a
+    pin on the first generation is held."""
+    import numpy as np
+    import torch
+    from repro_torch.obs import metrics as om
+    from repro_torch.serve import PagedParamStore
+    d, stream, flat = ckpt
+    layer0 = [k for k in flat[1] if k.startswith("layers/0/")]
+    budget = 2 * sum(flat[1][k].size for k in layer0)
+    keys = sorted(flat[1])
+    picks = [keys[i] for i in np.random.default_rng(seed).integers(
+        0, len(keys), PAGER_GETS)]
+    want = {s: {} for s in (1, 2)}
+
+    def ref(s, k):
+        if k not in want[s]:
+            want[s][k] = bf16_on_card(flat[s][k])
+        return want[s][k]
+    c0 = {n: om.counter(n).value() for n in (om.PAGE_HITS, om.PAGE_MISSES,
+                                             om.PAGE_EVICTIONS)}
+
+    def run():
+        store = PagedParamStore(stream(d, 1), cache_bytes=budget)
+        miss_ms, hit_ms = [], []
+        with store.pin() as pin:
+            for k in picks:
+                h = om.counter(om.PAGE_HITS).value()
+                leaf, s = synced(lambda: pin.get(k))
+                if om.counter(om.PAGE_HITS).value() > h:
+                    hit_ms.append(s * 1e3)
+                else:
+                    miss_ms.append((k, s * 1e3))
+                check(store.cache_resident_bytes <= budget,
+                      f"phase V: {store.cache_resident_bytes} resident "
+                      f"bytes over the budget {budget}")
+                want1 = ref(1, k)
+                check(leaf.device == want1.device
+                      and torch.equal(leaf, want1),
+                      f"phase V: paged {k} differs from the full restore's "
+                      "bf16 cast")
+        got = {n: om.counter(n).value() - v for n, v in c0.items()}
+        check(got[om.PAGE_HITS] + got[om.PAGE_MISSES] == PAGER_GETS
+              and len(store._cache) == got[om.PAGE_MISSES]
+              - got[om.PAGE_EVICTIONS]
+              and om.gauge(om.PAGE_CACHE_BYTES).value()
+              == store.cache_resident_bytes,
+              f"phase V: counters {got}, {len(store._cache)} entries, "
+              f"gauge {om.gauge(om.PAGE_CACHE_BYTES).value()} vs "
+              f"{store.cache_resident_bytes} resident")
+        codec = {r["key"]: r["codec"] for r in store._gen.reader.records}
+        old = store.pin()
+        _, swap_s = synced(lambda: store.swap(stream(d, 2)))
+        check(store.n_generations == 2 and old.generation == 0
+              and store.generation == 1, "phase V: generations after swap")
+        for k in SNAP_LEAVES:
+            check(torch.equal(old.get(k), ref(1, k)),
+                  f"phase V: the pin on generation 1 reads {k} from "
+                  "another stream")
+        with store.pin() as new:
+            for k in SNAP_LEAVES:
+                check(torch.equal(new.get(k), ref(2, k)),
+                      f"phase V: a new pin reads {k} from another stream")
+        old.release()
+        check(store.n_generations == 1, "phase V: the old generation "
+              "outlived its last pin")
+        store.close()
+        return got, miss_ms, hit_ms, swap_s, codec
+    (got, miss_ms, hit_ms, swap_s, codec), counts, inputs = counted_run(
+        "V", run, dispatch, census, captured)
+    check_decoded_on_card("V", counts, encode=False)
+    # page-ins of compressed leaves and of raw (npy) ones apart
+    lossy_ms = [ms for k, ms in miss_ms if codec[k] == "ceaz"]
+    raw_ms = [ms for k, ms in miss_ms if codec[k] != "ceaz"]
+    check(lossy_ms and hit_ms, f"phase V: {len(lossy_ms)} page-ins of "
+          f"compressed leaves and {len(hit_ms)} cache hits; both must occur")
+    med = lambda v: statistics.median(v) if v else None
+    figs = dict(page_in_ms_median=med(lossy_ms), page_in_ms=lossy_ms,
+                raw_page_in_ms_median=med(raw_ms),
+                hit_ms_median=med(hit_ms), hits=got[om.PAGE_HITS],
+                misses=got[om.PAGE_MISSES],
+                evictions=got[om.PAGE_EVICTIONS], budget_bytes=budget,
+                swap_s=swap_s)
+    print(f"consumer phase V [{card}]: first-touch page-in of a compressed "
+          f"leaf median {figs['page_in_ms_median']} ms over {len(lossy_ms)} "
+          f"(of a raw one {figs['raw_page_in_ms_median']} ms over "
+          f"{len(raw_ms)}), cache hit median {figs['hit_ms_median']} ms "
+          f"over {len(hit_ms)} hits (one get each, host clock after device "
+          f"syncs); swap with warm-up {swap_s} s")
+    print(f"phase V: {PAGER_GETS} gets, paged bits == full restore's bf16 "
+          f"cast, resident <= {budget} B after every get, counters {got} "
+          f"consistent, pin on generation 1 reads step 1 after the swap, "
+          f"new pins step 2: True launches={counts}")
+    return counts, inputs, figs
+
+
+def run_corruption_check(ckpt):
+    """K's fallback: bytes flipped in step 2's stream make the restore
+    fall back to step 1 (run after V, which pages step 2)."""
+    from repro_torch.checkpoint import ckpt as C
+    d, stream, flat = ckpt
+    path = stream(d, 2)
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) // 2)
+        f.write(b"corrupted")
+    state, meta = C.restore_checkpoint(d)
+    check(meta == {"step": 1}, f"phase K: a corrupted step 2 restored as "
+          f"{meta}, want the fallback to step 1")
+    restored = dict(C.tree_items(state))
+    check(all(restored[k].tobytes() == v.tobytes()
+              for k, v in flat[1].items()),
+          "phase K: the fallback restore differs from step 1's")
+    print("phase K: bytes flipped in step 2's stream -> restore fell back to "
+          "step 1: True")
+
+
+def run_consumer_phases(nyx, mean, dispatch, census, captured, card, tmp,
+                        seed):
+    """Phases R, Q.stream, K and V, each timed whole and its seconds
+    printed -> (counts, inputs, figures)."""
+    counts, inputs, figs, secs = {}, {}, {}, {}
+    t0 = time.perf_counter()
+    counts["R"], inputs["R"], figs["R"] = run_gather_codec_phase(
+        nyx, dispatch, census, captured, card, tmp)
+    secs["R"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts["Q.stream"], inputs["Q.stream"], figs["Q.stream"] = \
+        run_snapshot_stream_phase(mean, dispatch, census, captured, card,
+                                  tmp)
+    secs["Q.stream"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts["K"], inputs["K"], figs["K"], ckpt = run_checkpoint_phase(
+        dispatch, census, captured, card, tmp, seed)
+    secs["K"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts["V"], inputs["V"], figs["V"] = run_pager_phase(
+        ckpt, dispatch, census, captured, card, seed)
+    secs["V"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_corruption_check(ckpt)
+    secs["K"] += time.perf_counter() - t0
+    for name, s in secs.items():
+        figs[name]["phase_s"] = s
+    print(f"consumer phases' seconds (whole phase, checks included): {secs}")
+    return counts, inputs, figs
+
+
 PHASES = (
     # name, field, facade options (rel eb 1e-4 unless given)
     ("A", "cesm", {}),
@@ -2255,7 +2766,6 @@ def main():
     counts["Q"], inputs["Q"], wire_stats["Q"], q_mean = run_exchange_phase(
         dispatch, captured, "cuda", args.seed)
     counts["Q.snap"] = run_snapshot_phase(q_mean, dispatch, "cuda", census)
-    del q_mean
 
     # the .ceazs stream engine and the file write: W, W.staged, W.bank,
     # W.fuzz
@@ -2264,10 +2774,15 @@ def main():
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         c, i, figs = run_stream_phases(nyx, fields["hacc"], dispatch,
                                        census, captured, card, tmp)
+        counts.update(c)
+        inputs.update(i)
+        thr.update(figs)
+        # the consumers of the stream: R, Q.stream, K, V
+        c, i, consumers = run_consumer_phases(nyx, q_mean, dispatch, census,
+                                              captured, card, tmp, args.seed)
     counts.update(c)
     inputs.update(i)
-    thr.update(figs)
-    del nyx
+    del nyx, q_mean
     for p in [n for n, _, _ in GATHER_PHASES] + ["Q"]:
         check(all(op in inputs[p] for op in WIRE_OPS),
               f"pack/unpack inputs of phase {p} not captured")
@@ -2301,6 +2816,7 @@ def main():
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"throughput": thr, "card": card}))
     print(json.dumps({"wire": wire_stats, "card": card}))
+    print(json.dumps({"consumers": consumers, "card": card}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

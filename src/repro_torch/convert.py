@@ -116,6 +116,26 @@ def tree_items(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
         yield prefix[:-1], tree
 
 
+_TENSOR_ONLY = (torch.bfloat16, torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+def host_leaf(leaf):
+    """A leaf on the host, as the stream engine writes it: a numpy array,
+    or a CPU tensor for the dtypes numpy cannot hold (bfloat16, float8).
+    A tensor is copied, so later in-place writes do not reach it."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().to("cpu", copy=True)
+        return t if t.dtype in _TENSOR_ONLY else t.numpy()
+    return np.asarray(leaf)
+
+
+def dtype_name(leaf) -> str:
+    """numpy's name for a leaf's dtype ('float32', 'bfloat16')."""
+    dt = leaf.dtype
+    return str(dt).replace("torch.", "") if isinstance(dt, torch.dtype) \
+        else str(dt)
+
+
 def _is_bf16(dtype) -> bool:
     return np.dtype(dtype).name == "bfloat16"
 

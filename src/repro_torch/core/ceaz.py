@@ -34,8 +34,8 @@ torch inverse passes; streams those routes do not take (any stream when
 16) take the staged host decoder, as in the reference.
 
 The work runs on ``CEAZConfig.device`` — the card unless the caller
-asks for the CPU. Routes of the reference not yet ported raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+asks for the CPU. A batch over a sharding plan whose mesh spans several
+devices raises ``NotImplementedError`` naming ROADMAP Queue 1 item 5.
 """
 from __future__ import annotations
 
@@ -174,11 +174,6 @@ class CEAZConfig:
     # drift past this bound the array is recompressed on the exact route
     bank_drift_tol: float = DEFAULT_BANK_DRIFT_TOL
     device: str = "cuda"
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP {item})")
 
 
 class CEAZ:
@@ -531,14 +526,15 @@ class CEAZ:
         one stream per shard, in order, each bit-identical to the
         shard's own :meth:`compress`.
 
-        ``plan``: None, or a plan without a mesh. Raises
-        NotImplementedError for a plan that carries a mesh, else as
-        :meth:`compress`.
+        ``plan``: None, or a ``runtime/sharding.py::ShardingPlan``. With
+        a mesh that spans one device the batched passes run there, and
+        the streams are those of ``plan=None``; a mesh over several
+        devices raises NotImplementedError (ROADMAP Queue 1 item 5).
+        Raises otherwise as :meth:`compress`.
         """
-        if plan is not None and getattr(plan, "mesh", None) is not None:
-            _not_ported("compress_batch over a mesh plan "
-                        "(runtime/sharding.py)", "Queue 1 item 3")
         from ..runtime import fused
+        from ..runtime.sharding import plan_device
+        plan_device(plan, "compress_batch")
         shards = [np.asarray(s) for s in shards]
         out: List[Optional[CEAZCompressed]] = [None] * len(shards)
         preds: dict = {}               # probe once; leftovers reuse it
@@ -564,7 +560,7 @@ class CEAZ:
                         self._chunk_values(dtype.itemsize * 8),
                         self.cfg.block_size, self.offline,
                         mode=self.cfg.mode, device=self.device,
-                        tau0=self.cfg.tau0, tau1=self.cfg.tau1,
+                        plan=plan, tau0=self.cfg.tau0, tau1=self.cfg.tau1,
                         adaptive=self.cfg.adaptive,
                         exact_build=self.cfg.exact_build,
                         kernel_impl=self.cfg.kernel_impl, predictor=pred)

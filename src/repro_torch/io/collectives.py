@@ -1,4 +1,4 @@
-"""Compressed collectives: the paper's MPI_Gather scenario, fixed width.
+"""Compressed collectives: the paper's MPI_Gather scenario.
 
 The port of ``src/repro/io/collectives.py``. ``compressed_all_gather``
 moves fixed-ratio payloads instead of raw floats: per rank, an optional
@@ -19,6 +19,14 @@ error bound, not bitwise. The port's scan is blocked in two levels
 (:func:`blocked_cumsum`), so that bound depends on the block sizes and not
 on the order ``torch.cumsum`` sums in on the card or on the CPU.
 
+``ceaz_gather`` is the same scenario through the Huffman codec: every
+rank's shard through the facade's ``compress_batch`` (one batched pass
+pair for same-shape f32 ranks), the payloads gathered with raw and wire
+byte counts; ``ceaz_gather_decode`` decodes them in one batched pass.
+``ceaz_gather_stream`` commits the ranks' payloads to one ``.ceazs``
+stream through the async engine, and ``read_gather_stream`` reads it
+back. Their streams are the reference's bit for bit.
+
 ``DeadlineGather`` is the host-level straggler-tolerant gather (bounded
 staleness), unchanged.
 """
@@ -31,7 +39,6 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from ..core.ceaz import _not_ported
 from ..kernels.bitpack import ops as BP
 from ..optim.adamw import sqrt_block
 from ..optim.grad_compress import (dequantize_rows, gather_ranks,
@@ -169,28 +176,105 @@ def lorenzo_bounds(x: np.ndarray, resid_hat: np.ndarray, scale: float,
     return np.cumsum(rh), scan, open_loop
 
 
+def _gather_comp(eb_rel: float, chunk_values: int, block_size: int,
+                 device):
+    from ..core import CEAZ, CEAZConfig
+    return CEAZ(CEAZConfig(mode="rel", eb=eb_rel, use_fused=True,
+                           chunk_bytes=4 * chunk_values,
+                           block_size=block_size, device=device))
+
+
 def ceaz_gather(shards, eb_rel: float = 1e-4, plan=None,
-                chunk_values: int = 1 << 20, block_size: int = 4096):
-    _not_ported("ceaz_gather (over the facade's compress_batch)",
-                "Queue 1 item 2")
+                chunk_values: int = 1 << 20, block_size: int = 4096,
+                device="cuda"):
+    """Host-level compressed gather: the paper's MPI_Gather scenario
+    through the Huffman codec.
+
+    Every rank's shard is compressed by the facade's ``compress_batch``
+    on `device` (the card unless the caller asks for the CPU): same-shape
+    f32 ranks share ONE batched pass pair, ragged or float64 ranks take
+    per-rank passes. A `plan` whose mesh spans one device runs the pass
+    there. Only the packed payloads are 'gathered'. Returns
+    (compressed_list, stats), stats giving raw vs wire bytes (the
+    paper's Fig 17 quantity): ``raw_bytes``, ``wire_bytes``, ``ratio``,
+    ``n_ranks``.
+    """
+    shards = [np.asarray(s) for s in shards]
+    comp = _gather_comp(eb_rel, chunk_values, block_size, device)
+    comps = comp.compress_batch(shards, plan=plan)
+    raw = sum(int(s.nbytes) for s in shards)
+    wire = sum(c.nbytes() for c in comps)
+    return comps, dict(raw_bytes=raw, wire_bytes=wire,
+                       ratio=raw / max(wire, 1), n_ranks=len(comps))
 
 
-def ceaz_gather_decode(comps, block_size: int = 4096):
-    _not_ported("ceaz_gather_decode (with ceaz_gather)", "Queue 1 item 2")
+def ceaz_gather_decode(comps, block_size: int = 4096, device="cuda"):
+    """Aggregator-side inverse of :func:`ceaz_gather`: every rank's
+    shard, in rank order, from ONE batched decode pass of the facade on
+    `device` (``CEAZ.decompress_batch``)."""
+    from ..core import CEAZ, CEAZConfig
+    comp = CEAZ(CEAZConfig(mode="rel", use_fused=True,
+                           block_size=block_size, device=device))
+    return comp.decompress_batch(comps)
 
 
 def read_gather_stream(path: str, block_size: Optional[int] = None,
-                       group: int = 4):
-    _not_ported("read_gather_stream (the gather streams)",
-                "Queue 1 item 2")
+                       group: int = 4, device="cuda"):
+    """Read an aggregated gather stream back to per-rank arrays.
+
+    The engine's prefetch thread reads and deserializes rank records
+    while groups of `group` decode as one batched pass each on `device`.
+    The decode grain comes from the stream's footer meta unless
+    `block_size` is given (a mismatch with the stream raises rather than
+    decoding garbage). Returns (arrays, the read engine's stats dict).
+    """
+    from ..core import CEAZ, CEAZConfig
+    from . import engine as E
+    comp = (CEAZ(CEAZConfig(mode="rel", use_fused=True,
+                            block_size=block_size, device=device))
+            if block_size is not None else None)
+    with E.AsyncDecodeReadEngine(path, comp, group=group,
+                                 device=device) as eng:
+        arrays = [obj for _, obj in eng]
+    return arrays, eng.stats.as_dict()
 
 
 def ceaz_gather_stream(shards, path: str, eb_rel: float = 1e-4,
                        plan=None, chunk_values: int = 1 << 20,
                        block_size: int = 4096, group: int = 2,
-                       overlap: bool = True):
-    _not_ported("ceaz_gather_stream (the gather streams)",
-                "Queue 1 item 2")
+                       overlap: bool = True, device="cuda"):
+    """Streaming gather: rank shards land in one indexed stream file.
+
+    As each group of `group` rank shards finishes its batched pass on
+    `device`, its payloads commit to the stream while the next group
+    compresses (two-phase aggregation, the phases overlapped;
+    ``overlap=False`` runs them inline and writes the same records).
+    `shards` may hold callables: a rank arrives when its fetcher is
+    called. Records are ``rank_0000``, ``rank_0001``, ...; the footer
+    meta is ``{"kind": "gather", "eb_rel": ...}`` with the block grain.
+    Returns gather stats: raw and wire bytes, ratio, ranks, the engine's
+    wall seconds and overlap efficiency, and `path`.
+    """
+    from . import engine as E
+    comp = _gather_comp(eb_rel, chunk_values, block_size, device)
+    eng = E.AsyncCompressWriteEngine(
+        path, E.ceaz_compress_fn(comp, plan),
+        sync=not overlap, meta={"kind": "gather", "eb_rel": eb_rel},
+        block_size=block_size)
+    with eng:
+        shards = list(shards)
+        for s in range(0, len(shards), max(1, group)):
+            grp = [np.asarray(sh() if callable(sh) else sh)
+                   for sh in shards[s:s + max(1, group)]]
+            eng.submit_batch(
+                [f"rank_{s + j:04d}" for j in range(len(grp))], grp,
+                [{"shape": list(a.shape), "dtype": str(a.dtype),
+                  "raw_nbytes": int(a.nbytes)} for a in grp])
+    d = eng.stats.as_dict()
+    return dict(raw_bytes=d["raw_bytes"], wire_bytes=d["stored_bytes"],
+                ratio=d["raw_bytes"] / max(d["stored_bytes"], 1),
+                n_ranks=d["n_records"], wall_s=d["wall_s"],
+                overlap_efficiency=d["overlap_efficiency"], path=path)
 
 
 @dataclasses.dataclass

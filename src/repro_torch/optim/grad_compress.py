@@ -223,12 +223,6 @@ def _compressible(arr: np.ndarray, min_compress: int) -> bool:
                 and np.all(np.isfinite(arr)))
 
 
-def _host(leaf) -> np.ndarray:
-    if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
-
-
 def snapshot_grads(grads, eb_rel: float = 1e-3, chunk_bytes: int = 1 << 22,
                    min_compress: int = 4096, device="cuda"):
     """-> {path: CEAZCompressed | np.ndarray} for a gradient tree (the
@@ -238,11 +232,11 @@ def snapshot_grads(grads, eb_rel: float = 1e-3, chunk_bytes: int = 1 << 22,
     by the port's facade (fused, rel bound, ``predictor='auto'``: noise-
     like leaves go value-direct, smooth ones Lorenzo); others are kept
     raw."""
-    from ..convert import tree_items
+    from ..convert import host_leaf, tree_items
     comp = _grad_compressor(eb_rel, chunk_bytes, device)
     out = {}
     for key, leaf in tree_items(grads):
-        arr = _host(leaf)
+        arr = host_leaf(leaf)
         out[key] = (comp.compress(arr)
                     if _compressible(arr, min_compress) else arr)
     return out
@@ -262,13 +256,42 @@ def restore_grad_snapshot(snapshot, device="cuda"):
 def snapshot_grads_to_stream(path: str, grads, eb_rel: float = 1e-3,
                              chunk_bytes: int = 1 << 22,
                              min_compress: int = 4096,
-                             overlap: bool = True):
-    from ..core.ceaz import _not_ported
-    _not_ported("snapshot_grads_to_stream (the snapshot streams)",
-                "Queue 1 item 2")
+                             overlap: bool = True, device="cuda"):
+    """Stream a gradient snapshot to disk through the async engine: the
+    facade on `device` compresses leaf i+1 while the committer appends
+    leaf i to one indexed ``.ceazs`` stream (records keyed by
+    ``tree_items`` paths; leaves copied to the host by
+    ``convert.host_leaf``).
+    Which leaves compress is :func:`snapshot_grads`'s rule. Returns the
+    engine stats dict (raw/stored bytes, overlap efficiency)."""
+    from ..convert import dtype_name, host_leaf, tree_items
+    from ..io import engine as E
+    comp = _grad_compressor(eb_rel, chunk_bytes, device)
+
+    def encode(keys, items):
+        return [comp.compress(a) if _compressible(a, min_compress) else a
+                for a in items]
+
+    eng = E.AsyncCompressWriteEngine(
+        path, encode, sync=not overlap,
+        meta={"kind": "grad_snapshot", "eb_rel": eb_rel},
+        block_size=comp.cfg.block_size)
+    with eng:
+        for key, leaf in tree_items(grads):
+            arr = host_leaf(leaf)
+            eng.submit(key, arr, meta={"shape": list(arr.shape),
+                                       "dtype": dtype_name(arr),
+                                       "raw_nbytes": int(arr.nbytes)})
+    return eng.stats.as_dict()
 
 
-def restore_grad_snapshot_stream(path: str, group: int = 8):
-    from ..core.ceaz import _not_ported
-    _not_ported("restore_grad_snapshot_stream (the snapshot streams)",
-                "Queue 1 item 2")
+def restore_grad_snapshot_stream(path: str, group: int = 8, device="cuda"):
+    """Read a streamed snapshot back as {path: np.ndarray}, the stream's
+    index and checksums validated: the engine's prefetch thread reads
+    leaf i+1 while a group of `group` leaves decodes as one batched pass
+    of the facade on `device`."""
+    from ..core import CEAZ, CEAZConfig
+    from ..io import engine as E
+    comp = CEAZ(CEAZConfig(use_fused=True, device=device))
+    with E.AsyncDecodeReadEngine(path, comp, group=group) as eng:
+        return {rec["key"]: obj for rec, obj in eng}

@@ -906,7 +906,7 @@ def compress_fixed_ratio(x: np.ndarray, ctrl, coder: AdaptiveCoder,
 
 def batch_compress(shards, eb_rel: float, chunk_values: int, block_size: int,
                    offline: Codebook, mode: str = "rel", device="cuda",
-                   stats_on_device: Optional[bool] = None,
+                   plan=None, stats_on_device: Optional[bool] = None,
                    tau0: float = DEFAULT_TAU0, tau1: float = DEFAULT_TAU1,
                    adaptive: bool = True, exact_build: bool = False,
                    kernel_impl: str = "auto", predictor: str = "lorenzo"):
@@ -921,14 +921,17 @@ def batch_compress(shards, eb_rel: float, chunk_values: int, block_size: int,
     shard keeps its own AdaptiveCoder stream, and ONE `hufenc` pack
     covers every shard's chunks. Each result equals the shard's own
     ``compress_error_bounded`` bit for bit (the reference's
-    ``runtime/fused.py::batch_compress``).
+    ``runtime/fused.py::batch_compress``). A `plan` whose mesh spans one
+    device runs the passes there; a mesh over several devices raises
+    NotImplementedError (ROADMAP Queue 1 item 5).
     """
     from ..core.ceaz import CEAZCompressed
+    from .sharding import plan_device
     if len({s.shape for s in shards}) != 1:
         raise ValueError("batch_compress requires same-shape shards")
     if len({s.dtype for s in shards}) != 1:
         raise ValueError("batch_compress requires same-dtype shards")
-    dev = target_device(device)
+    dev = target_device(plan_device(plan, "batch_compress") or device)
     if stats_on_device is None:
         stats_on_device = dev.type != "cpu"
     ebs = [eb_rel * core_dq.value_range(s) if mode == "rel" else eb_rel

@@ -104,15 +104,27 @@ def test_group_runs_one_pass_pair():
 
 
 def test_mesh_plan_raises_and_batch_checks_shapes():
-    class Plan:
-        mesh = object()
+    """A plan over a one-device mesh batches there with plan=None's
+    streams (the batched pass included); one over two devices raises
+    naming ROADMAP Queue 1 item 5."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.sharding import make_plan
     port = TC.CEAZ(TC.CEAZConfig(device="cpu"), offline_codebook=PORT_OFF)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        port.compress_batch(_shards("group"), plan=Plan())
+    one = make_plan(make_mesh((1,), ("data",), ["cpu"]))
+    two = make_plan(make_mesh((2,), ("data",), ["cuda:0", "cuda:1"]))
+    shards = _shards("group")
+    for a, b in zip(port.compress_batch(shards, plan=one),
+                    port.compress_batch(shards)):
+        assert_streams_bit_identical(a, b)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        port.compress_batch(shards, plan=two)
     from repro_torch.runtime import fused
     with pytest.raises(ValueError, match="same-shape"):
         fused.batch_compress(_shards("ragged"), 1e-4, 4096, 1024, PORT_OFF,
                              device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        fused.batch_compress(shards, 1e-4, 4096, 1024, PORT_OFF,
+                             device="cpu", plan=two)
     assert port.compress_batch([]) == []
     assert not port.compress_batch([np.zeros(0, np.float32)])[0].chunks
     with pytest.raises(TypeError):

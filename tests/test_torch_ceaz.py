@@ -180,8 +180,15 @@ def test_facade_runs_on_the_card_unless_asked_for_cpu():
         _port(kernel_impl="cuda").compress(np.ones(64, np.float32))
 
 
-class _MeshPlan:
-    mesh = object()
+def _mesh_plans():
+    """(a plan over a one-device mesh, a plan over two devices): the
+    sharding plan of ROADMAP Queue 1 item 3; placement over several
+    devices is item 5."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.sharding import make_plan
+    return (make_plan(make_mesh((1, 1), ("data", "model"), ["cpu"])),
+            make_plan(make_mesh((2, 1), ("data", "model"),
+                                ["cuda:0", "cuda:1"])))
 
 
 @pytest.mark.parametrize("kw,item", [
@@ -190,17 +197,22 @@ class _MeshPlan:
     (dict(use_fused=False, mode="fixed_ratio"), "Queue 1 item 3"),
 ])
 def test_unported_routes_raise(kw, item):
-    """The staged routes run now (tests/test_torch_staged.py holds them
-    to the reference); what stays unported on them is a batch over a
-    mesh plan (ROADMAP `item`, the sharding plan)."""
+    """The staged routes run (tests/test_torch_staged.py holds them to
+    the reference), and so does a batch over a mesh plan (ROADMAP
+    `item`, the sharding plan) that spans one device: its streams are
+    plan=None's. A mesh over two devices raises naming item 5."""
     x = np.linspace(-1, 1, 64, dtype=np.float32)
     comp = _port(**kw)
     c = comp.compress(x)
     assert comp.decompress(c).tobytes() == _port(**kw).decompress(c) \
         .tobytes()
     assert comp.compress_batch([x, x], plan=object())[0].chunks
-    with pytest.raises(NotImplementedError, match=item):
-        comp.compress_batch([x, x], plan=_MeshPlan())
+    one, two = _mesh_plans()
+    for a, b in zip(comp.compress_batch([x, x], plan=one),
+                    comp.compress_batch([x, x])):
+        assert_streams_bit_identical(a, b)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        comp.compress_batch([x, x], plan=two)
 
 
 @pytest.mark.parametrize("kw", [
@@ -224,11 +236,16 @@ def test_unported_decode_and_batch_routes_raise():
     # the split route is ported: same bytes as the megakernel route
     assert _port(decode_megakernel="split").decompress(c).tobytes() \
         == _port().decompress(c).tobytes()
-    # compress_batch is ported; only a mesh plan raises
-    assert len(_port().compress_batch([np.ones(8, np.float32)] * 2)) == 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        _port().compress_batch([np.ones(8, np.float32)] * 2,
-                               plan=_MeshPlan())
+    # compress_batch is ported, over a one-device mesh plan too; a mesh
+    # over two devices raises naming Queue 1 item 5
+    ones = [np.ones(8, np.float32)] * 2
+    one, two = _mesh_plans()
+    assert len(_port().compress_batch(ones)) == 2
+    for a, b in zip(_port().compress_batch(ones, plan=one),
+                    _port().compress_batch(ones)):
+        assert_streams_bit_identical(a, b)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        _port().compress_batch(ones, plan=two)
     with pytest.raises(ValueError, match="backend"):
         _port(use_fused=False, backend="jax").compress(
             np.ones(64, np.float32))

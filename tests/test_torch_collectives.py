@@ -256,17 +256,26 @@ def test_deadline_gather_matches_reference():
     assert got.stats == ref.stats == {"rounds": 2, "dropped": 4}
 
 
-def test_gather_entry_points_device_and_not_ported():
+def test_gather_entry_points_device_and_not_ported(tmp_path):
+    """The Huffman-codec gather is ported: its entry points run on the
+    card by default and raise without one; with device='cpu' they run
+    (tests/test_torch_gather.py holds them to the reference)."""
     x = _shards(R=2, n=10)
+    path = str(tmp_path / "g.ceazs")
+    ranks = [np.linspace(0, 1, 64, dtype=np.float32)] * 2
+    comps, stats = COL.ceaz_gather(ranks, device="cpu")
+    assert stats["n_ranks"] == 2
+    COL.ceaz_gather_stream(ranks, path, device="cpu")
+    back, _ = COL.read_gather_stream(path, device="cpu")
+    assert back[1].tobytes() == COL.ceaz_gather_decode(
+        comps, device="cpu")[1].tobytes()
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            COL.compressed_all_gather(x)
-    for fn, args, item in ((COL.ceaz_gather, ([x[0]],), "Queue 1 item 2"),
-                           (COL.ceaz_gather_decode, ([],), "Queue 1 item 2"),
-                           (COL.read_gather_stream, ("p",),
-                            "Queue 1 item 2"),
-                           (COL.ceaz_gather_stream, ([x[0]], "p"),
-                            "Queue 1 item 2")):
-        with pytest.raises(NotImplementedError, match=item):
-            fn(*args)
+        for fn, args in ((COL.compressed_all_gather, (x,)),
+                         (COL.ceaz_gather, ([x[0]],)),
+                         (COL.ceaz_gather_decode, ([],)),
+                         (COL.read_gather_stream, (path,)),
+                         (COL.ceaz_gather_stream,
+                          ([x[0]], str(tmp_path / "h.ceazs")))):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                fn(*args)
     assert COL.wire_bytes(4, 4099, 8) == 4 * (4 * 1025 + 4)

@@ -1115,3 +1115,75 @@ def test_stream_defaults_run_on_card(dev, tmp_path):
         assert eng._comp.device.type == "cuda"
         (out,) = [o for _, o in eng]
     assert out.shape == shards[0].shape
+
+
+def test_gather_on_card_matches_cpu(dev, tmp_path):
+    """chip_smoke.py's phase R at a small size: the gather's payloads on
+    the card equal the CPU run's and the card's single compress, its
+    decode the CPU's bytes; the gather stream written and read on the
+    card holds the same payloads."""
+    from repro_torch.io import collectives as COL
+    from repro_torch.io import engine as E
+    ranks = [F.nyx_proxy(seed=5 + r) for r in range(3)]
+    kw = dict(chunk_values=1 << 16, block_size=1024)
+    dispatch.reset_launches()
+    comps, stats = COL.ceaz_gather(ranks, **kw)
+    assert dispatch.launches().get("gather_pack_tiled", 0) > 0
+    cpu, cpu_stats = COL.ceaz_gather(ranks, device="cpu", **kw)
+    assert stats == cpu_stats
+    one = CEAZ(CEAZConfig(mode="rel", eb=1e-4, chunk_bytes=4 << 16,
+                          block_size=1024, device="cuda"))
+    for x, c, cc in zip(ranks, comps, cpu):
+        pay = E.serialize_payload(c)[0]
+        assert pay == E.serialize_payload(cc)[0]
+        assert pay == E.serialize_payload(one.compress(x))[0]
+    back = COL.ceaz_gather_decode(comps, block_size=1024)
+    back_c = COL.ceaz_gather_decode(cpu, block_size=1024, device="cpu")
+    for b, bc in zip(back, back_c):
+        assert b.tobytes() == bc.tobytes()
+    path = str(tmp_path / "g.ceazs")
+    COL.ceaz_gather_stream(ranks, path, **kw)
+    _, pays = _stream_rows(path)
+    assert pays == [E.serialize_payload(c)[0] for c in cpu]
+    arrays, _ = COL.read_gather_stream(path)
+    for a, b in zip(arrays, back_c):
+        assert a.tobytes() == b.tobytes()
+
+
+def test_checkpoint_round_trip_on_card(dev, tmp_path):
+    """chip_smoke.py's phase K at a small size: a checkpoint of card
+    tensors holds the CPU save's records, restores within the bound on
+    the host (plan=None) and onto a one-device mesh on cuda:0 through a
+    bf16 leaf_transform, and its stream pages through PagedParamStore on
+    the card to the same bf16 bits."""
+    from repro_torch.checkpoint import ckpt as C
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.sharding import make_plan
+    from repro_torch.serve import PagedParamStore
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = {"layers": [{"mlp": {"wi": torch.randn(64, 256, generator=gen,
+                                                   device="cuda")},
+                         "norm": torch.ones(64, device="cuda")}],
+             "step": torch.tensor(3, device="cuda")}
+    C.save_checkpoint(str(tmp_path / "g"), state, 1)
+    C.save_checkpoint(str(tmp_path / "c"), state, 1, device="cpu")
+    stream = lambda d: str(tmp_path / d / "step_00000001" / C.LEAVES_STREAM)
+    assert _stream_rows(stream("g")) == _stream_rows(stream("c"))
+    host, meta = C.restore_checkpoint(str(tmp_path / "g"))
+    assert meta == {"step": 1}
+    w = state["layers"][0]["mlp"]["wi"].cpu().numpy()
+    got = host["layers"][0]["mlp"]["wi"]
+    assert isinstance(got, np.ndarray)
+    assert np.abs(got - w).max() <= 5e-4 * float(w.max() - w.min())
+    plan = make_plan(make_mesh((1, 1), ("data", "model")))
+    cast = lambda k, a: torch.from_numpy(np.asarray(a)).to(torch.bfloat16) \
+        if np.asarray(a).dtype.kind == "f" else torch.from_numpy(
+            np.asarray(a))
+    placed, _ = C.restore_checkpoint(str(tmp_path / "g"), plan=plan,
+                                     leaf_transform=cast)
+    t = placed["layers"][0]["mlp"]["wi"]
+    assert t.device == torch.device("cuda", 0) and t.dtype == torch.bfloat16
+    assert torch.equal(t.cpu(), torch.from_numpy(got).to(torch.bfloat16))
+    with PagedParamStore(stream("g")) as store, store.pin() as pin:
+        leaf = pin.get("layers/0/mlp/wi")
+    assert leaf.is_cuda and torch.equal(leaf.cpu(), t.cpu())

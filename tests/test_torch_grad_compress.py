@@ -333,7 +333,49 @@ def test_snapshot_round_trip_matches_reference():
         assert back[k].tobytes() == np.asarray(ref_back[k]).tobytes()
 
 
-def test_entry_points_need_a_card_unless_cpu():
+@pytest.mark.parametrize("overlap", [True, False])
+def test_snapshot_stream_matches_reference(tmp_path, overlap):
+    """The streamed snapshot: a nested tree of torch leaves (a smooth and a
+    noise-like lossy leaf, a non-finite one, a small one, an int one)
+    gives the reference's records and payloads for the same numpy
+    leaves; each package restores the other's stream to the same bytes,
+    and every raw leaf bit-exact."""
+    rng = np.random.default_rng(12)
+    ref_tree = {"layers": [
+        {"w": np.cumsum(rng.standard_normal((80, 100)), axis=1)
+         .astype(np.float32),
+         "n": rng.standard_normal(5000).astype(np.float32)}],
+        "bad": np.full(4096, np.inf, np.float32),
+        "small": rng.standard_normal(100).astype(np.float32),
+        "count": np.arange(4, dtype=np.int32)}
+    port_tree = {"layers": [{k: torch.from_numpy(v.copy())
+                             for k, v in ref_tree["layers"][0].items()}],
+                 **{k: torch.from_numpy(ref_tree[k].copy())
+                    for k in ("bad", "small", "count")}}
+    pp, pr = str(tmp_path / "p.ceazs"), str(tmp_path / "r.ceazs")
+    st = GC.snapshot_grads_to_stream(pp, port_tree, overlap=overlap,
+                                     device="cpu")
+    rst = RG.snapshot_grads_to_stream(pr, ref_tree, overlap=overlap)
+    assert (st["raw_bytes"], st["stored_bytes"], st["n_records"]) == \
+        (rst["raw_bytes"], rst["stored_bytes"], rst["n_records"])
+    from repro_torch.io import engine as E
+    with E.StreamReader(pp) as a, E.StreamReader(pr) as b:
+        assert a.records == b.records
+        assert [a.payload(i) for i in range(len(a))] == \
+            [b.payload(i) for i in range(len(b))]
+        assert {k: v for k, v in a.meta.items() if k != "telemetry"} == \
+            {"kind": "grad_snapshot", "eb_rel": 1e-3, "block_size": 4096}
+    mine = GC.restore_grad_snapshot_stream(pr, device="cpu")
+    theirs = RG.restore_grad_snapshot_stream(pp)
+    keys = ["bad", "count", "layers/0/n", "layers/0/w", "small"]
+    assert list(mine) == list(theirs) == keys
+    for k in keys:
+        assert mine[k].tobytes() == np.asarray(theirs[k]).tobytes(), k
+    for k in ("bad", "count", "small"):
+        assert mine[k].tobytes() == ref_tree[k].tobytes(), k
+
+
+def test_entry_points_need_a_card_unless_cpu(tmp_path):
     t = {"w": torch.zeros(4, 3)}
     calls = [lambda: GC.ef_init(t), lambda: PA.adamw_init(t, PA.AdamWConfig()),
              lambda: PA.adamw_update(t, t, PA.adamw_init(
@@ -349,9 +391,16 @@ def test_entry_points_need_a_card_unless_cpu():
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
-    for fn, args in ((GC.snapshot_grads_to_stream, ("p", {})),
-                     (GC.restore_grad_snapshot_stream, ("p",))):
-        with pytest.raises(NotImplementedError,
-                           match="Queue 1 item 2"):
+    # the snapshot streams are ported: on the card by default, raising
+    # without one; with device='cpu' they run
+    path = str(tmp_path / "snap.ceazs")
+    grads = {"w": np.linspace(0, 1, 5000, dtype=np.float32)}
+    GC.snapshot_grads_to_stream(path, grads, device="cpu")
+    assert GC.restore_grad_snapshot_stream(path, device="cpu")["w"].shape \
+        == (5000,)
+    for fn, args in ((GC.snapshot_grads_to_stream,
+                      (str(tmp_path / "q.ceazs"), grads)),
+                     (GC.restore_grad_snapshot_stream, (path,))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(*args)
     assert GC.payload_fraction(8) == RG.payload_fraction(8) == 0.5

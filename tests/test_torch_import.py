@@ -27,7 +27,10 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.io, repro_torch.io.collectives, "
             "repro_torch.kernels.histogram.ops, "
             "repro_torch.kernels.hufenc.ops, repro_torch.io.engine, "
-            "repro_torch.io.filewrite, repro_torch.obs.report\n"
+            "repro_torch.io.filewrite, repro_torch.obs.report, "
+            "repro_torch.runtime.sharding, repro_torch.launch.mesh, "
+            "repro_torch.checkpoint.ckpt, repro_torch.serve, "
+            "repro_torch.serve.paging\n"
             # the staged route and compress_batch import lazily: run them
             "import numpy as np\n"
             "from repro_torch.core import CEAZ\n"
@@ -49,6 +52,17 @@ def test_import_leaves_jax_and_reference_out():
             "    assert type(r.read_seq(0)).__module__ == "
             "'repro_torch.core.ceaz'\n"
             "assert report.main([os.path.join(d, FW.DUMP_NAME)]) == 0\n"
+            # the consumers: a gather stream, a checkpoint and its pager
+            "from repro_torch.io import collectives as COL\n"
+            "from repro_torch.checkpoint import ckpt as C\n"
+            "from repro_torch.serve import PagedParamStore\n"
+            "COL.ceaz_gather_stream([x, x], os.path.join(d, 'g.ceazs'), "
+            "device='cpu')\n"
+            "C.save_checkpoint(os.path.join(d, 'ck'), {'w': x}, 1, "
+            "device='cpu')\n"
+            "with PagedParamStore(os.path.join(d, 'ck', 'step_00000001', "
+            "C.LEAVES_STREAM), device='cpu') as st, st.pin() as p:\n"
+            "    assert p.get('w').shape == (5000,)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n")
@@ -63,7 +77,9 @@ def test_no_source_imports_jax_or_reference():
     assert len(files) > 20
     for new in ("kernels/histogram/ops.py", "kernels/hufenc/ops.py",
                 "core/ceaz.py", "runtime/fused.py", "io/engine.py",
-                "io/filewrite.py", "obs/manifest.py", "obs/report.py"):
+                "io/filewrite.py", "obs/manifest.py", "obs/report.py",
+                "runtime/sharding.py", "launch/mesh.py",
+                "checkpoint/ckpt.py", "serve/paging.py"):
         assert os.path.join(PORT, new) in files, new
     for path in files:
         tree = ast.parse(open(path).read(), path)
