@@ -19,6 +19,11 @@ reference and flat ``dict[str, Tensor]`` in the port, keyed by the paths
     opt = opt_state_from_reference(ref_opt, device="cpu")
     ref_params = tree_to_reference(params, like=ref_params)
 
+Model parameter trees keep the reference's nesting (dicts and lists,
+each unit's leaves stacked on a repeat axis), with tensors at the
+leaves: ``map_tree`` over the reference tree puts the flat dict's
+tensors back in it, and ``tree_to_reference`` takes either form back.
+
 bf16 leaves (numpy's ``bfloat16`` from ml_dtypes) cross as their uint16
 bits, so the port never imports ml_dtypes.
 
@@ -156,6 +161,18 @@ def _to_numpy(t: torch.Tensor, dtype) -> np.ndarray:
     return t.numpy().astype(dtype, copy=False)
 
 
+def map_tree(fn, tree, prefix: str = ""):
+    """`tree` with the same dicts, lists and tuples and fn(path, leaf) at
+    the leaves, path the key ``tree_items`` gives the leaf (None stays an
+    empty subtree)."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tree(fn, v, f"{prefix}{i}/")
+                          for i, v in enumerate(tree))
+    return None if tree is None else fn(prefix[:-1], tree)
+
+
 def tree_from_reference(tree, device="cuda") -> Dict[str, torch.Tensor]:
     """A reference pytree of arrays -> {keystr path: Tensor} on `device`
     (the card unless device='cpu')."""
@@ -164,9 +181,12 @@ def tree_from_reference(tree, device="cuda") -> Dict[str, torch.Tensor]:
     return {k: _to_tensor(v, dev) for k, v in tree_items(tree)}
 
 
-def tree_to_reference(flat: Dict[str, torch.Tensor], like):
-    """{keystr path: Tensor} -> a tree shaped as `like` (the reference
-    tree it came from) with numpy leaves of like's dtypes."""
+def tree_to_reference(tree, like):
+    """{keystr path: Tensor}, or a nested tree of tensors -> a tree shaped
+    as `like` (the reference tree it came from) with numpy leaves of
+    like's dtypes."""
+    flat = dict(tree_items(tree))
+
     def build(node, prefix):
         if isinstance(node, dict):
             return {k: build(node[k], f"{prefix}{k}/") for k in node}

@@ -396,44 +396,60 @@ def ceaz_chunk_cuda(work2, prev2, valid2, ebs, bank_lengths, bank_cwords,
 # ---------------------------------------------------------------------------
 
 
+# values a row slice of patch_and_inverse holds: its int64 temporaries
+# stay a few of 2^25 x 8 B, where a restore group of 512 rows of 2^20
+# would otherwise hold ten of 4 GB at once
+TAIL_VALUES = 1 << 25
+
+
 def patch_and_inverse(codes2, counts, odelta2, base, seg0, islor):
     """codes -> reconstruction codes q (plain PyTorch, any device); the
     reference's ``ref.patch_and_inverse``, with the prefix sums taken in
-    int64 and wrapped once at the end (same residues mod 2^32)."""
+    int64 and wrapped once at the end (same residues mod 2^32). Rows go
+    in slices of about TAIL_VALUES values, in order, the segment carry
+    running on across them: carry[c] = sum(row_sum[seg0[c]:c]), which
+    needs the contract's seg0[c] in [0, c]."""
     C, N = codes2.shape
     dev = codes2.device
     Ko = odelta2.shape[1]
-    codes = codes2.to(torch.int64)
     pos = torch.arange(N, device=dev)
-    valid = pos[None, :] < counts.to(torch.int64)[:, None]
-    is_out = valid & (codes == 0)
-    io = is_out.to(torch.int64)
-    rank = torch.cumsum(io, 1) - io                 # exclusive zero-count
-    dval = torch.gather(odelta2.to(torch.int64), 1, rank.clamp(0, Ko - 1))
     zero = torch.zeros((), dtype=torch.int64, device=dev)
-    delta = torch.where(is_out, dval, codes - RADIUS)
-    delta = torch.where(valid, delta, zero)
-    local = torch.cumsum(delta, 1)
-    carry = segment_carry(local[:, -1], seg0)
-    q_lor = local + carry[:, None]
-    q_val = delta + base.to(torch.int64)[:, None]
-    q = torch.where(islor.to(torch.bool)[:, None], q_lor, q_val)
-    return torch.where(valid, q, zero).to(torch.int32)
-
-
-def segment_carry(row_sum: torch.Tensor, seg0: torch.Tensor) -> torch.Tensor:
-    """Segmented exclusive scan of the row sums, resetting at seg0, as
-    int64 (callers wrap): carry[c] = sum(row_sum[seg0[c]:c])."""
-    dsum = row_sum.to(torch.int64)
-    carry_all = torch.cumsum(dsum, 0) - dsum
-    return carry_all - carry_all[seg0.to(torch.int64)]
+    seg0 = seg0.to(torch.int64)
+    carry_all = torch.zeros(C, dtype=torch.int64, device=dev)  # exclusive
+    total = zero
+    out = torch.empty((C, N), dtype=torch.int32, device=dev)
+    step = max(1, TAIL_VALUES // max(N, 1))
+    for r0 in range(0, C, step):
+        rows = slice(r0, min(C, r0 + step))
+        codes = codes2[rows].to(torch.int64)
+        valid = pos[None, :] < counts[rows].to(torch.int64)[:, None]
+        is_out = valid & (codes == 0)
+        io = is_out.to(torch.int64)
+        rank = torch.cumsum(io, 1) - io             # exclusive zero-count
+        dval = torch.gather(odelta2[rows].to(torch.int64), 1,
+                            rank.clamp(0, Ko - 1))
+        delta = torch.where(is_out, dval, codes - RADIUS)
+        del codes, is_out, io, rank, dval
+        delta = torch.where(valid, delta, zero)
+        local = torch.cumsum(delta, 1)
+        dsum = local[:, -1]
+        inc = torch.cumsum(dsum, 0)
+        carry_all[rows] = total + inc - dsum
+        total = total + inc[-1]
+        carry = carry_all[rows] - carry_all[seg0[rows]]
+        q = torch.where(islor[rows].to(torch.bool)[:, None],
+                        local + carry[:, None],
+                        delta + base[rows].to(torch.int64)[:, None])
+        del local, delta
+        out[rows] = torch.where(valid, q, zero)
+    return out
 
 
 def ceaz_chunk_dec_plain(words2, nbits2, counts, sym_flat, len_flat, cb_idx,
                          odelta2, base, seg0, islor, block_size: int):
     """The op in plain PyTorch (any device). Its contract has seg0[c] in
-    [0, c]: :func:`segment_carry` sums row_sum[seg0[c]:c] for any seg0,
-    while the fused kernel clamps seg0[c] into [0, c]."""
+    [0, c], as :func:`patch_and_inverse` needs; the fused kernel clamps
+    seg0[c] into [0, c]."""
     C, W = words2.shape
     NB = nbits2.shape[1]
     if NB * block_size <= DEC_FUSE_LIMIT:

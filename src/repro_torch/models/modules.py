@@ -1,0 +1,451 @@
+"""Shared model building blocks of the port (``src/repro/models/modules.py``):
+plain functions on tensors over the reference's parameter tree.
+
+Design rules (the reference's):
+  * every `*_init` returns a nested dict of f32 tensors whose key paths
+    match runtime.sharding.PARAM_RULES (``units/0/b0/attn/wq``): the
+    checkpoint, the sharding rules and the pager key leaves by these
+    paths, so the tree is the state and no ``nn.Module`` re-keys it;
+  * an init draws from a ``torch.Generator`` on the device it fills;
+    ``key=None`` gives the shapes alone, on the meta device;
+  * every `*_apply` is pure, takes a ShardingPlan (mesh=None => no-op
+    constraints) and computes in bf16 with f32 accumulation where it
+    matters (softmax, norms, the attention scores);
+  * attention is the reference's chunked flash forward (bq=512,
+    bk=1024), so no (S, S) score matrix is ever built.
+
+Only the attention family is here: GQA/MQA attention with sliding
+windows, qk-norm, partial RoPE and M-RoPE, cross-attention, the dense
+MLP and the embedding. MLA and MoE keep their configs (plain data) and
+raise in ``transformer`` (ROADMAP Queue 1 item 5b); the flash backward
+and ``chunked_xent`` come with training (item 5c).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..runtime.sharding import ShardingPlan
+
+COMPUTE_DTYPE = torch.bfloat16
+# finite, so a fully masked row softmaxes to uniform weights, not NaN
+NEG_INF = -2.0e38
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+def key_device(key) -> torch.device:
+    """The device an init fills: the generator's, or meta for key=None."""
+    return torch.device("meta") if key is None else key.device
+
+
+def _normal(key, shape, scale):
+    shape = tuple(int(s) for s in shape)
+    if key is None:
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return scale * torch.randn(shape, generator=key, dtype=torch.float32,
+                               device=key.device)
+
+
+def dense_init(key, in_dim, out_shape, scale=None):
+    """Fan-in scaled normal; out_shape may be multi-dim (heads, head_dim)."""
+    if scale is None:
+        scale = in_dim ** -0.5
+    return _normal(key, (in_dim,) + tuple(np.atleast_1d(out_shape)), scale)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def norm_init(dim, layernorm: bool = False, device="cpu"):
+    p = {"scale": torch.zeros(dim, dtype=torch.float32, device=device)}
+    if layernorm:                                     # gemma-style (1+scale)
+        p["bias"] = torch.zeros(dim, dtype=torch.float32, device=device)
+    return p
+
+
+def norm_apply(p, x, eps=1e-6):
+    xf = x.float()
+    if "bias" in p:                                   # LayerNorm
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * (1.0 + p["scale"]) + p["bias"]
+    else:                                             # RMSNorm
+        var = (xf ** 2).mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps) * (1.0 + p["scale"])
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings (RoPE, partial RoPE, M-RoPE)
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, rotary_dim: Optional[int] = None,
+               device="cpu"):
+    rd = rotary_dim or head_dim
+    inv = 1.0 / (theta ** (np.arange(0, rd, 2, dtype=np.float64) / rd))
+    return torch.from_numpy(inv.astype(np.float32)).to(device)   # (rd/2,)
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_table(head_dim: int, theta: float, rotary_dim: int, device):
+    """rope_freqs on `device`, made once: a host-to-device copy in every
+    layer of every step would make the host wait for the device."""
+    return rope_freqs(head_dim, theta, rotary_dim, device)
+
+
+def _rotate(x, ang, rd):
+    sin = torch.sin(ang)[..., :, None, :]
+    cos = torch.cos(ang)[..., :, None, :]
+    xr = x[..., :rd].float()
+    x1, x2 = xr.chunk(2, dim=-1)
+    rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return torch.cat([rotated.to(x.dtype), x[..., rd:]], -1)
+
+
+def apply_rope(x, positions, inv_freqs, rotary_dim: Optional[int] = None):
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    rd = rotary_dim or x.shape[-1]
+    ang = positions[..., :, None].float() * inv_freqs        # (..., S, rd/2)
+    return _rotate(x, ang, rd)
+
+
+def apply_mrope(x, positions3, inv_freqs, sections: Tuple[int, int, int]):
+    """Qwen2-VL multimodal RoPE: the rd/2 frequency lanes are split into
+    (t, h, w) sections, each driven by its own position stream.
+    positions3: (3, ..., S). Stream i is ``positions3[i]`` as jnp indexes
+    it: a static index past the end clamps to the last row (decode passes
+    (B, 1) positions, whose rows are all the same step)."""
+    secs = np.cumsum((0,) + tuple(sections))
+    ang_parts = []
+    for i in range(3):
+        f = inv_freqs[secs[i]:secs[i + 1]]
+        p = positions3[min(i, positions3.shape[0] - 1)]
+        ang_parts.append(p[..., :, None].float() * f)
+    ang = torch.cat(ang_parts, -1)                         # (..., S, rd/2)
+    return _rotate(x, ang, 2 * int(secs[-1]))
+
+
+# ---------------------------------------------------------------------------
+# flash attention (chunked double loop, forward)
+# ---------------------------------------------------------------------------
+
+def _block_scores(qblk, kblk, cfg, qi, kj):
+    """(B, H, bq, bk) f32 masked scores for one (q-chunk, kv-chunk) pair."""
+    causal, window, q_offset, bq, bk, scale, Sk_real = cfg
+    B = qblk.shape[0]
+    K, D = kblk.shape[2], kblk.shape[3]
+    H = qblk.shape[2]
+    G = H // K
+    dev = qblk.device
+    q_pos = q_offset + qi * bq + torch.arange(bq, device=dev)
+    k_pos = kj * bk + torch.arange(bk, device=dev)
+    qg = qblk.reshape(B, bq, K, G, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), kblk.float()) * scale
+    s = s.reshape(B, H, bq, bk)
+    mask = (k_pos[None, :] < Sk_real).expand(bq, bk)
+    if causal:
+        mask = mask & (k_pos[None, :] <= q_pos[:, None])
+    if window is not None:
+        mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+    return torch.where(mask[None, None], s, NEG_INF)
+
+
+def _flash_fwd(cfg, q, k, v):
+    """-> (out (B,Sq,H,Dv), lse (B,H,Sq))."""
+    causal, window, q_offset, bq, bk, scale, Sk_real = cfg
+    B, Sq, H, D = q.shape
+    K, Dv = k.shape[2], v.shape[-1]
+    G = H // K
+    nq, nk = Sq // bq, k.shape[1] // bk
+    f32 = dict(dtype=torch.float32, device=q.device)
+    outs, lses = [], []
+    for qi in range(nq):
+        qblk = q[:, qi * bq:(qi + 1) * bq]
+        m = torch.full((B, H, bq), NEG_INF, **f32)
+        l = torch.zeros((B, H, bq), **f32)
+        acc = torch.zeros((B, H, bq, Dv), **f32)
+        for kj in range(nk):
+            kblk = k[:, kj * bk:(kj + 1) * bk]
+            vblk = v[:, kj * bk:(kj + 1) * bk]
+            s = _block_scores(qblk, kblk, cfg, qi, kj)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            # p and v rounded to bf16, the product accumulated in f32
+            pg = p.reshape(B, K, G, bq, bk).to(torch.bfloat16).float()
+            pvg = torch.einsum("bkgqs,bskd->bkgqd", pg,
+                               vblk.to(torch.bfloat16).float())
+            acc = acc * corr[..., None] + pvg.reshape(B, H, bq, Dv)
+            m = m_new
+        out = acc / torch.clamp(l[..., None], min=1e-30)
+        lses.append(m + torch.log(torch.clamp(l, min=1e-30)))
+        outs.append(out.to(q.dtype))
+    out = torch.cat(outs, 2)                                # (B,H,Sq,Dv)
+    return out.transpose(1, 2), torch.cat(lses, 2)
+
+
+def flash_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
+                    q_offset: int = 0, bq: int = 512, bk: int = 1024,
+                    scale: Optional[float] = None):
+    """q: (B, Sq, H, D); k/v: (B, Sk, K, D) with H % K == 0 (GQA).
+
+    Returns (B, Sq, H, D). Never materializes more than (B, H, bq, bk)
+    scores. Masking is positional: query i attends keys j with
+    j <= i + q_offset (causal), j > i + q_offset - window.
+    """
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    scale = scale if scale is not None else D ** -0.5
+    bq = min(bq, Sq)
+    bk = min(bk, Sk)
+    # pad to chunk multiples (whisper's 1500 frames, VLM text tails);
+    # padded keys are masked via Sk_real, padded queries sliced off
+    pq = (-Sq) % bq
+    pk = (-Sk) % bk
+    if pq:
+        q = F.pad(q, (0, 0, 0, 0, 0, pq))
+    if pk:
+        k = F.pad(k, (0, 0, 0, 0, 0, pk))
+        v = F.pad(v, (0, 0, 0, 0, 0, pk))
+    cfg = (causal, window, q_offset, bq, bk, scale, Sk)
+    out, _ = _flash_fwd(cfg, q, k, v)
+    return out[:, :Sq]
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    rope_theta: float = 10000.0
+    rotary_frac: float = 1.0               # partial rotary (GLM: 0.5)
+    window: Optional[int] = None           # sliding window (gemma3 local)
+    qk_norm: bool = False                  # gemma3
+    mrope_sections: Optional[Tuple[int, int, int]] = None  # qwen2-vl
+    causal: bool = True
+    query_scale: Optional[float] = None    # override 1/sqrt(D)
+
+
+def attn_init(key, cfg: AttnConfig):
+    d, H, K, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": dense_init(key, d, (H, D)),
+        "wk": dense_init(key, d, (K, D)),
+        "wv": dense_init(key, d, (K, D)),
+        "wo": _normal(key, (H, D, d), (H * D) ** -0.5),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = norm_init(D, device=key_device(key))
+        p["k_norm"] = norm_init(D, device=key_device(key))
+    return {"attn": p}
+
+
+def _rotary_dim(cfg: AttnConfig) -> int:
+    rd = int(cfg.head_dim * cfg.rotary_frac)
+    return rd - rd % 2
+
+
+def _qkv(p, cfg, x, positions, plan: ShardingPlan):
+    ap = p["attn"]
+    dt = x.dtype
+    q = torch.einsum("btd,dhk->bthk", x, ap["wq"].to(dt))
+    k = torch.einsum("btd,dhk->bthk", x, ap["wk"].to(dt))
+    v = torch.einsum("btd,dhk->bthk", x, ap["wv"].to(dt))
+    q = plan.act_bthd(q)
+    if cfg.qk_norm:
+        q = norm_apply(ap["q_norm"], q)
+        k = norm_apply(ap["k_norm"], k)
+    inv = _rope_table(cfg.head_dim, cfg.rope_theta, _rotary_dim(cfg),
+                      x.device)
+    if cfg.mrope_sections is not None:
+        q = apply_mrope(q, positions, inv, cfg.mrope_sections)
+        k = apply_mrope(k, positions, inv, cfg.mrope_sections)
+    elif cfg.rotary_frac > 0:
+        q = apply_rope(q, positions, inv, _rotary_dim(cfg))
+        k = apply_rope(k, positions, inv, _rotary_dim(cfg))
+    return q, k, v
+
+
+def attn_apply(p, cfg: AttnConfig, x, positions, plan: ShardingPlan,
+               q_offset: int = 0):
+    """Training / prefill path. x: (B, S, d). Returns (out, (k, v))."""
+    q, k, v = _qkv(p, cfg, x, positions, plan)
+    out = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window,
+                          q_offset=q_offset, scale=cfg.query_scale)
+    out = plan.act_bthd(out)
+    y = torch.einsum("bthk,hkd->btd", out, p["attn"]["wo"].to(x.dtype))
+    return plan.act_btd(y), (k, v)
+
+
+def cross_attn_apply(p, cfg: AttnConfig, x, memory, plan: ShardingPlan):
+    """Encoder-decoder cross attention (whisper). No RoPE, non-causal."""
+    ap = p["attn"]
+    dt = x.dtype
+    q = torch.einsum("btd,dhk->bthk", x, ap["wq"].to(dt))
+    k = torch.einsum("btd,dhk->bthk", memory, ap["wk"].to(dt))
+    v = torch.einsum("btd,dhk->bthk", memory, ap["wv"].to(dt))
+    out = flash_attention(q, k, v, causal=False, scale=cfg.query_scale)
+    y = torch.einsum("bthk,hkd->btd", out, ap["wo"].to(dt))
+    return plan.act_btd(y)
+
+
+def masked_cache_write(cache_seq, new, slot):
+    """Write (B,1,...) `new` at position `slot` (B,) along axis 1 by an
+    index-compare select (the reference's layout rule: elementwise, so a
+    sequence-sharded cache updates locally). Returns a new tensor."""
+    L = cache_seq.shape[1]
+    idx = torch.arange(L, device=cache_seq.device)
+    hit = idx[None, :] == slot[:, None]                     # (B, L)
+    hit = hit.reshape(hit.shape + (1,) * (cache_seq.ndim - 2))
+    return torch.where(hit, new.to(cache_seq.dtype), cache_seq)
+
+
+def attn_decode(p, cfg: AttnConfig, x, pos, cache, plan: ShardingPlan):
+    """Single-token decode. x: (B, 1, d); cache: dict(k,v): (B, S, K, D)."""
+    q, k_new, v_new = _qkv(p, cfg, x, pos[..., None] if pos.ndim == 1
+                           else pos, plan)
+    # write the new token into the cache at `pos`
+    k_cache = masked_cache_write(cache["k"], k_new, pos)
+    v_cache = masked_cache_write(cache["v"], v_new, pos)
+    cb, cseq = plan.cache_kv_spec()
+    k_cache = plan.cs(k_cache, cb, cseq, None, None)
+    v_cache = plan.cs(v_cache, cb, cseq, None, None)
+
+    B, S, K, D = k_cache.shape
+    H = cfg.n_heads
+    G = H // K
+    scale = cfg.query_scale if cfg.query_scale is not None else D ** -0.5
+    qg = q.reshape(B, K, G, D)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(),
+                     k_cache.to(q.dtype).float()) * scale
+    k_pos = torch.arange(S, device=x.device)
+    mask = k_pos[None, :] <= pos[:, None]
+    if cfg.window is not None:
+        mask = mask & (k_pos[None, :] > (pos[:, None] - cfg.window))
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", w.to(q.dtype),
+                       v_cache.to(q.dtype))
+    out = out.reshape(B, 1, H, D)
+    y = torch.einsum("bthk,hkd->btd", out, p["attn"]["wo"].to(x.dtype))
+    return plan.act_btd(y), {"k": k_cache, "v": v_cache}
+
+
+# ---------------------------------------------------------------------------
+# MLA and MoE: their configs only (plain data; the blocks raise in
+# transformer, ROADMAP Queue 1 item 5b)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    n_heads: int
+    q_lora: int = 1536
+    kv_lora: int = 512
+    qk_nope: int = 128
+    qk_rope: int = 64
+    v_head: int = 128
+    rope_theta: float = 10000.0
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    d_model: int
+    d_ff: int                    # per-expert hidden
+    n_experts: int
+    top_k: int
+    n_shared: int = 0            # shared-expert count (DeepSeek)
+    shared_d_ff: int = 0
+    capacity_factor: float = 1.25
+    act: str = "silu"
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / GeGLU / ReLU^2)
+# ---------------------------------------------------------------------------
+
+def mlp_init(key, d_model, d_ff, gated: bool = True):
+    p = {"wi": dense_init(key, d_model, (d_ff,)),
+         "wo": _normal(key, (d_ff, d_model), d_ff ** -0.5)}
+    if gated:
+        p["wg"] = dense_init(key, d_model, (d_ff,))
+    return {"mlp": p}
+
+
+def _act(name, x):
+    if name == "silu":
+        return F.silu(x)
+    if name == "gelu":
+        return F.gelu(x, approximate="tanh")
+    if name == "relu2":
+        r = F.relu(x)
+        return r * r
+    raise ValueError(name)
+
+
+def mlp_apply(p, x, plan: ShardingPlan, act: str = "silu"):
+    mp = p["mlp"]
+    dt = x.dtype
+    h = torch.einsum("btd,df->btf", x, mp["wi"].to(dt))
+    if "wg" in mp:
+        g = torch.einsum("btd,df->btf", x, mp["wg"].to(dt))
+        h = _act(act, g) * h
+    else:
+        h = _act(act, h)
+    h = plan.act_btf(h)
+    y = torch.einsum("btf,fd->btd", h, mp["wo"].to(dt))
+    return plan.act_btd(y)
+
+
+# ---------------------------------------------------------------------------
+# embedding
+# ---------------------------------------------------------------------------
+
+def embed_init(key, vocab: int, d_model: int):
+    # d^-0.5 keeps tied-head logits O(1) at init (loss starts near ln V)
+    return {"embed": {"table": _normal(key, (vocab, d_model),
+                                       d_model ** -0.5)}}
+
+
+def _rounded(scale: float, dtype) -> float:
+    """`scale` rounded to `dtype`, as a python float (a host scalar: no
+    device tensor to make on every call)."""
+    return float(torch.tensor(scale, dtype=dtype))
+
+
+def embed_apply(p, tokens, plan: ShardingPlan, scale: Optional[float] = None):
+    # gather, then cast: the reference's cast-then-take, one row at a time
+    x = p["embed"]["table"][tokens.long()].to(COMPUTE_DTYPE)
+    if scale is not None:
+        # the reference's x * scale in the compute dtype: scale rounded
+        # to it first, the product rounded once
+        x = x * _rounded(scale, COMPUTE_DTYPE)
+    return plan.act_btd(x)
+
+
+def unembed_logits(p, h, plan: ShardingPlan, softcap: Optional[float] = None):
+    table = p["embed"]["table"].to(h.dtype)
+    # one (B T, d) x (d, V) product against the table's transposed view:
+    # a bmm (einsum's, or matmul's on a strided h) copies the table on
+    # every call for bf16 on the CPU
+    B, S, d = h.shape
+    logits = (h.reshape(B * S, d) @ table.T).reshape(B, S, -1)
+    if softcap is not None:
+        logits = torch.tanh(logits / softcap) * softcap
+    return plan.logits_btv(logits)

@@ -127,6 +127,25 @@ def test_ceaz_chunk_dec_matches_reference(counts, bs, Ko):
         np.testing.assert_array_equal(port, pal)
 
 
+@pytest.mark.parametrize("rows_a_slice", [1, 2, 3, 5])
+def test_patch_and_inverse_row_slices(rows_a_slice, monkeypatch):
+    """The tail taken in row slices (a Lorenzo chain over rows 0..2 cut
+    at every slice edge, a value row, a last chain) is bitwise the
+    reference's one pass."""
+    rng = np.random.default_rng(rows_a_slice)
+    C, N, Ko = 5, 3000, 8
+    codes2 = rng.integers(0, 1024, size=(C, N)).astype(np.int32)
+    codes2[rng.random((C, N)) < 0.002] = 0
+    counts = np.array([N, N, 2500, 1000, 17], np.int32)
+    meta = _dec_meta(rng, C, Ko)
+    args = [codes2, counts, meta["odelta2"], meta["base"], meta["seg0"],
+            meta["islor"]]
+    ref = np.asarray(MR.patch_and_inverse(*(jnp.asarray(a) for a in args)))
+    monkeypatch.setattr(TM, "TAIL_VALUES", rows_a_slice * N)
+    port = TM.patch_and_inverse(*(_torch(a) for a in args)).numpy()
+    np.testing.assert_array_equal(port, ref)
+
+
 def _pallas_fused(args, bs):
     (words2, nbits2, counts, sym_flat, len_flat, cb_idx, odelta2, base,
      seg0, islor) = args

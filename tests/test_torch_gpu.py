@@ -1187,3 +1187,44 @@ def test_checkpoint_round_trip_on_card(dev, tmp_path):
     with PagedParamStore(stream("g")) as store, store.pin() as pin:
         leaf = pin.get("layers/0/mlp/wi")
     assert leaf.is_cuda and torch.equal(leaf.cpu(), t.cpu())
+
+
+def test_reduced_gemma3_serving_on_card_matches_cpu(dev, tmp_path):
+    """chip_smoke.py's phase SERVE at the reduced gemma3-1b: a checkpoint
+    saved on the card, restored for serving (bf16) in full and paged,
+    then prefill and 24 decode steps (past the 16-slot rings) on the card
+    against the same restored weights through the port on the CPU, within
+    the CPU parity tests' bound (rtol 0.06, atol 0.05)."""
+    from repro_torch.checkpoint import ckpt as C
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import tree_items
+    from repro_torch.launch import serve as S
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.sharding import ShardingPlan
+    cfg, plan = get_arch("gemma3-1b").reduced(), ShardingPlan(mesh=None)
+    C.save_checkpoint(str(tmp_path), T.init_params(0, cfg), 1)
+    params, meta = S.restore_serving_params(str(tmp_path), plan)
+    assert meta == {"step": 1}
+    flat = dict(tree_items(params))
+    assert all(v.is_cuda and v.dtype == torch.bfloat16
+               for v in flat.values())
+    store, _ = S.restore_serving_params(str(tmp_path), plan, paged=True)
+    with store, store.pin() as pin:
+        for k, v in tree_items(pin.params()):
+            assert torch.equal(v.view(torch.int16), flat[k].view(torch.int16))
+    cpu = {k: v.cpu() for k, v in flat.items()}
+    cpu = C._unflatten_like(cpu, None)
+    toks = torch.randint(0, cfg.vocab_size, (2, 24),
+                         generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    close = lambda a, b: np.testing.assert_allclose(
+        a.float().cpu().numpy(), b.float().numpy(), rtol=0.06, atol=0.05)
+    pre = S.make_prefill_fn(cfg, plan, 2, 24)[0]
+    close(pre(params, toks.cuda()), pre(cpu, toks))
+    dec = S.make_decode_fn(cfg, plan, 2, 32)[0]
+    gc, cc = T.init_cache(cfg, 2, 32), T.init_cache(cfg, 2, 32, device="cpu")
+    for t in range(24):
+        lg, gc = dec(params, toks[:, t].cuda(), gc)
+        lc, cc = dec(cpu, toks[:, t], cc)
+        close(lg, lc)
+    assert gc["pos"].tolist() == [24, 24]

@@ -30,7 +30,9 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.io.filewrite, repro_torch.obs.report, "
             "repro_torch.runtime.sharding, repro_torch.launch.mesh, "
             "repro_torch.checkpoint.ckpt, repro_torch.serve, "
-            "repro_torch.serve.paging\n"
+            "repro_torch.serve.paging, repro_torch.models.modules, "
+            "repro_torch.models.transformer, repro_torch.configs, "
+            "repro_torch.launch.serve\n"
             # the staged route and compress_batch import lazily: run them
             "import numpy as np\n"
             "from repro_torch.core import CEAZ\n"
@@ -63,6 +65,21 @@ def test_import_leaves_jax_and_reference_out():
             "with PagedParamStore(os.path.join(d, 'ck', 'step_00000001', "
             "C.LEAVES_STREAM), device='cpu') as st, st.pin() as p:\n"
             "    assert p.get('w').shape == (5000,)\n"
+            # the serving path: a reduced model restored and decoded
+            "from repro_torch.configs import get_arch\n"
+            "from repro_torch.launch import serve as S\n"
+            "from repro_torch.models import transformer as T\n"
+            "from repro_torch.runtime.sharding import ShardingPlan\n"
+            "import torch\n"
+            "cfg = get_arch('gemma3-1b').reduced()\n"
+            "C.save_checkpoint(os.path.join(d, 'm'), T.init_params(0, cfg, "
+            "device='cpu'), 1, device='cpu')\n"
+            "p, _ = S.restore_serving_params(os.path.join(d, 'm'), "
+            "ShardingPlan(), device='cpu')\n"
+            "dec, tok, cache, _ = S.make_decode_fn(cfg, ShardingPlan(), 2, 8)\n"
+            "logits, _ = dec(p, torch.zeros(2, dtype=torch.int32), "
+            "T.init_cache(cfg, 2, 8, device='cpu'))\n"
+            "assert logits.shape == (2, cfg.vocab_size)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n")
@@ -79,7 +96,13 @@ def test_no_source_imports_jax_or_reference():
                 "core/ceaz.py", "runtime/fused.py", "io/engine.py",
                 "io/filewrite.py", "obs/manifest.py", "obs/report.py",
                 "runtime/sharding.py", "launch/mesh.py",
-                "checkpoint/ckpt.py", "serve/paging.py"):
+                "checkpoint/ckpt.py", "serve/paging.py",
+                "models/modules.py", "models/transformer.py",
+                "configs/__init__.py", "configs/base.py",
+                "configs/gemma3_1b.py", "configs/gemma3_4b.py",
+                "configs/gemma_7b.py", "configs/glm4_9b.py",
+                "configs/qwen2_vl_7b.py", "configs/whisper_base.py",
+                "launch/serve.py"):
         assert os.path.join(PORT, new) in files, new
     for path in files:
         tree = ast.parse(open(path).read(), path)
