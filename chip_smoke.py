@@ -172,6 +172,40 @@ through the public facade, at rel eb 1e-4 unless said otherwise:
            ms a step and tokens/s, device memory allocated before and at
            the peak of the restore and of the requests, and the phase's
            seconds beside the card.
+  SERVE.MOE the MoE and MLA archs at their published widths, depth cut:
+           phi3.5-moe's first layer (32 q and 8 kv heads of 128, 16
+           experts of d_ff 6400 top 2, vocab 32064; 1,431,646,208
+           parameters) saved and restored in full as SERVE does (leaves
+           within their bound, every tiled walk bitwise against its plain
+           version), and deepseek-v2's dense first layer and first MoE
+           layer (MLA of 128 heads, kv_lora 512; 160 experts of 1536 top 6,
+           2 shared; vocab 102400; 4,834,391,040 parameters) drawn on the
+           card and cast to bf16 (no save: ~2 min at the codec's rate).
+           Each serves in bf16 a prefill of 2 x 256 tokens (its routed
+           pairs dropped over capacity counted), the prompt teacher-forced
+           and 8 greedy steps (logits finite, pos 264). Then each is held
+           layer by layer against the port on the CPU (one layer's weights
+           on the host at a time; MemAvailable before each layer and the
+           peak RSS printed, and a layer whose weights do not fit the
+           host's MemAvailable fails the phase): with the
+           compute dtype f32, each prefill layer's output, each layer's
+           decode cache slots (c_kv and k_rope, or k and v) and the
+           logits within the bound, each MoE layer's routing on the CPU
+           given the card's gates bitwise (top-k ids and weights, order,
+           counts, slots, drop mask), and the tokens the CPU's own gates
+           route otherwise counted; the same in bf16, printed with no
+           limit. Each arch is a counted run of its own
+           (SERVE.MOE.<arch>);
+  SERVE.ZOO gemma3-4b, gemma-7b, glm4-9b, qwen2-vl-7b and whisper-base at
+           their published widths, depth cut to the first unit's first
+           repeat, each with its full vocabulary and embedding (gemma-7b's
+           786 M-value table the largest the codec decodes here): saved,
+           restored in full as bf16 (seconds and peak allocated), every
+           leaf within its bound and every tiled walk bitwise, then a
+           prefill of 2 x 64 tokens, the prompt teacher-forced and 4
+           greedy steps with finite logits (counted runs
+           SERVE.ZOO.<arch>). Row 4 gets a timed case at each walk shape
+           these two phases add.
 
 Each phase is run with the kernels' launch counts set to 0 just before
 and read just after, and must launch every kernel of its path. Phases P
@@ -210,7 +244,15 @@ and on garbage and bit-flipped streams (``hufdec_tiles`` at every call
 of SERVE's restores, timed once a shape); SERVE's value-direct
 quantize and finalize (rows 11-12), Lorenzo quantize (row 2) and
 histogram (row 14) are held and timed as cases of their rows at the
-calls SERVE gave them; after each decode phase the
+calls SERVE gave them. The serving phases after SERVE keep no kernel
+arguments (their groups are GBs): every call there whose key is new to
+the phase (rows 1-3, 9 and 11-14; the tiled walks are all kept and held)
+is held bitwise against its plain version as it returns, in slices of
+rows, and each kernel such a phase launches must have been launched by
+a call so held; the holds' seconds are left out of the saves' seconds.
+A device time is read only from profiled calls recorded whole, and is
+null with its reason where none can be had at or above the bound; after
+each decode phase the
 script prints their counters (blocks kept from the fast path, blocks
 walked by the serial walk, most sync rounds); no block of a valid
 stream may take the serial walk, and some of each walk's garbage blocks
@@ -327,7 +369,28 @@ PHASE_KERNELS = {
     # the serving path: its save encodes each leaf as K's does, its full
     # and paged restores decode (the walk by chunk length)
     "SERVE": ("gather_pack_tiled",),
+    # the MoE and MLA archs: phi3.5's save and restore as SERVE's;
+    # deepseek's cut is drawn on the card and served without the codec
+    "SERVE.MOE.phi3.5-moe-42b-a6.6b": ("gather_pack_tiled",),
+    "SERVE.MOE.deepseek-v2-236b": (),
+    # the other attention archs' full-vocabulary saves and restores
+    **{f"SERVE.ZOO.{a}": ("gather_pack_tiled",) for a in (
+        "gemma3-4b", "gemma-7b", "glm4-9b", "qwen2-vl-7b", "whisper-base")},
 }
+# the serving phases after SERVE keep no kernel arguments (a kept
+# (C, 2^20) group is GBs, and five archs' groups would not fit beside
+# them on the card): each call there is held bitwise against its plain
+# version when its (phase, wrapper, key) is first seen (Sight), in row
+# slices of at most SIGHT_VALUES values, and its arguments dropped
+SIGHT_PHASES = tuple(p for p in PHASE_KERNELS if p.startswith("SERVE."))
+SIGHT_VALUES = 1 << 26
+# dispatch ops held at first sight beside the censuses' wrappers (rows
+# 3, 9 and 13 are held in theirs): op -> the indices of its arguments
+# sliced by rows, or None (held whole). The tiled decode walks are all
+# kept and held after the run (hold_kept_walks)
+SIGHT_OPS = {"dualquant": None, "histogram": (0, 1),
+             "value_quant": (0, 1), "value_finalize": (0, 1, 2),
+             "lorenzo_quant": (0, 1, 2, 3), "bank_select": (0,)}
 # the staged phases' fused counterparts at the same settings: the
 # streams must be identical (T.G's counterpart is run there)
 STAGED_TWINS = {"T.A": "A", "T.E": "E.exact"}
@@ -438,11 +501,54 @@ def profiled_calls(fn, reps=10):
     return [c for c in calls if c]
 
 
-def cold_device_ms(fn, reps=10):
+PROFILE_SESSIONS = 3
+# (what, why) of each device time read as null (cold_device_ms)
+PROFILE_FAULTS = []
+
+
+def _torch_event(name):
+    """A device event of torch's own (its kernels and cub's, memsets,
+    copies), not one of the port's kernels."""
+    return (name.lower().startswith(("memset", "memcpy")) or "at::" in name
+            or "at_cuda_detail" in name or "cub::" in name)
+
+
+def cold_device_ms(fn, reps=10, bound_ms=None, what="a call"):
     """Device ms of one call of fn with a cold L2 (profiled_calls): the
-    median call; None where the profiler recorded no call."""
-    calls = [sum(us for _, us in c) for c in profiled_calls(fn, reps)]
-    return statistics.median(calls) / 1e3 if calls else None
+    median over the calls a profiler session recorded whole. A session
+    now and then records a call only in part (seen on the card), so a
+    call whose device events are not those of the session's fullest call
+    is dropped, and the session is taken again, up to PROFILE_SESSIONS,
+    where under half its calls are whole, where its fullest call holds
+    fewer of the port's kernels than one call of fn counts launches, or
+    where its median is under `bound_ms` (a time no call can take).
+    Then None, its reason printed and kept in PROFILE_FAULTS."""
+    from repro_torch.kernels import dispatch
+    before = sum(dispatch.launches().values())
+    fn()
+    launched = sum(dispatch.launches().values()) - before
+    why = "no session recorded a call"
+    for _ in range(PROFILE_SESSIONS):
+        calls = profiled_calls(fn, reps)
+        if not calls:
+            continue
+        names = [n for n, _ in max(calls, key=len)]
+        whole = [c for c in calls if [n for n, _ in c] == names]
+        mine = sum(not _torch_event(n) for n in names)
+        ms = statistics.median(sum(us for _, us in c) for c in whole) / 1e3
+        if 2 * len(whole) < reps:
+            why = f"{len(whole)} of {reps} calls recorded whole"
+        elif mine < launched:
+            why = (f"{mine} of the port's kernels in the fullest call, "
+                   f"{launched} launches counted a call")
+        elif bound_ms is not None and ms < bound_ms:
+            why = f"{ms} ms, under the bound {bound_ms} ms"
+        else:
+            return ms
+    PROFILE_FAULTS.append((what, why))
+    print(f"device time of {what}: null after {PROFILE_SESSIONS} profiler "
+          f"sessions ({why})")
+    return None
 
 
 def host_call_ms(fn, reps=100):
@@ -699,7 +805,11 @@ def add_row(rows, name, cuda_fn, plain_fn, in_bytes, out_bytes, ops,
     plain_ms = cuda_ms(plain_fn, reps=3, warmup=1) if time_plain else None
     t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
-    device_ms = cold_device_ms(cuda_fn)
+    faults = len(PROFILE_FAULTS)
+    device_ms = cold_device_ms(cuda_fn, bound_ms=max(t_bytes, t_ops),
+                               what=f"kernel {name}")
+    if len(PROFILE_FAULTS) > faults:
+        extra = dict(extra or {}, device_ms_null=PROFILE_FAULTS[-1][1])
     rows[name] = r = dict(
         name=name, route="cuda", source=SOURCES[name],
         replaces=REPLACES[name], launches=0, max_abs_err=0,
@@ -773,23 +883,99 @@ def kernel_rows(inputs):
     return rows
 
 
+class Sight:
+    """First-sight holds of the phases that keep no arguments
+    (SIGHT_PHASES): a call whose (phase, wrapper, key) is new is held
+    bitwise against its plain version on the card right after it
+    returns, in row slices of at most SIGHT_VALUES values where its rows
+    are independent, and its arguments dropped. Records each held key
+    under every kernel its call launched; `seconds` is the time the
+    holds took (their device syncs included), which the phases take out
+    of the save seconds they report."""
+
+    def __init__(self):
+        import threading
+        self.phase, self.seen, self.by_kernel = None, set(), {}
+        self.seconds = 0.0
+        self.lock = threading.RLock()
+
+    def call(self, what, key, fn, plain, rows, a):
+        phase = self.phase
+        if phase is None or (phase, what, key) in self.seen:
+            return fn(*a)
+        import torch
+        from repro_torch.kernels import dispatch
+        with self.lock:
+            before = dispatch.launches()
+            out = fn(*a)
+            after = dispatch.launches()
+            t0 = time.perf_counter()
+            held_in_rows(out, plain, a, rows,
+                         f"{what} at phase {phase}'s {key}")
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.seen.add((phase, what, key))
+            for k, n in after.items():
+                if n > before.get(k, 0):
+                    self.by_kernel.setdefault(k, []).append(
+                        [phase, what, [str(x) for x in key]])
+        return out
+
+    def kernels(self, phase):
+        """The kernels launched by the calls held in `phase`."""
+        return {k for k, held in self.by_kernel.items()
+                if any(h[0] == phase for h in held)}
+
+
+SIGHT = Sight()
+
+
+def held_in_rows(out, plain, a, rows, what):
+    """`out`, a wrapper's outputs on the arguments `a`, bitwise against
+    plain(*a): whole (`rows` None), or a slice of rows at a time, the
+    arguments at the indices `rows` and every output cut to the same
+    rows (each row's outputs depend on that row's inputs alone)."""
+    out = tuple(out) if isinstance(out, (tuple, list)) else (out,)
+    if rows is None:
+        check(same_outputs(out, plain(*a)),
+              f"wrapper {what} disagrees with its plain version")
+        return
+    C = a[rows[0]].shape[0]
+    check(all(o.shape[0] == C for o in out),
+          f"wrapper {what}: an output is not one row a row of its input")
+    step = max(1, SIGHT_VALUES // max(1, a[rows[0]][:1].numel()))
+    for i in range(0, C, step):
+        part = list(a)
+        for j in rows:
+            part[j] = a[j][i:i + step]
+        check(same_outputs(tuple(o[i:i + step] for o in out), plain(*part)),
+              f"wrapper {what} disagrees with its plain version in rows "
+              f"{i}..{min(C, i + step) - 1}")
+
+
 class Census:
     """One wrapped kernel wrapper's calls by key over the phases' counted
-    runs: every call made between start(phase) and stop(), with the first
-    call's arguments at each key kept for its timed case. With
+    runs: every call made between start(phase) and stop(). The first
+    call's arguments at each key are kept for its held and timed case;
+    in SIGHT_PHASES the call is held at first sight (SIGHT, with
+    `plain` and the row arguments `rows`) and nothing is kept. With
     `count_name`, stop() checks that the census holds every launch the
     run counted under that name."""
 
-    def __init__(self, key, count_name=None):
-        self.key, self.count_name = key, count_name
+    def __init__(self, name, key, plain, rows, count_name=None):
+        self.name, self.key, self.count_name = name, key, count_name
+        self.plain, self.rows = plain, rows
         self.live, self.phase, self.by_phase, self.args = None, None, {}, {}
 
     def wrap(self, fn):
         def counted(*a):
-            if self.live is not None:
-                k = self.key(self.phase, a)
-                self.live[k] = self.live.get(k, 0) + 1
-                self.args.setdefault(k, (self.phase, a))
+            if self.live is None:
+                return fn(*a)
+            k = self.key(self.phase, a)
+            self.live[k] = self.live.get(k, 0) + 1
+            if self.phase in SIGHT_PHASES:
+                return SIGHT.call(self.name, k, fn, self.plain, self.rows, a)
+            self.args.setdefault(k, (self.phase, a))
             return fn(*a)
         return counted
 
@@ -818,23 +1004,35 @@ class Censuses:
     """The censuses the counted runs keep: row 3's pack by (C, cv, w32);
     the bank encode op (row 9) by (predictor, C, cv, w32, block size);
     dq_center (row 13) by (phase, C, V), since its passes depend on the
-    data; the large-chunk packer (row 7) by (n, block size)."""
+    data; the large-chunk packer (row 7, one flat stream: held whole) by
+    (n, block size). start() and stop() also open and close SIGHT's
+    phase."""
 
     def __init__(self):
-        self.pack = Census(lambda p, a: (a[0].shape[0], a[0].shape[1], a[5]),
-                           "gather_pack_tiled")
-        self.op = Census(lambda p, a: (a[8], a[0].shape[0], a[0].shape[1],
-                                       a[7], a[6]))
-        self.center = Census(lambda p, a: (p, a[0].shape[0], a[0].shape[1]),
-                             "dq_center")
-        self.flat = Census(lambda p, a: (a[0].numel(), a[3]), "hufenc")
+        from repro_torch.kernels.dualquant import ops as DQ
+        from repro_torch.kernels.hufenc import ops as HE
+        from repro_torch.kernels.megakernel import ops as MK
+        self.pack = Census("encode_pack", lambda p, a: (
+            a[0].shape[0], a[0].shape[1], a[5]), HE.encode_pack_plain,
+            (0, 1, 2, 3), "gather_pack_tiled")
+        self.op = Census("ceaz_chunk", lambda p, a: (
+            a[8], a[0].shape[0], a[0].shape[1], a[7], a[6]),
+            MK.ceaz_chunk_plain, (0, 1, 2, 3))
+        self.center = Census("dq_center", lambda p, a: (
+            p, a[0].shape[0], a[0].shape[1]), DQ.chunk_center_plain, (0, 1),
+            "dq_center")
+        self.flat = Census("hufenc_flat", lambda p, a: (a[0].numel(), a[3]),
+                           HE.hufenc_plain if hasattr(HE, "hufenc_cuda")
+                           else HE.hufenc_blocks_plain, None, "hufenc")
         self.all = (self.pack, self.op, self.center, self.flat)
 
     def start(self, phase):
         for c in self.all:
             c.start(phase)
+        SIGHT.phase = phase if phase in SIGHT_PHASES else None
 
     def stop(self, launches):
+        SIGHT.phase = None
         for c in self.all:
             c.stop(launches)
 
@@ -849,8 +1047,18 @@ def census_rows(census, rows, name, what, case, main_phase=None, keep=()):
     print(f"{what} census, key -> launches over the counted runs: {totals}; "
           f"by phase: {census.by_phase}")
     order = list(census.by_phase)
-    keys = sorted(totals, key=lambda k: (census.args[k][0] != main_phase,
-                                         order.index(census.args[k][0])))
+    sight = [(p, k) for p, per in census.by_phase.items()
+             if p in SIGHT_PHASES for k in per]
+    unheld = [(p, k) for p, k in sight
+              if (p, census.name, k) not in SIGHT.seen]
+    check(not unheld, f"{what}: keys of the serving phases not held at "
+          f"first sight: {unheld}")
+    if sight:
+        print(f"{what}: (phase, key) held bitwise at first sight in the "
+              f"serving phases after SERVE (not timed): {sight}")
+    keys = sorted((k for k in totals if k in census.args),
+                  key=lambda k: (census.args[k][0] != main_phase,
+                                 order.index(census.args[k][0])))
     cases, weighted, gap = [], 0.0, 0.0
     for key in keys:
         phase, args = census.args[key]
@@ -862,12 +1070,15 @@ def census_rows(census, rows, name, what, case, main_phase=None, keep=()):
             weighted += totals[key] * r["device_ms"]
             gap += totals[key] * (r["device_ms"] - r["bound_ms"])
     keep = CASE_KEYS + ("key", "key_launches") + keep
+    timed = sum(n for k, n in totals.items() if k in census.args)
     rows[name] = dict(
         cases[0], cases=[{k: c.get(k) for k in keep} for c in cases[1:]],
-        launch_weighted_device_ms=weighted, launch_weighted_gap_ms=gap)
+        launch_weighted_device_ms=weighted, launch_weighted_gap_ms=gap,
+        launches_at_timed_keys=timed)
     print(f"{what} over its census: {sum(totals.values())} launches at "
-          f"{len(keys)} keys, launch-weighted device ms {weighted}, "
-          f"launches x (device ms - bound) {gap}")
+          f"{len(totals)} keys, {timed} of them at the {len(keys)} keys "
+          f"timed: launch-weighted device ms {weighted}, launches x "
+          f"(device ms - bound) {gap}")
 
 
 def pack_rows(census, rows):
@@ -966,7 +1177,8 @@ def center_rows(census, rows):
             library = cuda_ms(kth)
             extra.update(sort_ms=cuda_ms(lambda: torch.sort(q2, dim=1)),
                          library_call="two torch.kthvalue (lo and hi ranks)",
-                         library_device_ms=cold_device_ms(kth))
+                         library_device_ms=cold_device_ms(
+                             kth, what="two torch.kthvalue at E.bank"))
         add_row(rows, "dq_center", lambda: DQ.dq_center_cuda(q2, valid2),
                 lambda: DQ.chunk_center_plain(q2, valid2),
                 in_bytes=nbytes(q2, valid2), out_bytes=4 * C,
@@ -1724,7 +1936,8 @@ def wire_kernel_rows(inputs, rows):
                 plain_ms = cuda_ms(lambda: plain_fn(*a), reps=3, warmup=1)
                 nbytes_ = 4 * n + n * bits // 8
                 bound = nbytes_ / HBM_BYTES_PER_S * 1e3
-                dev = cold_device_ms(lambda: cuda_fn(*a))
+                dev = cold_device_ms(lambda: cuda_fn(*a), bound_ms=bound,
+                                     what=f"kernel {kernel} at {phase}")
                 cases.append(dict(phase=phase, layout=layout, values=n,
                                   bits=bits, ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound, max_abs_err=0,
@@ -1992,7 +2205,8 @@ def staged_kernel_rows(inputs, census, rows):
             "values")
         bound = (nbytes(c, one, ln, cw) + 4 * (n32 + nbits.numel())) \
             / HBM_BYTES_PER_S * 1e3
-        gp_dev = cold_device_ms(gp)
+        gp_dev = cold_device_ms(gp, bound_ms=bound,
+                                what=f"gather_pack at {n} values")
         crossover.append(dict(
             values=n, gather_pack_ms=cuda_ms(gp), hufenc_ms=cuda_ms(hb),
             gather_pack_device_ms=gp_dev,
@@ -2035,6 +2249,12 @@ def counted_run(name, fn, dispatch, census, captured, also=()):
     for k in PHASE_KERNELS[name] + tuple(also):
         check(counts.get(k, 0) > 0,
               f"phase {name}: kernel {k} was not launched ({counts})")
+    if name in SIGHT_PHASES:
+        # every tiled walk is kept and held after the run
+        unheld = {k for k, n in counts.items() if n} \
+            - SIGHT.kernels(name) - {"hufdec_tiles"}
+        check(not unheld, f"phase {name}: kernels {sorted(unheld)} "
+              f"launched by no call held at first sight ({counts})")
     return out, counts, inputs
 
 
@@ -2752,6 +2972,7 @@ LOGIT_RTOL, LOGIT_ATOL = 0.06, 0.05
 # read past each limit.
 BF16_LIMITS = {"prefill_vs_decode": 2.5, "card_vs_cpu": 1.75}
 SERVE_CHUNK_VALUES = 1 << 20     # the checkpoint's 4 MB chunks of f32
+LEAF_CHECK_VALUES = 1 << 26      # values of a leaf checked at a time
 PAGED_BUDGET = 4 << 30          # holds the whole bf16 tree (2.0 GB)
 
 
@@ -2766,7 +2987,7 @@ def same_bits(a, b):
         b.device and torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
-def check_restored_leaves(restored, saved, manifest, eb):
+def check_restored_leaves(restored, saved, manifest, eb, phase="SERVE"):
     """Every lossy leaf of the bf16 restore within its bound of the saved
     f32 one, |bf16(x^) - x| <= eb range(x) + half a bf16 ulp of bf16(x^);
     every raw leaf the bf16 cast of the saved one. -> (lossy, raw)."""
@@ -2777,21 +2998,27 @@ def check_restored_leaves(restored, saved, manifest, eb):
     for k, x in tree_items(saved):
         y = got[k]
         check(y.dtype == torch.bfloat16 and y.shape == x.shape
-              and y.device == x.device, f"phase SERVE: restored leaf {k}")
+              and y.device == x.device, f"phase {phase}: restored leaf {k}")
         if manifest[k]["codec"] == "ceaz":
             n_lossy += 1
             rng = float(x.max()) - float(x.min())
-            half_ulp = torch.ldexp(torch.ones_like(y, dtype=torch.float64),
-                                   torch.frexp(y.float())[1] - 9)
-            err = (y.double() - x.double()).abs()
-            check(bool((err <= eb * rng + half_ulp).all()),
-                  f"phase SERVE: {k} off its bound by "
-                  f"{float((err - eb * rng - half_ulp).max())}")
+            # in slices: float64 temporaries of a whole 786 M-value table
+            # would take ~30 GB
+            xf, yf = x.reshape(-1), y.reshape(-1)
+            for i in range(0, xf.numel(), LEAF_CHECK_VALUES):
+                xs, ys = xf[i:i + LEAF_CHECK_VALUES], yf[i:i + LEAF_CHECK_VALUES]
+                half_ulp = torch.ldexp(
+                    torch.ones_like(ys, dtype=torch.float64),
+                    torch.frexp(ys.float())[1] - 9)
+                err = (ys.double() - xs.double()).abs()
+                check(bool((err <= eb * rng + half_ulp).all()),
+                      f"phase {phase}: {k} off its bound by "
+                      f"{float((err - eb * rng - half_ulp).max())}")
         else:
             n_raw += 1
             check(same_bits(y, x.to(torch.bfloat16)),
-                  f"phase SERVE: raw leaf {k} is not the bf16 cast")
-    check(n_lossy + n_raw == len(got), "phase SERVE: restored other leaves")
+                  f"phase {phase}: raw leaf {k} is not the bf16 cast")
+    check(n_lossy + n_raw == len(got), f"phase {phase}: restored other leaves")
     return n_lossy, n_raw
 
 
@@ -3157,6 +3384,588 @@ def run_serve_phase(dispatch, census, captured, card, tmp, seed, dev="cuda"):
     return counts, inputs, figs
 
 
+# phases SERVE.MOE and SERVE.ZOO: the MoE and MLA archs at their published
+# widths (depth cut), and the five other attention archs' full-vocabulary
+# tables through save and restore
+MOE_PHI, MOE_DS = "phi3.5-moe-42b-a6.6b", "deepseek-v2-236b"
+# parameters of the cuts (a meta init of each cut config): phi3.5's first
+# layer, deepseek's dense first layer and first MoE layer
+MOE_PARAMS = {MOE_PHI: 1_431_646_208, MOE_DS: 4_834_391_040}
+MOE_UNITS = {MOE_PHI: 1, MOE_DS: 2}
+MOE_BATCH, MOE_PROMPT, MOE_GEN = 2, 256, 8
+ZOO_ARCHS = ("gemma3-4b", "gemma-7b", "glm4-9b", "qwen2-vl-7b",
+             "whisper-base")
+# the first unit's first repeat, with the full vocabulary and embedding
+ZOO_PARAMS = {"gemma3-4b": 1_237_386_752, "gemma-7b": 1_063_265_280,
+              "glm4-9b": 824_717_312, "qwen2-vl-7b": 778_054_144,
+              "whisper-base": 50_461_696}
+ZOO_BATCH, ZOO_PROMPT, ZOO_GEN = 2, 64, 4
+
+
+def cut_units(cfg, n_units=1):
+    """`cfg` with its first `n_units` units, each cut to one repeat."""
+    import dataclasses
+    return dataclasses.replace(cfg, units=tuple(
+        dataclasses.replace(u, repeat=1) for u in cfg.units[:n_units]))
+
+
+def meta_count(cfg):
+    from repro_torch.convert import tree_items
+    from repro_torch.models import transformer as T
+    return sum(v.numel() for _, v in tree_items(
+        T.init_params(0, cfg, device="meta")))
+
+
+def save_and_restore(cfg, seed, d, dev, phase, want_n):
+    """Parameters drawn from `seed` on the card (f32), saved by
+    save_checkpoint at its defaults and restored in full for serving
+    (bf16); every restored leaf held to its bound against the same draws
+    again. The save's seconds leave out the first-sight holds made in
+    it (`save_holds_s`). -> dict of the counts, seconds, bytes and the
+    restored tree."""
+    import torch
+    from repro_torch.checkpoint import ckpt as C
+    from repro_torch.convert import tree_items
+    from repro_torch.launch import serve as S
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.sharding import ShardingPlan
+    params = T.init_params(seed, cfg, device=dev)
+    n = sum(v.numel() for _, v in tree_items(params))
+    check(n == want_n == meta_count(cfg),
+          f"phase {phase}: {n} parameters, want {want_n}")
+    held_s = SIGHT.seconds
+    _, save_s = synced(lambda: C.save_checkpoint(d, params, 1))
+    held_s = SIGHT.seconds - held_s
+    del params
+    torch.cuda.empty_cache()
+    with open(os.path.join(d, "step_00000001", "manifest.json")) as f:
+        manifest = json.load(f)["leaves"]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    restored, restore_s = synced(lambda: S.restore_serving_params(
+        d, ShardingPlan(mesh=None), device=dev))
+    check(restored is not None and restored[1] == {"step": 1},
+          f"phase {phase}: the full restore found no step 1")
+    out = dict(n=n, save_s=save_s - held_s, save_holds_s=held_s,
+               restore_s=restore_s, restore_base=base,
+               restore_peak=torch.cuda.max_memory_allocated(),
+               stored=sum(v["nbytes"] for v in manifest.values()),
+               full=restored[0])
+    saved = T.init_params(seed, cfg, device=dev)          # the same draws
+    out["lossy"], out["raw"] = check_restored_leaves(
+        out["full"], saved, manifest, C.CheckpointConfig().eb, phase)
+    del saved
+    torch.cuda.empty_cache()
+    return out
+
+
+def hold_kept_walks(kept, phase, timed):
+    """Every tiled decode walk a counted restore kept, bitwise against
+    its plain version on the card; the first call at each new (C, NB,
+    bs) goes into `timed` for the row-4 cases. -> the walks' shapes."""
+    cuda, plain = walk_fns("hufdec_tiles")
+    shapes = []
+    for a in kept:
+        d = as_dec_args("ceaz_chunk_dec", a)
+        C, NB = d[1].shape
+        shape = (C, NB, d[10])
+        check(same_outputs(cuda(d), plain(d)),
+              f"kernel hufdec_tiles disagrees with its plain version at "
+              f"phase {phase}'s walk of {shape}")
+        shapes.append(shape)
+        timed.setdefault(shape, (phase, d))
+    return shapes
+
+
+def serve_kept_calls():
+    """KEEP_CALLS for the serving phases: every decode call that takes
+    the tiled walk."""
+    from repro_torch.kernels.megakernel import ops as MK
+    return {"ceaz_chunk_dec":
+            lambda a: a[1].shape[1] * a[10] > MK.DEC_FUSE_LIMIT}
+
+
+def serve_steps(dec, params, cfg, prompt, n_gen, cache_len, dev,
+                cache_dtype=None, step_ms=None):
+    """The prompt teacher-forced through decode, then n_gen greedy steps
+    -> (every step's logits, the final cache)."""
+    import torch
+    from repro_torch.models import transformer as T
+    B, P_LEN = prompt.shape
+    cache = T.init_cache(cfg, B, cache_len, device=dev,
+                         dtype=cache_dtype or torch.bfloat16)
+    steps, tok = [], prompt[:, 0]
+    for t in range(P_LEN + n_gen):
+        if step_ms is not None and t >= P_LEN:
+            (logits, cache), s = synced(lambda: dec(params, tok, cache))
+            step_ms.append(s * 1e3)
+        else:
+            logits, cache = dec(params, tok, cache)
+        steps.append(logits)
+        tok = prompt[:, t + 1] if t + 1 < P_LEN else \
+            logits.argmax(-1).to(torch.int32)
+    return steps, cache
+
+
+@contextlib.contextmanager
+def recording(prefill=None, decode=None, routes=None):
+    """The port's blocks and MoE routing, recording while the block runs:
+    each prefill block's (input, output) into `prefill`, each decode
+    block's input into `decode`, each routing's (gates, result) into
+    `routes` (None: not recorded)."""
+    from repro_torch.models import modules as M
+    from repro_torch.models import transformer as T
+    old = T._block_apply, T._block_decode, M.moe_route
+
+    def block_apply(bp, b, h, *a, **kw):
+        out = old[0](bp, b, h, *a, **kw)
+        prefill.append((h, out[0]))
+        return out
+
+    def block_decode(bp, b, h, *a, **kw):
+        decode.append(h)
+        return old[1](bp, b, h, *a, **kw)
+
+    def route(gates, *a):
+        r = old[2](gates, *a)
+        routes.append((gates, r))
+        return r
+    if prefill is not None:
+        T._block_apply = block_apply
+    if decode is not None:
+        T._block_decode = block_decode
+    if routes is not None:
+        M.moe_route = route
+    try:
+        yield
+    finally:
+        T._block_apply, T._block_decode, M.moe_route = old
+
+
+def mem_available():
+    """/proc/meminfo's MemAvailable, bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def peak_rss():
+    """This process's peak resident set so far, bytes."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def layer_holds(cfg, params, prompt, n_gen, dev, dtype, what):
+    """The model on `params` (on the card) with the compute dtype `dtype`,
+    on the card and, layer by layer, on the CPU: the card's prefill and
+    its teacher-forced decode of the prompt plus n_gen greedy steps are
+    recorded block by block; then for each layer its weights alone come
+    to the host, where it runs on the card's inputs. Holds (as ratios
+    to the bound, logit_stats): each prefill layer's output; the
+    routing of each MoE layer given the card's gates, bitwise; each
+    layer's cache slots against the CPU's prefill of that layer's
+    recorded decode inputs; the logits from the card's last hidden
+    state. -> dict of the readings, the CPU seconds and the prefill's
+    dropped pairs."""
+    import torch
+    from repro_torch.convert import map_tree, tree_items
+    from repro_torch.launch import serve as S
+    from repro_torch.models import modules as M
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.sharding import ShardingPlan
+    plan = ShardingPlan(mesh=None)
+    B, P_LEN = prompt.shape
+    N = P_LEN + n_gen
+    layers = [(ui, r, bi, b) for ui, unit in enumerate(cfg.units)
+              for r in range(unit.repeat) for bi, b in enumerate(unit.blocks)]
+    card = map_tree(lambda _p, x: x.to(dtype), params)
+    pre_rec, dec_rec, routes = [], [], []
+    with compute_dtype(dtype), recording(pre_rec, None, routes):
+        pre_logits = T.serve_prefill(card, cfg, prompt, plan)
+    with compute_dtype(dtype), recording(None, dec_rec, None):
+        dec = S.make_decode_fn(cfg, plan, B, N)[0]
+        steps, cache = serve_steps(dec, card, cfg, prompt, n_gen, N, dev,
+                                   cache_dtype=dtype)
+    del card
+    torch.cuda.empty_cache()
+    check(len(pre_rec) == len(layers) and len(dec_rec) == len(layers) * N,
+          f"phase SERVE.MOE: {what}: recorded {len(pre_rec)} prefill and "
+          f"{len(dec_rec)} decode blocks")
+    out = dict(layers=[], routing=[], caches=[], dropped=0,
+               mem_available=mem_available())
+    t0 = time.perf_counter()
+    pos = torch.arange(P_LEN)[None, :]
+    aux0 = torch.zeros((), dtype=torch.float32)
+    moe_i = 0
+    for i, (ui, r, bi, b) in enumerate(layers):
+        bp_card = T._index(params["units"][ui], r)[f"b{bi}"]
+        layer_bytes = sum(x.numel() for _, x in tree_items(bp_card)) \
+            * torch.finfo(dtype).bits // 8
+        free = mem_available()
+        check(free > layer_bytes, f"phase SERVE.MOE: {what}: layer {i}'s "
+              f"{layer_bytes} B of weights do not fit the host's "
+              f"MemAvailable {free} B")
+        h_in, h_out = pre_rec[i]
+        cpu_routes = []
+        bp = map_tree(lambda _p, x: x.to("cpu", dtype), bp_card)
+        with compute_dtype(dtype), recording(routes=cpu_routes):
+            y, _ = T._block_apply(bp, b, h_in.cpu(), pos, plan, aux0, None)
+        own = cpu_routes[0][1] if cpu_routes else None
+        out["layers"].append(dict(layer=i, kind=b.kind, mlp=b.mlp_kind,
+                                  host_bytes=layer_bytes,
+                                  mem_available=free,
+                                  **logit_stats([(y, h_out)])))
+        if b.mlp_kind == "moe":
+            gates, rc = routes[moe_i]
+            moe_i += 1
+            cap = M._moe_capacity(B * P_LEN, b.moe, b.moe.n_experts)
+            rcpu = M.moe_route(gates.cpu(), b.moe.top_k, 0,
+                               b.moe.n_experts, cap)
+            same = {k: bool(torch.equal(rcpu[k], v.cpu()))
+                    for k, v in rc.items()}
+            check(all(same.values()), f"phase SERVE.MOE: {what}: layer {i}'s "
+                  f"routing on the CPU given the card's gates differs: {same}")
+            dropped = int((~rc["valid"]).sum())
+            out["dropped"] += dropped
+            out["routing"].append(dict(
+                layer=i, pairs=int(rc["valid"].numel()), dropped=dropped,
+                capacity=cap, tokens_routed_differently_by_cpu_gates=int(
+                    (own["top_i"] != rc["top_i"].cpu()).any(-1).sum())))
+        hd = torch.cat(dec_rec[i::len(layers)], 1).cpu()      # (B, N, d)
+        with compute_dtype(dtype):
+            x = M.norm_apply(bp["ln1"], hd)
+            npos = torch.arange(N)[None, :]
+            if b.kind == "mla":
+                _, (c1, c2) = M.mla_apply(bp, b.mla, x, npos, plan)
+                names = ("c_kv", "k_rope")
+            else:
+                _, (c1, c2) = M.attn_apply(bp, b.attn, x, npos, plan)
+                names = ("k", "v")
+        cc = T._index(cache["units"][ui], r)[f"b{bi}"]
+        out["caches"].append(dict(layer=i, leaves=names, **logit_stats(
+            [(cc[names[0]][:, :N], c1), (cc[names[1]][:, :N], c2)])))
+        del bp, y, hd, x
+    host = lambda x: x.to("cpu", dtype)
+    with compute_dtype(dtype):
+        h = M.norm_apply(map_tree(lambda _p, x: host(x),
+                                  params["final_norm"]),
+                         pre_rec[-1][1][:, -1:].cpu())
+        logits = M.unembed_logits({"embed": {"table": host(
+            params["embed"]["table"])}}, h, plan, cfg.final_softcap)[:, 0]
+    out["logits"] = logit_stats([(pre_logits, logits)])
+    out["cpu_s"] = time.perf_counter() - t0
+    out["host_peak_rss"] = peak_rss()
+    out["finite"] = bool(torch.isfinite(pre_logits).all()) and all(
+        bool(torch.isfinite(s).all()) for s in steps)
+    out["pos"] = cache["pos"].tolist()
+    out["worst"] = max([r["ratio"] for r in out["layers"] + out["caches"]]
+                       + [out["logits"]["ratio"]])
+    return out
+
+
+def serve_figures(cfg, params, prompt, n_gen, dev, phase, what):
+    """The bf16 path that serves: make_prefill_fn's prefill (median of
+    3; a vision or audio arch with its frontend's seeded embeddings)
+    with the dropped pairs of its MoE routing counted, the prompt
+    teacher-forced through make_decode_fn's step and n_gen greedy steps
+    (each timed), device memory at the peak. -> figures."""
+    import torch
+    from repro_torch.launch import serve as S
+    from repro_torch.runtime.sharding import ShardingPlan
+    plan = ShardingPlan(mesh=None)
+    B, P_LEN = prompt.shape
+    N = P_LEN + n_gen
+    fe = {}
+    if cfg.frontend is not None:
+        frames = cfg.frontend_len if cfg.frontend == "vision" else \
+            cfg.encoder.n_frames
+        gen = torch.Generator(device=dev).manual_seed(P_LEN)
+        fe["frontend"] = torch.randn((B, frames, cfg.d_model), generator=gen,
+                                     device=dev)
+    pre = S.make_prefill_fn(
+        cfg, plan, B, P_LEN + (cfg.frontend_len if cfg.frontend == "vision"
+                               else 0))[0]
+    dec = S.make_decode_fn(cfg, plan, B, N)[0]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    routes = []
+    with recording(routes=routes):
+        pre_logits = pre(params, prompt, **fe)
+    dropped = sum(int((~r["valid"]).sum()) for _, r in routes)
+    pairs = sum(int(r["valid"].numel()) for _, r in routes)
+    del routes
+    pre_s = [synced(lambda: pre(params, prompt, **fe))[1] for _ in range(3)]
+    step_ms = []
+    (steps, cache), serve_s = synced(lambda: serve_steps(
+        dec, params, cfg, prompt, n_gen, N, dev, step_ms=step_ms))
+    check(bool(torch.isfinite(pre_logits).all())
+          and all(bool(torch.isfinite(s).all()) for s in steps),
+          f"phase {phase}: {what}: non-finite bf16 logits")
+    check(cache["pos"].tolist() == [N] * B,
+          f"phase {phase}: {what}: pos {cache['pos'].tolist()}, want {N}")
+    ms = statistics.median(step_ms)
+    return dict(prefill_ms=statistics.median(pre_s) * 1e3,
+                prefill_ms_all=[s * 1e3 for s in pre_s],
+                prefill_pairs=pairs, prefill_dropped_pairs=dropped,
+                requests_s=serve_s, decode_ms_per_step=ms,
+                decode_ms_all=step_ms, tokens_per_s=B * 1e3 / ms,
+                serve_base_bytes=base,
+                serve_peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def run_moe_phase(dispatch, census, captured, card, tmp, seed, timed,
+                  dev="cuda"):
+    """Phase SERVE.MOE: phi3.5-moe's first layer (32 q and 8 kv heads of
+    128, 16 experts of d_ff 6400 top 2, vocab 32064; 1,431,646,208
+    parameters) saved and restored as SERVE's gemma3-1b, then served in
+    bf16 (prefill of 2 x 256 tokens, the prompt teacher-forced and 8
+    greedy steps); deepseek-v2's dense first layer and first MoE layer
+    (MLA of 128 heads, kv_lora 512; 160 experts of 1536 top 6 and 2
+    shared; vocab 102400; 4,834,391,040 parameters) drawn on the card and
+    cast to bf16, no save or restore, served the same way through the
+    absorbed MLA cache. Each is then held layer by layer against the
+    port on the CPU (layer_holds) in f32, to the bound, and read in
+    bf16."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import map_tree, tree_items
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    figs, counts, inputs = {}, {}, {}
+    for arch in (MOE_PHI, MOE_DS):
+        t_arch = time.perf_counter()
+        name = f"SERVE.MOE.{arch}"
+        cfg = cut_units(get_arch(arch).config(), MOE_UNITS[arch])
+        gen = torch.Generator(device=dev).manual_seed(seed + 11)
+        prompt = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT),
+                               generator=gen, device=dev, dtype=torch.int32)
+
+        def run():
+            if arch == MOE_PHI:
+                r = save_and_restore(cfg, seed, os.path.join(tmp, "moe"),
+                                     dev, "SERVE.MOE", MOE_PARAMS[arch])
+            else:
+                f32 = T.init_params(seed, cfg, device=dev)
+                n = sum(v.numel() for _, v in tree_items(f32))
+                check(n == MOE_PARAMS[arch] == meta_count(cfg),
+                      f"phase SERVE.MOE: {arch}: {n} parameters")
+                r = dict(n=n, full=map_tree(
+                    lambda _p, x: x.to(torch.bfloat16), f32))
+                del f32
+                torch.cuda.empty_cache()
+            r.update(serve_figures(cfg, r["full"], prompt, MOE_GEN, dev,
+                                 "SERVE.MOE", arch))
+            return r
+
+        KEEP_CALLS.update(serve_kept_calls())
+        try:
+            r, counts[name], inputs[name] = counted_run(
+                name, run, dispatch, census, captured)
+        finally:
+            KEEP_CALLS.clear()
+        kept = inputs[name].pop("ceaz_chunk_dec.kept", [])
+        captured.clear()
+        if arch == MOE_PHI:
+            check_decoded_on_card(name, counts[name])
+            check(0 < len(kept) == counts[name].get("hufdec_tiles", 0),
+                  f"phase {name}: the tiled walks were not kept")
+            r["walk_shapes"] = hold_kept_walks(kept, name, timed)
+        del kept
+        full = r.pop("full")
+        holds = {}
+        for dt in (torch.float32, torch.bfloat16):
+            holds[str(dt).replace("torch.", "")] = layer_holds(
+                cfg, full, prompt, MOE_GEN, dev, dt, arch)
+        del full
+        torch.cuda.empty_cache()
+        f32 = holds["float32"]
+        check(f32["worst"] <= 1.0 and f32["finite"]
+              and f32["pos"] == [MOE_PROMPT + MOE_GEN] * MOE_BATCH,
+              f"phase SERVE.MOE: {arch}: the card against the CPU in f32 "
+              f"past the bound (rtol {LOGIT_RTOL}, atol {LOGIT_ATOL}): "
+              f"{f32}")
+        r["holds"] = holds
+        r["arch_s"] = time.perf_counter() - t_arch
+        figs[arch] = r
+        print(f"serve phase SERVE.MOE [{card}]: {arch}, {r['n']} parameters"
+              + (f": save {r['save_s']} s (less {r['save_holds_s']} s of "
+                 f"first-sight holds), full restore (bf16) "
+                 f"{r['restore_s']} s, allocated {r['restore_base']} B "
+                 f"before it and {r['restore_peak']} B at its peak, ratio "
+                 f"{4 * r['n'] / r['stored']} ({r['lossy']} lossy leaves, "
+                 f"{r['raw']} raw); tiled walks bitwise == plain at "
+                 f"{r['walk_shapes']}" if arch == MOE_PHI else
+                 ": drawn on the card, cast to bf16, no save or restore")
+              + f"; bf16 prefill of {MOE_BATCH} x {MOE_PROMPT} tokens "
+              f"{r['prefill_ms']} ms (median of 3: {r['prefill_ms_all']}), "
+              f"{r['prefill_dropped_pairs']} of {r['prefill_pairs']} "
+              f"routed pairs dropped over capacity; decode {r['decode_ms_per_step']} "
+              f"ms a step (median of {MOE_GEN}: {r['decode_ms_all']}), "
+              f"{r['tokens_per_s']} tokens/s; {MOE_PROMPT} + {MOE_GEN} "
+              f"steps {r['requests_s']} s; allocated {r['serve_base_bytes']} "
+              f"B before and {r['serve_peak_bytes']} B at the peak; "
+              f"{r['arch_s']:.1f} s with the CPU holds")
+        for dt, h in holds.items():
+            print(f"serve phase SERVE.MOE: {arch} card against the CPU, "
+                  f"compute {dt}, ratios to the bound (rtol {LOGIT_RTOL}, "
+                  f"atol {LOGIT_ATOL}){' (held)' if dt == 'float32' else ' (read; no limit)'}: "
+                  f"layers {[(x['layer'], x['kind'], x['mlp'], x['ratio'], x['over']) for x in h['layers']]}; "
+                  f"caches {[(x['layer'], x['leaves'], x['ratio']) for x in h['caches']]}; "
+                  f"logits {h['logits']}; routing given the card's gates "
+                  f"bitwise: True, {h['routing']}; MemAvailable "
+                  f"{h['mem_available']} B before the holds, "
+                  f"{[(x['layer'], x['host_bytes'], x['mem_available']) for x in h['layers']]} "
+                  f"(layer, its weights' bytes on the host, MemAvailable "
+                  f"before it); the process's peak RSS {h['host_peak_rss']} "
+                  f"B; cpu {h['cpu_s']:.1f} s")
+    figs["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase SERVE.MOE: restored leaves within eb range + half a bf16 "
+          f"ulp, tiled walks bitwise, every other kernel call bitwise at "
+          f"the first sight of its key, bf16 logits finite, pos "
+          f"{MOE_PROMPT + MOE_GEN}, routing bitwise given the card's gates, "
+          f"f32 layers, caches and logits within the bound: True (phase "
+          f"{figs['phase_s']:.1f} s) launches={counts}")
+    return counts, inputs, figs
+
+
+def run_zoo_phase(dispatch, census, captured, card, tmp, seed, timed,
+                  dev="cuda"):
+    """Phase SERVE.ZOO: gemma3-4b, gemma-7b, glm4-9b, qwen2-vl-7b and
+    whisper-base at their published widths, depth cut to the first
+    unit's first repeat, each with its full vocabulary and embedding:
+    saved, restored in full as bf16 (seconds and peak allocated; every
+    leaf within its bound; every tiled walk bitwise), then a prefill of
+    2 x 64 tokens, the prompt teacher-forced and 4 greedy steps with
+    finite logits."""
+    import torch
+    from repro_torch.configs import get_arch
+    t_phase = time.perf_counter()
+    figs, counts, inputs = {}, {}, {}
+    for arch in ZOO_ARCHS:
+        t_arch = time.perf_counter()
+        name = f"SERVE.ZOO.{arch}"
+        cfg = cut_units(get_arch(arch).config())
+        gen = torch.Generator(device=dev).manual_seed(seed + 13)
+        prompt = torch.randint(0, cfg.vocab_size, (ZOO_BATCH, ZOO_PROMPT),
+                               generator=gen, device=dev, dtype=torch.int32)
+
+        def run():
+            r = save_and_restore(cfg, seed, os.path.join(tmp, name), dev,
+                                 "SERVE.ZOO", ZOO_PARAMS[arch])
+            r.update(serve_figures(cfg, r["full"], prompt, ZOO_GEN, dev,
+                                 "SERVE.ZOO", arch))
+            del r["full"]
+            return r
+
+        KEEP_CALLS.update(serve_kept_calls())
+        try:
+            r, counts[name], inputs[name] = counted_run(
+                name, run, dispatch, census, captured)
+        finally:
+            KEEP_CALLS.clear()
+        kept = inputs[name].pop("ceaz_chunk_dec.kept", [])
+        captured.clear()
+        torch.cuda.empty_cache()
+        check_decoded_on_card(name, counts[name])
+        check(0 < len(kept) == counts[name].get("hufdec_tiles", 0),
+              f"phase {name}: the tiled walks were not kept")
+        r["walk_shapes"] = hold_kept_walks(kept, name, timed)
+        del kept
+        torch.cuda.empty_cache()
+        r["arch_s"] = time.perf_counter() - t_arch
+        figs[arch] = r
+        print(f"serve phase SERVE.ZOO [{card}]: {arch}, {r['n']} parameters "
+              f"({cfg.vocab_size} x {cfg.d_model} table): save "
+              f"{r['save_s']} s ({4 * r['n'] / 1e9 / r['save_s']} GB/s; "
+              f"less {r['save_holds_s']} s of first-sight holds), "
+              f"ratio {4 * r['n'] / r['stored']} ({r['lossy']} lossy "
+              f"leaves, {r['raw']} raw); full restore (bf16) "
+              f"{r['restore_s']} s ({4 * r['n'] / 1e9 / r['restore_s']} "
+              f"GB/s), allocated {r['restore_base']} B before it and "
+              f"{r['restore_peak']} B at its peak; tiled walks bitwise == "
+              f"plain at {r['walk_shapes']}; prefill of {ZOO_BATCH} x "
+              f"{ZOO_PROMPT} {r['prefill_ms']} ms, decode "
+              f"{r['decode_ms_per_step']} ms a step; {r['arch_s']:.1f} s")
+    figs["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase SERVE.ZOO: every arch saved and restored at its full "
+          f"vocabulary, leaves within eb range + half a bf16 ulp, tiled "
+          f"walks bitwise, every other kernel call bitwise at the first "
+          f"sight of its key, logits finite, pos {ZOO_PROMPT + ZOO_GEN}: True "
+          f"(phase {figs['phase_s']:.1f} s) launches={counts}")
+    return counts, inputs, figs
+
+
+def zoo_kernel_rows(timed, rows):
+    """Row 4 at the walk shapes phases SERVE.MOE and SERVE.ZOO gave it
+    (hold_kept_walks) and no earlier phase did: one case a (C, NB, bs),
+    timed (plain versions held, not timed)."""
+    cuda, plain = walk_fns("hufdec_tiles")
+    row = rows.get("hufdec_tiles", {})
+    have = {tuple(c["shape"]) for c in row.get("cases", [])
+            if c.get("shape")} | ({tuple(row["shape"])} if "shape" in row
+                                  else set())
+    for (C, NB, bs), (phase, d) in sorted(timed.items()):
+        if (C, NB, bs) in have:
+            continue
+        add_case(rows, "hufdec_tiles", lambda: cuda(d), lambda: plain(d),
+                 in_bytes=nbytes(*d[:6]), out_bytes=4 * C * NB * bs,
+                 ops=12 * int(d[2].sum()),
+                 extra=dict(phase=phase, shape=[C, NB, bs]),
+                 time_plain=False)
+
+
+def install_recorders(dispatch):
+    """The censuses' wrappers (rows 3, 9, 13 and 7) and, on every
+    captured dispatch op's CUDA implementation, a recorder: outside
+    SIGHT_PHASES it keeps each op's first call of a counted run (and
+    the calls KEEP_CALLS picks); in them, the SIGHT_OPS are held at
+    first sight and only the KEEP_CALLS calls kept. The wire ops keep
+    their call with the most values. -> (censuses, the captured dict)."""
+    from repro_torch.kernels.dualquant import ops as DQ
+    from repro_torch.kernels.hufenc import ops as HE
+    from repro_torch.kernels.megakernel import ops as MK
+    census = Censuses()
+    HE.encode_pack_cuda = census.pack.wrap(HE.encode_pack_cuda)
+    MK.ceaz_chunk_cuda = census.op.wrap(MK.ceaz_chunk_cuda)
+    DQ.dq_center_cuda = census.center.wrap(DQ.dq_center_cuda)
+    # row 7: the one-launch wrapper, or a parent's per-block packer (whose
+    # launches are counted under the same name)
+    flat = "hufenc_cuda" if hasattr(HE, "hufenc_cuda") else \
+        "hufenc_blocks_cuda"
+    setattr(HE, flat, census.flat.wrap(getattr(HE, flat)))
+    captured = {}
+    for op in CAPTURED_OPS:
+        if not dispatch.available(op):
+            continue
+        fn = dispatch.resolve(op, "cuda", "cuda")
+        plain = dispatch.resolve(op, "torch", "cuda")
+
+        def recorder(*a, _fn=fn, _op=op, _plain=plain):
+            keep = KEEP_CALLS.get(_op)
+            if keep is not None and keep(a):
+                captured.setdefault(_op + ".kept", []).append(a)
+            if SIGHT.phase is None:
+                captured.setdefault(_op, (a,))
+            elif _op in SIGHT_OPS:
+                key = tuple(tuple(x.shape) if hasattr(x, "shape") else x
+                            for x in a)
+                return SIGHT.call(_op, key, _fn, _plain, SIGHT_OPS[_op], a)
+            return _fn(*a)
+        dispatch.register(op, "cuda", lambda _r=recorder: _r)
+    for op in WIRE_OPS:
+        fn = dispatch.resolve(op, "cuda", "cuda")
+
+        def largest(*a, _fn=fn, _op=op):
+            old = captured.get(_op)
+            if old is None or a[0].numel() > old[0][0].numel():
+                captured[_op] = (a,)
+            return _fn(*a)
+        dispatch.register(op, "cuda", lambda _r=largest: _r)
+    return census, captured
+
+
 PHASES = (
     # name, field, facade options (rel eb 1e-4 unless given)
     ("A", "cesm", {}),
@@ -3224,41 +4033,7 @@ def main():
         if "registers" in line or line.startswith("=="):
             print("  ptxas:", line.strip())
 
-    from repro_torch.kernels.dualquant import ops as DQ
-    from repro_torch.kernels.hufenc import ops as HE
-    from repro_torch.kernels.megakernel import ops as MK
-    census = Censuses()
-    HE.encode_pack_cuda = census.pack.wrap(HE.encode_pack_cuda)
-    MK.ceaz_chunk_cuda = census.op.wrap(MK.ceaz_chunk_cuda)
-    DQ.dq_center_cuda = census.center.wrap(DQ.dq_center_cuda)
-    # row 7: the one-launch wrapper, or a parent's per-block packer (whose
-    # launches are counted under the same name)
-    flat = "hufenc_cuda" if hasattr(HE, "hufenc_cuda") else \
-        "hufenc_blocks_cuda"
-    setattr(HE, flat, census.flat.wrap(getattr(HE, flat)))
-    captured = {}
-    for op in CAPTURED_OPS:
-        if not dispatch.available(op):
-            continue
-        fn = dispatch.resolve(op, "cuda", "cuda")
-
-        def recorder(*a, _fn=fn, _op=op):
-            captured.setdefault(_op, (a,))
-            keep = KEEP_CALLS.get(_op)
-            if keep is not None and keep(a):
-                captured.setdefault(_op + ".kept", []).append(a)
-            return _fn(*a)
-        dispatch.register(op, "cuda", lambda _r=recorder: _r)
-    for op in WIRE_OPS:
-        fn = dispatch.resolve(op, "cuda", "cuda")
-
-        def largest(*a, _fn=fn, _op=op):
-            old = captured.get(_op)
-            if old is None or a[0].numel() > old[0][0].numel():
-                captured[_op] = (a,)
-            return _fn(*a)
-        dispatch.register(op, "cuda", lambda _r=largest: _r)
-
+    census, captured = install_recorders(dispatch)
     offline = default_offline_codebook()
     fields = {"cesm": F.cesm_proxy(size="medium"),
               "hacc": F.hacc_proxy(size="medium"),
@@ -3339,6 +4114,14 @@ def main():
         # the serving path: gemma3-1b saved, restored and served
         counts["SERVE"], inputs["SERVE"], serve = run_serve_phase(
             dispatch, census, captured, card, tmp, args.seed)
+        # the MoE and MLA archs, then the other attention archs' tables
+        walks, serve_new = {}, {}
+        for phase, run_new in (("SERVE.MOE", run_moe_phase),
+                               ("SERVE.ZOO", run_zoo_phase)):
+            c2, i2, serve_new[phase] = run_new(
+                dispatch, census, captured, card, tmp, args.seed, walks)
+            counts.update(c2)
+            inputs.update(i2)
     counts.update(c)
     inputs.update(i)
     del nyx, q_mean
@@ -3346,6 +4129,11 @@ def main():
         check(all(op in inputs[p] for op in WIRE_OPS),
               f"pack/unpack inputs of phase {p} not captured")
 
+    # the serving phases' restores leave tens of GB reserved by torch's
+    # caching allocator: hand them back before the profiled kernel rows
+    torch.cuda.empty_cache()
+    print(f"chip_smoke phases: {time.perf_counter() - t_start:.1f} s; the "
+          f"kernel rows follow")
     rows = kernel_rows(inputs)
     pack_rows(census.pack, rows)
     op_rows(census.op, rows)
@@ -3355,12 +4143,17 @@ def main():
     staged_kernel_rows(inputs, census.flat, rows)
     window_checks(inputs, rows)
     serve_kernel_rows(inputs, rows)
+    zoo_kernel_rows(walks, rows)
     nonfinite_check()
     center_corner_check()
     wire_kernel_rows(inputs, rows)
     wire_checks()
     for name, r in rows.items():
         r["launches"] = sum(c.get(name, 0) for c in counts.values())
+        r["first_sight_holds"] = len(SIGHT.by_kernel.get(name, []))
+    print(f"first-sight holds of the serving phases after SERVE (bitwise "
+          f"against the plain versions), kernel -> [phase, wrapper, key]: "
+          f"{SIGHT.by_kernel}; {SIGHT.seconds} s")
     for name, cen in (("gather_pack_tiled", census.pack),
                       ("dq_center", census.center), ("hufenc", census.flat)):
         check(rows[name]["launches"] == sum(cen.totals().values()),
@@ -3374,6 +4167,7 @@ def main():
               f"{t['decompress_GBps']} GB/s ({t['decompress_s']} s, "
               f"median of {t.get('decompress_samples', 3)}) of f32 input")
     thr["SERVE"] = serve
+    thr.update(serve_new)
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"throughput": thr, "card": card}))
     print(json.dumps({"wire": wire_stats, "card": card}))

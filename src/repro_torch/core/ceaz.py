@@ -668,6 +668,16 @@ class CEAZ:
         return rec.reshape(c.shape)
 
 
+def compress(x, **kw) -> CEAZCompressed:
+    """``CEAZ(**kw).compress(x)``."""
+    return CEAZ(**kw).compress(x)
+
+
+def decompress(c: CEAZCompressed, **kw) -> np.ndarray:
+    """``CEAZ(**kw).decompress(c)``."""
+    return CEAZ(**kw).decompress(c)
+
+
 def _host(a) -> np.ndarray:
     """A staged-route array on the host (a device tensor's copy)."""
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else a

@@ -134,6 +134,23 @@ def inverse_lorenzo(delta: torch.Tensor, ndim: int) -> torch.Tensor:
     return q.to(torch.int32)
 
 
+def deltas_from_codes(codes: torch.Tensor, outlier_delta_dense: torch.Tensor
+                      ) -> torch.Tensor:
+    """Merge in-band codes and dense outlier deltas back into the int32
+    delta array."""
+    inband = codes.to(torch.int32) - RADIUS
+    return torch.where(codes == OUTLIER_CODE,
+                       outlier_delta_dense.to(torch.int32), inband)
+
+
+def dequantize(delta: torch.Tensor, eb: float, ndim: int) -> torch.Tensor:
+    """delta codes -> reconstructed f32 values (|x_hat - x| <= eb): the
+    inverse Lorenzo, times 2 eb in f32 (the reference's f32(eb) doubled,
+    exactly)."""
+    q = inverse_lorenzo(delta, ndim)
+    return q.to(torch.float32) * (2.0 * f32_scalar(eb, q.device))
+
+
 # ---------------------------------------------------------------------------
 # Value-direct quantization (predictor='none'): each value is coded
 # against its chunk's centre code instead of a Lorenzo prediction

@@ -66,6 +66,12 @@ def cache_shardings(cache, plan: ShardingPlan, batch_sharded: bool = True):
             parts = [None] * nd
             parts[-4] = bat
             return P(*parts)
+        if name in ("c_kv", "k_rope"):       # (R, B, S, c) MLA's latent
+            parts = [None] * nd
+            parts[-3] = bat
+            if shape[-2] % msize == 0:
+                parts[-2] = plan.model_axis
+            return P(*parts)
         return P(*([None] * nd))
 
     return map_tree(

@@ -14,11 +14,14 @@ Design rules (the reference's):
   * attention is the reference's chunked flash forward (bq=512,
     bk=1024), so no (S, S) score matrix is ever built.
 
-Only the attention family is here: GQA/MQA attention with sliding
-windows, qk-norm, partial RoPE and M-RoPE, cross-attention, the dense
-MLP and the embedding. MLA and MoE keep their configs (plain data) and
-raise in ``transformer`` (ROADMAP Queue 1 item 5b); the flash backward
-and ``chunked_xent`` come with training (item 5c).
+Here: GQA/MQA attention with sliding windows, qk-norm, partial RoPE
+and M-RoPE, cross-attention, MLA (DeepSeek-V2's latent attention, its
+decode absorbed into the compressed cache), the dense MLP, the MoE
+(token-choice top-k with static capacity, on one device; routing and
+combine exact and in a fixed order on any device) and the embedding.
+The MoE's expert parallelism, the flash backward and ``chunked_xent``
+come with training and placement over several cards (ROADMAP Queue 1
+item 5c).
 """
 from __future__ import annotations
 
@@ -348,8 +351,7 @@ def attn_decode(p, cfg: AttnConfig, x, pos, cache, plan: ShardingPlan):
 
 
 # ---------------------------------------------------------------------------
-# MLA and MoE: their configs only (plain data; the blocks raise in
-# transformer, ROADMAP Queue 1 item 5b)
+# MLA (DeepSeek-V2 multi-head latent attention)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -364,16 +366,100 @@ class MLAConfig:
     rope_theta: float = 10000.0
 
 
-@dataclasses.dataclass(frozen=True)
-class MoEConfig:
-    d_model: int
-    d_ff: int                    # per-expert hidden
-    n_experts: int
-    top_k: int
-    n_shared: int = 0            # shared-expert count (DeepSeek)
-    shared_d_ff: int = 0
-    capacity_factor: float = 1.25
-    act: str = "silu"
+def mla_init(key, cfg: MLAConfig):
+    H, dev = cfg.n_heads, key_device(key)
+    p = {
+        "wq_a": dense_init(key, cfg.d_model, (cfg.q_lora,)),
+        "wq_b": dense_init(key, cfg.q_lora, (H, cfg.qk_nope + cfg.qk_rope)),
+        "wkv_a": dense_init(key, cfg.d_model, (cfg.kv_lora + cfg.qk_rope,)),
+        "wkv_b": dense_init(key, cfg.kv_lora,
+                            (H, cfg.qk_nope + cfg.v_head)),
+        "wo": _normal(key, (H, cfg.v_head, cfg.d_model),
+                      (H * cfg.v_head) ** -0.5),
+        "q_a_norm": norm_init(cfg.q_lora, device=dev),
+        "kv_a_norm": norm_init(cfg.kv_lora, device=dev),
+    }
+    return {"mla": p}
+
+
+def _mla_scale(cfg: MLAConfig) -> float:
+    return (cfg.qk_nope + cfg.qk_rope) ** -0.5
+
+
+def _mla_q(mp, cfg: MLAConfig, x):
+    """(q_nope, q_rope) of x (B, S, d), each (B, S, H, *), before rope."""
+    dt = x.dtype
+    cq = norm_apply(mp["q_a_norm"], torch.einsum("btd,dq->btq", x,
+                                                 mp["wq_a"].to(dt)))
+    q = torch.einsum("btq,qhk->bthk", cq, mp["wq_b"].to(dt))
+    return q[..., :cfg.qk_nope], q[..., cfg.qk_nope:]
+
+
+def _mla_kv_a(mp, cfg: MLAConfig, x):
+    """(c_kv normed (B, S, kv_lora), k_rope before rope (B, S, qk_rope))."""
+    kv_a = torch.einsum("btd,dc->btc", x, mp["wkv_a"].to(x.dtype))
+    return (norm_apply(mp["kv_a_norm"], kv_a[..., :cfg.kv_lora]),
+            kv_a[..., cfg.kv_lora:])
+
+
+def mla_apply(p, cfg: MLAConfig, x, positions, plan: ShardingPlan,
+              q_offset: int = 0):
+    """Prefill MLA. Returns (out, (c_kv, k_rope)), the compressed cache
+    of the S positions: (B, S, kv_lora) and (B, S, qk_rope) after rope."""
+    mp = p["mla"]
+    dt = x.dtype
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    q_nope, q_rope = _mla_q(mp, cfg, x)
+    c_kv, k_rope = _mla_kv_a(mp, cfg, x)
+    kv = torch.einsum("btc,chk->bthk", c_kv, mp["wkv_b"].to(dt))
+    k_nope, v = kv[..., :cfg.qk_nope], kv[..., cfg.qk_nope:]
+    inv = _rope_table(cfg.qk_rope, cfg.rope_theta, cfg.qk_rope, x.device)
+    q_rope = apply_rope(q_rope, positions, inv)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, inv)  # (B,S,1,r)
+    k_rope_b = k_rope.expand(B, S, H, cfg.qk_rope)
+    qf = plan.act_bthd(torch.cat([q_nope, q_rope], -1))
+    kf = plan.act_bthd(torch.cat([k_nope, k_rope_b], -1))
+    out = flash_attention(qf, kf, v, causal=True, q_offset=q_offset,
+                          scale=_mla_scale(cfg))
+    out = plan.act_bthd(out)
+    y = torch.einsum("bthk,hkd->btd", out, mp["wo"].to(dt))
+    return plan.act_btd(y), (c_kv, k_rope[:, :, 0, :])
+
+
+def mla_decode(p, cfg: MLAConfig, x, pos, cache, plan: ShardingPlan):
+    """Decode with the COMPRESSED cache (c_kv (B, S, kv_lora) and k_rope
+    (B, S, qk_rope)), attention absorbed into the latent: score = (q_nope
+    W_kv_b,k) . c + q_rope . k_rope. The reference's f32-accumulated
+    products take bf16 inputs, whose products are exact in f32: they run
+    here on f32 copies."""
+    mp = p["mla"]
+    dt = x.dtype
+    q_nope, q_rope = _mla_q(mp, cfg, x)                     # (B,1,H,*)
+    c_new, kr_new = _mla_kv_a(mp, cfg, x)                   # (B,1,*)
+    inv = _rope_table(cfg.qk_rope, cfg.rope_theta, cfg.qk_rope, x.device)
+    q_rope = apply_rope(q_rope, pos[:, None], inv)[:, 0]    # (B,H,r)
+    kr_new = apply_rope(kr_new[:, :, None, :], pos[:, None], inv)[:, :, 0]
+    ck = masked_cache_write(cache["c_kv"], c_new, pos)
+    kr = masked_cache_write(cache["k_rope"], kr_new, pos)
+    cb, cseq = plan.cache_kv_spec()
+    ck = plan.cs(ck, cb, cseq, None)
+    kr = plan.cs(kr, cb, cseq, None)
+    w_kv = mp["wkv_b"].to(dt)                               # (c, H, nope+v)
+    w_k = w_kv[..., :cfg.qk_nope]                           # (c, H, nope)
+    w_v = w_kv[..., cfg.qk_nope:]                           # (c, H, v)
+    q_abs = torch.einsum("bhk,chk->bhc", q_nope[:, 0], w_k)  # (B, H, c)
+    s = (torch.einsum("bhc,bsc->bhs", q_abs.float(), ck.to(dt).float())
+         + torch.einsum("bhr,bsr->bhs", q_rope.float(), kr.to(dt).float()))
+    s = s * _mla_scale(cfg)
+    S = ck.shape[1]
+    mask = torch.arange(S, device=x.device)[None, :] <= pos[:, None]
+    s = torch.where(mask[:, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhs,bsc->bhc", w.to(dt), ck.to(dt))
+    out = torch.einsum("bhc,chv->bhv", ctx, w_v)             # (B, H, v)
+    y = torch.einsum("bhv,hvd->bd", out, mp["wo"].to(dt))[:, None]
+    return plan.act_btd(y), {"c_kv": ck, "k_rope": kr}
 
 
 # ---------------------------------------------------------------------------
@@ -411,6 +497,148 @@ def mlp_apply(p, x, plan: ShardingPlan, act: str = "silu"):
     h = plan.act_btf(h)
     y = torch.einsum("btf,fd->btd", h, mp["wo"].to(dt))
     return plan.act_btd(y)
+
+
+# ---------------------------------------------------------------------------
+# MoE (token-choice top-k, static capacity)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    d_model: int
+    d_ff: int                    # per-expert hidden
+    n_experts: int
+    top_k: int
+    n_shared: int = 0            # shared-expert count (DeepSeek)
+    shared_d_ff: int = 0
+    capacity_factor: float = 1.25
+    act: str = "silu"
+
+
+def moe_init(key, cfg: MoEConfig):
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    p = {
+        "router": dense_init(key, d, (E,), scale=d ** -0.5),
+        "wi": _normal(key, (E, d, f), d ** -0.5),
+        "wg": _normal(key, (E, d, f), d ** -0.5),
+        "wo": _normal(key, (E, f, d), f ** -0.5),
+    }
+    out = {"moe": p}
+    if cfg.n_shared:
+        out["shared"] = mlp_init(key, d, cfg.shared_d_ff or f * cfg.n_shared)
+    return out
+
+
+def _moe_capacity(tokens: int, cfg: MoEConfig, n_local_experts: int) -> int:
+    cap = int(np.ceil(tokens * cfg.top_k * cfg.capacity_factor
+                      / cfg.n_experts))
+    return max(8, -(-cap // 8) * 8)
+
+
+def moe_route(gates, top_k: int, first_expert: int, n_local: int,
+              capacity: int):
+    """Token-choice routing of f32 `gates` (T, E), exact on any device:
+    the top k by a stable descending sort (ties to the lower expert, as
+    ``jax.lax.top_k``), weights normalised by a sum in slot order, pairs
+    sorted stably by expert, each pair's slot in its expert's buffer and
+    whether it is kept (its expert in this shard and its slot under
+    `capacity`: an overfull expert drops its later tokens). -> dict of
+    top_i, top_w (T, K); order, se, st, sw, pos, valid (T K,); counts
+    (E,)."""
+    T, E = gates.shape
+    top_w, top_i = torch.sort(gates, dim=-1, descending=True, stable=True)
+    top_w, top_i = top_w[:, :top_k], top_i[:, :top_k]
+    total = top_w[:, 0]
+    for j in range(1, top_k):
+        total = total + top_w[:, j]
+    top_w = top_w / torch.clamp(total, min=1e-9)[:, None]
+    flat_e = top_i.reshape(-1)
+    flat_t = torch.arange(T, device=gates.device).repeat_interleave(top_k)
+    order = torch.sort(flat_e, stable=True)[1]
+    se, st, sw = flat_e[order], flat_t[order], top_w.reshape(-1)[order]
+    counts = torch.bincount(se, minlength=E)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(T * top_k, device=gates.device) - starts[se]
+    e_loc = se - first_expert
+    valid = (e_loc >= 0) & (e_loc < n_local) & (pos < capacity)
+    return dict(top_i=top_i, top_w=top_w, order=order, se=se, st=st, sw=sw,
+                counts=counts, pos=pos, valid=valid)
+
+
+def _combine(y_pairs, order, T: int, top_k: int):
+    """y (T, d) f32: each token's pair contributions (T K, d, in sorted
+    pair order) added from zero in that order, as the reference's
+    scatter-add ``.at[st].add`` does on the CPU: a token's pairs sort by
+    expert, and the sort is stable. No atomics, so the sum is the same on
+    every run and device."""
+    d = y_pairs.shape[-1]
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(order.numel(), device=order.device)
+    # each token's K pairs in sorted order: its pair indices by rank
+    by_rank = torch.sort(rank.view(T, top_k), -1)[0]         # (T, K)
+    y = torch.zeros((T, d), dtype=torch.float32, device=y_pairs.device)
+    for j in range(top_k):
+        y = y + y_pairs[by_rank[:, j]]
+    return y
+
+
+def moe_local_math(x2d, mp, cfg: MoEConfig, first_expert, n_local, capacity):
+    """Token-choice top-k with static capacity on ONE expert shard.
+
+    x2d: (T, d) tokens. Computes only experts [first_expert, first_expert
+    + n_local); the caller sums across shards. Scatter/gather based: no
+    (T, E, C) one-hot dispatch tensor is built. -> (y (T, d) in x2d's
+    dtype, the load-balance aux)."""
+    T, d = x2d.shape
+    dt = x2d.dtype
+    logits = torch.einsum("td,de->te", x2d, mp["router"].to(dt))
+    gates = torch.softmax(logits.float(), -1)
+    r = moe_route(gates, cfg.top_k, first_expert, n_local, capacity)
+    valid, st = r["valid"], r["st"]
+    safe_e = torch.where(valid, r["se"] - first_expert, 0)
+    safe_p = torch.where(valid, r["pos"], capacity)          # dump slot
+    buf = torch.zeros((n_local, capacity + 1, d), dtype=dt,
+                      device=x2d.device)
+    buf[safe_e, safe_p] = torch.where(valid[:, None], x2d[st], 0).to(dt)
+    buf = buf[:, :capacity]
+    # expert FFN (gated)
+    h = torch.einsum("ecd,edf->ecf", buf, mp["wi"].to(dt))
+    g = torch.einsum("ecd,edf->ecf", buf, mp["wg"].to(dt))
+    h = _act(cfg.act, g) * h
+    y_buf = torch.einsum("ecf,efd->ecd", h, mp["wo"].to(dt))
+    y_buf = torch.cat([y_buf, torch.zeros((n_local, 1, d), dtype=dt,
+                                          device=x2d.device)], 1)
+    # bf16 times f32 promotes to f32, as in jnp
+    y_pairs = y_buf[safe_e, safe_p].float() * \
+        torch.where(valid, r["sw"], 0.0)[:, None]
+    y = _combine(y_pairs, r["order"], T, cfg.top_k)
+    # router aux (load balance) on this shard's view
+    me = gates.mean(0)
+    counts = r["counts"]
+    ce = counts.float() / torch.clamp(counts.sum(), min=1).float()
+    aux = cfg.n_experts * torch.sum(me * ce)
+    return y.to(dt), aux
+
+
+def moe_apply(p, cfg: MoEConfig, x, plan: ShardingPlan):
+    """x: (B, S, d) -> (y, aux_loss): the local path, all experts on one
+    device. Expert parallelism over a model axis of several devices (the
+    reference's shard_map) raises NotImplementedError (ROADMAP Queue 1
+    item 5c)."""
+    B, S, d = x.shape
+    x2d = x.reshape(B * S, d)
+    if plan.mesh is not None and plan.model_size != 1:
+        raise NotImplementedError(
+            "MoE expert parallelism over a model axis of "
+            f"{plan.model_size} is not ported to repro_torch yet (ROADMAP "
+            "Queue 1 item 5c: the reference's shard_map, "
+            "models/modules.py:661-721)")
+    cap = _moe_capacity(B * S, cfg, cfg.n_experts)
+    y, aux = moe_local_math(x2d, p["moe"], cfg, 0, cfg.n_experts, cap)
+    y = y.reshape(B, S, d)
+    if "shared" in p:
+        y = y + mlp_apply({"mlp": p["shared"]["mlp"]}, x, plan, act=cfg.act)
+    return plan.act_btd(y), aux
 
 
 # ---------------------------------------------------------------------------

@@ -10,9 +10,10 @@ nothing to do at inference. Heterogeneous schedules (gemma3's 5 local :
 1 global) put the whole repeating pattern inside one unit.
 
 Block kinds: 'attn' (GQA/MQA, optional sliding window / qk-norm /
-M-RoPE / cross-attention). MLP kinds: 'dense', 'none'. The kinds 'mla',
-'mamba', 'rwkv' and the MLP kinds 'moe', 'rwkv_cmix' raise
-NotImplementedError (ROADMAP Queue 1 item 5b).
+M-RoPE / cross-attention), 'mla' (DeepSeek latent attention, decoding
+from its compressed cache). MLP kinds: 'dense', 'moe' (token-choice
+top-k on one device), 'none'. The kinds 'mamba', 'rwkv' and the MLP
+kind 'rwkv_cmix' raise NotImplementedError (ROADMAP Queue 1 item 5b).
 
 Decode caches: windowed attention layers use RING buffers (window
 slots, not context slots), taken only when the cache was sized to the
@@ -34,7 +35,7 @@ from .modules import AttnConfig, MLAConfig, MoEConfig
 def _unported(what: str):
     raise NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP Queue 1 item "
-        "5b: MLA, MoE, mamba2 and rwkv6 with their four archs)")
+        "5b: mamba2, the shared block and rwkv6 with their two archs)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,7 +131,9 @@ def _block_init(key, b: BlockSpec, d_model: int):
     p: Dict[str, Any] = {"ln1": mod.norm_init(d_model, b.layernorm, dev)}
     if b.kind == "attn":
         p.update(mod.attn_init(key, b.attn))
-    elif b.kind in ("mla", "mamba", "rwkv"):
+    elif b.kind == "mla":
+        p.update(mod.mla_init(key, b.mla))
+    elif b.kind in ("mamba", "rwkv"):
         _unported(f"block kind {b.kind!r}")
     else:
         raise ValueError(b.kind)
@@ -143,7 +146,9 @@ def _block_init(key, b: BlockSpec, d_model: int):
         p["ln2"] = mod.norm_init(d_model, b.layernorm, dev)
         if b.mlp_kind == "dense":
             p.update(mod.mlp_init(key, d_model, b.d_ff, b.gated))
-        elif b.mlp_kind in ("moe", "rwkv_cmix"):
+        elif b.mlp_kind == "moe":
+            p.update(mod.moe_init(key, b.moe))
+        elif b.mlp_kind == "rwkv_cmix":
             _unported(f"MLP kind {b.mlp_kind!r}")
         else:
             raise ValueError(b.mlp_kind)
@@ -195,6 +200,8 @@ def _block_apply(bp, b: BlockSpec, h, positions, plan, aux, memory,
     x = mod.norm_apply(bp["ln1"], h)
     if b.kind == "attn":
         y, _ = mod.attn_apply(bp, b.attn, x, positions, plan, q_offset)
+    elif b.kind == "mla":
+        y, _ = mod.mla_apply(bp, b.mla, x, positions, plan, q_offset)
     else:
         _unported(f"block kind {b.kind!r}")
     if b.post_norms:
@@ -209,6 +216,9 @@ def _block_apply(bp, b: BlockSpec, h, positions, plan, aux, memory,
     x2 = mod.norm_apply(bp["ln2"], h)
     if b.mlp_kind == "dense":
         y2 = mod.mlp_apply(bp, x2, plan, b.act)
+    elif b.mlp_kind == "moe":
+        y2, a = mod.moe_apply(bp, b.moe, x2, plan)
+        aux = aux + a
     else:
         _unported(f"MLP kind {b.mlp_kind!r}")
     if b.post_norms:
@@ -280,10 +290,13 @@ def _block_cache_init(b: BlockSpec, batch: int, cache_len: int, cfg,
                       dtype=torch.bfloat16, device="cuda", lead=()):
     """One block's cache leaves, each with the leading dims `lead` (the
     unit's repeat axis)."""
-    if b.kind != "attn":
-        _unported(f"the decode cache of block kind {b.kind!r}")
     zeros = lambda *s: torch.zeros(tuple(lead) + s, dtype=dtype,
                                    device=device)
+    if b.kind == "mla":
+        return {"c_kv": zeros(batch, cache_len, b.mla.kv_lora),
+                "k_rope": zeros(batch, cache_len, b.mla.qk_rope)}
+    if b.kind != "attn":
+        _unported(f"the decode cache of block kind {b.kind!r}")
     L = _cache_len_for(b, cache_len)
     K, D = b.attn.n_kv_heads, b.attn.head_dim
     c = {"k": zeros(batch, L, K, D), "v": zeros(batch, L, K, D)}
@@ -353,11 +366,13 @@ def _attn_decode_windowed(bp, b: BlockSpec, x, pos, cache, plan):
 
 def _block_decode(bp, b: BlockSpec, h, pos, cache, plan):
     x = mod.norm_apply(bp["ln1"], h)
-    if b.kind != "attn":
+    if b.kind == "mla":
+        y, nc = mod.mla_decode(bp, b.mla, x, pos, cache, plan)
+    elif b.kind != "attn":
         _unported(f"block kind {b.kind!r}")
     # the ring only when the cache was sized to the window
-    if b.attn.window is not None and cache["k"].shape[1] < 1 << 30 \
-       and cache["k"].shape[1] <= b.attn.window:
+    elif b.attn.window is not None and cache["k"].shape[1] < 1 << 30 \
+            and cache["k"].shape[1] <= b.attn.window:
         y, nc = _attn_decode_windowed(bp, b, x, pos, cache, plan)
     else:
         y, nc = mod.attn_decode(bp, b.attn, x, pos,
@@ -384,6 +399,8 @@ def _block_decode(bp, b: BlockSpec, h, pos, cache, plan):
     x2 = mod.norm_apply(bp["ln2"], h)
     if b.mlp_kind == "dense":
         y2 = mod.mlp_apply(bp, x2, plan, b.act)
+    elif b.mlp_kind == "moe":
+        y2, _ = mod.moe_apply(bp, b.moe, x2, plan)
     else:
         _unported(f"MLP kind {b.mlp_kind!r}")
     if b.post_norms:

@@ -273,3 +273,18 @@ def test_kernel_pass_accounting():
     for op in ("dualquant", "hufenc", "ceaz_chunk_dec"):
         assert d[f'{om.KERNEL_CALLS}{{impl="torch",op="{op}"}}'] == 1
         assert any(k.startswith(om.KERNEL_SECONDS) and op in k for k in d)
+
+
+def test_module_compress_and_decompress_match_reference():
+    """``repro_torch.core.compress`` / ``decompress``, the one-line
+    wrappers over the facade, against the reference's (their keyword
+    arguments go to the config; the port's facade is fused by default,
+    the reference's is asked)."""
+    from repro import core as R
+    from repro_torch import core as P
+    x, kw = FIELDS["hacc"]
+    cr = R.compress(x, mode="rel", eb=1e-4, use_fused=True, **kw)
+    cp = P.compress(x, mode="rel", eb=1e-4, device="cpu", **kw)
+    assert_streams_bit_identical(cr, cp)
+    assert P.decompress(cp, device="cpu").tobytes() == \
+        R.decompress(cr).tobytes()

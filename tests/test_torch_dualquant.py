@@ -118,3 +118,29 @@ def test_cuda_impl_refuses_cpu_tensors():
         is TO.dual_quantize_plain
     with pytest.raises(ValueError, match="kernel_impl"):
         dispatch.resolve("dualquant", "pallas", "cpu")
+
+
+@pytest.mark.parametrize("shape,ndim", [((5000,), 1), ((60, 70), 2),
+                                        ((12, 13, 14), 3)])
+def test_dequantize_and_deltas_from_codes_match_reference(shape, ndim):
+    """``dequantize`` (the inverse Lorenzo times 2 eb in f32) and
+    ``deltas_from_codes`` (in-band codes and dense outlier deltas merged)
+    bitwise against the reference's, on a field with outliers."""
+    x = _nonfinite(shape, 4)
+    x = np.where(np.isfinite(x) & (np.abs(x) < 1e3), x * 50, 0.0)
+    x = x.astype(np.float32)
+    eb = 1e-3
+    codes, outl, delta = RD.dual_quantize(jnp.asarray(x), eb, ndim)
+    assert bool(np.asarray(outl).any())
+    dense = np.where(np.asarray(outl), np.asarray(delta), 0).astype(np.int32)
+    ref_d = np.asarray(RD.deltas_from_codes(codes, jnp.asarray(dense)))
+    got_d = TD.deltas_from_codes(torch.from_numpy(np.asarray(codes)),
+                                 torch.from_numpy(dense))
+    assert got_d.dtype == torch.int32
+    assert np.array_equal(got_d.numpy(), ref_d)
+    assert np.array_equal(ref_d, np.asarray(delta))
+    ref = np.asarray(RD.dequantize(jnp.asarray(ref_d), eb, ndim))
+    got = TD.dequantize(got_d, eb, ndim)
+    assert got.dtype == torch.float32 and got.shape == shape
+    assert np.array_equal(got.numpy().view(np.int32), ref.view(np.int32))
+    assert np.abs(got.numpy() - x).max() <= eb * (1 + 1e-6)

@@ -1228,3 +1228,76 @@ def test_reduced_gemma3_serving_on_card_matches_cpu(dev, tmp_path):
         lc, cc = dec(cpu, toks[:, t], cc)
         close(lg, lc)
     assert gc["pos"].tolist() == [24, 24]
+
+
+def _route_gates(T, E, case, seed):
+    g = torch.Generator().manual_seed(seed)
+    if case == "ties":                 # few distinct logits: exact ties
+        logits = torch.randint(0, 3, (T, E), generator=g).float()
+    else:                              # two experts overfull: drops
+        logits = torch.randn((T, E), generator=g)
+        logits[:, :2] += 6.0
+    return torch.softmax(logits, -1)
+
+
+@pytest.mark.parametrize("case", ["ties", "overfull"])
+def test_moe_routing_and_combine_on_card_match_cpu(dev, case):
+    """At deepseek-v2's expert count (160, top 6) over 512 tokens: the
+    card's top-k ids and weights, sorted order, counts, slots and drop
+    mask equal the plain CPU routing's bitwise given the same gates, and
+    the combine's fixed-order f32 sums equal the CPU's (no atomics)."""
+    from repro_torch.models import modules as M
+    T, E, k = 512, 160, 6
+    gates = _route_gates(T, E, case, 3)
+    cap = M._moe_capacity(T, M.MoEConfig(d_model=8, d_ff=8, n_experts=E,
+                                         top_k=k), E)
+    cpu = M.moe_route(gates, k, 0, E, cap)
+    card = M.moe_route(gates.to(dev), k, 0, E, cap)
+    for name, v in cpu.items():
+        _eq(card[name], v)
+    if case == "overfull":
+        assert not bool(cpu["valid"].all())
+    yp = torch.randn((T * k, 64), generator=torch.Generator().manual_seed(4))
+    yp = yp * 10.0 ** torch.randint(-4, 4, (T * k, 1),
+                                    generator=torch.Generator().manual_seed(5))
+    want = M._combine(yp, cpu["order"], T, k)
+    for _ in range(3):                   # the same bits on every run
+        _eq(M._combine(yp.to(dev), card["order"], T, k), want)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "phi3.5-moe-42b-a6.6b"])
+def test_reduced_moe_serving_on_card_matches_cpu(dev, arch):
+    """The reduced MoE archs on the card against the port on the CPU, the
+    compute dtype f32 on both (a bf16 router's near-ties flip between
+    any two executions): prefill, and 12 decode steps through the MLA
+    latent or KV cache, within the bound (rtol 0.06, atol 0.05); the
+    cache slots the same within it."""
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import map_tree, tree_items
+    from repro_torch.models import modules as M
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.sharding import ShardingPlan
+    cfg, plan = get_arch(arch).reduced(), ShardingPlan(mesh=None)
+    cpu = T.init_params(0, cfg, device="cpu")
+    card = map_tree(lambda _k, v: v.to(dev), cpu)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12),
+                         generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    close = lambda a, b: np.testing.assert_allclose(
+        a.float().cpu().numpy(), b.float().numpy(), rtol=0.06, atol=0.05)
+    old, M.COMPUTE_DTYPE = M.COMPUTE_DTYPE, torch.float32
+    try:
+        close(T.serve_prefill(card, cfg, toks.to(dev), plan),
+              T.serve_prefill(cpu, cfg, toks, plan))
+        gc = T.init_cache(cfg, 2, 16, torch.float32, device=dev)
+        cc = T.init_cache(cfg, 2, 16, torch.float32, device="cpu")
+        for t in range(12):
+            lg, gc = T.serve_decode(card, cfg, toks[:, t].to(dev), gc, plan)
+            lc, cc = T.serve_decode(cpu, cfg, toks[:, t], cc, plan)
+            close(lg, lc)
+    finally:
+        M.COMPUTE_DTYPE = old
+    want = dict(tree_items(cc))
+    for k, v in tree_items(gc):
+        close(v, want[k])
+    assert gc["pos"].tolist() == [12, 12]

@@ -80,6 +80,16 @@ def test_import_leaves_jax_and_reference_out():
             "logits, _ = dec(p, torch.zeros(2, dtype=torch.int32), "
             "T.init_cache(cfg, 2, 8, device='cpu'))\n"
             "assert logits.shape == (2, cfg.vocab_size)\n"
+            # MLA and MoE: the reduced deepseek prefilled and decoded
+            "cfg = get_arch('deepseek-v2-236b').reduced()\n"
+            "p = T.init_params(0, cfg, device='cpu')\n"
+            "assert T.serve_prefill(p, cfg, torch.zeros((2, 5), "
+            "dtype=torch.int32), ShardingPlan()).shape == (2, cfg.vocab_size)\n"
+            "logits, _ = T.serve_decode(p, cfg, torch.zeros(2, dtype=torch.int32), "
+            "T.init_cache(cfg, 2, 8, device='cpu'), ShardingPlan())\n"
+            "from repro_torch.core import compress, decompress, dequantize\n"
+            "assert decompress(compress(x, device='cpu'), device='cpu').shape "
+            "== x.shape\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n")
@@ -87,6 +97,21 @@ def test_import_leaves_jax_and_reference_out():
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_core_exports_the_reference_names():
+    """Every name of ``repro.core.__all__`` is exported by the port's
+    core, constants with the reference's values."""
+    import repro.core as R
+    import repro_torch.core as P
+    assert set(R.__all__) <= set(P.__all__)
+    assert set(P.__all__) - set(R.__all__) == {"CompressedChunk"}
+    for name in R.__all__:
+        got, ref = getattr(P, name), getattr(R, name)
+        if isinstance(ref, (int, float)):
+            assert got == ref, name
+        else:
+            assert callable(got) == callable(ref), name
 
 
 def test_no_source_imports_jax_or_reference():
@@ -102,6 +127,7 @@ def test_no_source_imports_jax_or_reference():
                 "configs/gemma3_1b.py", "configs/gemma3_4b.py",
                 "configs/gemma_7b.py", "configs/glm4_9b.py",
                 "configs/qwen2_vl_7b.py", "configs/whisper_base.py",
+                "configs/deepseek_v2_236b.py", "configs/phi35_moe_42b.py",
                 "launch/serve.py"):
         assert os.path.join(PORT, new) in files, new
     for path in files:

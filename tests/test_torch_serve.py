@@ -35,6 +35,7 @@ from repro_torch.checkpoint import ckpt as C
 from repro_torch.configs import ARCHS, get_arch
 from repro_torch.launch import mesh as LM
 from repro_torch.launch import serve as S
+from repro_torch.models import transformer as T
 from repro_torch.runtime import sharding as SH
 from repro_torch.runtime.sharding import ShardingPlan
 
@@ -231,6 +232,31 @@ def test_paged_and_mesh_restores_match_full(ckpts):
         S.restore_serving_params(d_ref, two, device="cpu")
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "phi3.5-moe-42b-a6.6b"])
+def test_moe_mla_checkpoints_restore_across_packages(tmp_path, arch):
+    """A reduced MoE arch's checkpoint (the 4-D stacked expert weights,
+    the shared expert, the latent projections) saved by each package
+    restores through the other with the same bf16 bits, and the port's
+    init has the reference's leaves."""
+    rcfg = ref_arch(arch).reduced()
+    rp = jax.device_get(RT.init_params(jax.random.key(7), rcfg))
+    got = T.init_params(0, get_arch(arch).reduced(), device="cpu")
+    assert _shapes(got) == _shapes(rp)
+    assert any(k.endswith("moe/wi") and len(v.shape) == 4
+               for k, v in CV.tree_items(got))
+    d_ref, d_port = str(tmp_path / "ref"), str(tmp_path / "port")
+    RC.save_checkpoint(d_ref, rp, 1)
+    flat = CV.tree_from_reference(rp, "cpu")
+    C.save_checkpoint(d_port, CV.map_tree(lambda k, _v: flat[k], rp), 2,
+                      device="cpu")
+    for d, step in ((d_ref, 1), (d_port, 2)):
+        ref, rmeta = RS.restore_serving_params(d, RPlan(mesh=None))
+        port, meta = S.restore_serving_params(d, ShardingPlan(mesh=None),
+                                              device="cpu")
+        assert meta == rmeta == {"step": step}
+        _same_bits(port, ref)
+
+
 def test_restore_without_a_checkpoint(tmp_path, capsys):
     plan = ShardingPlan(mesh=None)
     assert S.restore_serving_params(str(tmp_path), plan, device="cpu") \
@@ -277,7 +303,6 @@ def test_served_requests_match_reference(ckpts):
     dec, _, _, _ = S.make_decode_fn(cfg, ShardingPlan(mesh=None), B,
                                     CACHE_LEN)
     rdec = jax.jit(rdec)
-    from repro_torch.models import transformer as T
     rc = RT.init_cache(rcfg, B, CACHE_LEN)
     cache = T.init_cache(cfg, B, CACHE_LEN, device="cpu")
     tok = prompt[:, 0]

@@ -1,19 +1,25 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's phase SERVE alone, with the same instruments, on one
+"""chip_smoke.py's serving phases alone, with the same instruments, on one
 NVIDIA GPU: a quicker run of the serving path than the whole script.
 
-    python3 tools/serve_phase.py [--seed S]
+    python3 tools/serve_phase.py [--seed S] [--phases SERVE,SERVE.MOE,SERVE.ZOO]
 
-It builds the kernels, wraps the census and capture hooks as
-``chip_smoke.main`` does, runs ``chip_smoke.run_serve_phase`` (gemma3-1b
-at its published widths: save, full and paged restore, 4 requests of
-600 + 32 tokens, the cut's card-against-CPU checks and the bf16 limits
-with their controls) in a temporary directory under ``build/``, then
-``chip_smoke.serve_kernel_rows`` on the calls the phase kept (each a
-row of its own here: no earlier phase made the rows). Prints the card's
-name and power limit, chip_smoke's phase lines, the seconds of the phase
-and of the kernel holds, and one JSON line of the phase's figures and
-the held kernels' times. Exits non-zero if any check fails.
+It builds the kernels, installs the census and capture hooks as
+``chip_smoke.main`` does (``install_recorders``: the phases after SERVE
+hold each new kernel key at first sight) and runs the named phases (default: SERVE) in a
+temporary directory under ``build/``: ``chip_smoke.run_serve_phase``
+(gemma3-1b at its published widths: save, full and paged restore, 4
+requests of 600 + 32 tokens, the cut's card-against-CPU checks and the
+bf16 limits with their controls), ``run_moe_phase`` (phi3.5-moe's first
+layer saved, restored and served; deepseek-v2's dense and first MoE
+layers served; both held layer by layer against the CPU) and
+``run_zoo_phase`` (five attention archs' full-vocabulary tables saved
+and restored, then served a few steps). Then ``serve_kernel_rows`` and
+``zoo_kernel_rows`` on the calls the phases kept (each a row of its own
+here: no earlier phase made the rows). Prints the card's name and power
+limit, chip_smoke's phase lines, the seconds of each phase and of the
+kernel holds, and one JSON line of the phases' figures and the held
+kernels' times. Exits non-zero if any check fails.
 """
 import argparse
 import json
@@ -28,6 +34,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default="SERVE",
+                    help="comma-separated: SERVE, SERVE.MOE, SERVE.ZOO")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -36,47 +44,34 @@ def main():
     sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
     import chip_smoke as CS
     from repro_torch.kernels import _build, dispatch
-    from repro_torch.kernels.dualquant import ops as DQ
-    from repro_torch.kernels.hufenc import ops as HE
-    from repro_torch.kernels.megakernel import ops as MK
     card = CS.card_line()
     print(f"card: {card}")
     _build.library()
-    census = CS.Censuses()
-    HE.encode_pack_cuda = census.pack.wrap(HE.encode_pack_cuda)
-    MK.ceaz_chunk_cuda = census.op.wrap(MK.ceaz_chunk_cuda)
-    DQ.dq_center_cuda = census.center.wrap(DQ.dq_center_cuda)
-    HE.hufenc_cuda = census.flat.wrap(HE.hufenc_cuda)
-    captured = {}
-    for op in CS.CAPTURED_OPS:
-        if not dispatch.available(op):
-            continue
-        fn = dispatch.resolve(op, "cuda", "cuda")
-
-        def recorder(*a, _fn=fn, _op=op):
-            captured.setdefault(_op, (a,))
-            keep = CS.KEEP_CALLS.get(_op)
-            if keep is not None and keep(a):
-                captured.setdefault(_op + ".kept", []).append(a)
-            return _fn(*a)
-        dispatch.register(op, "cuda", lambda _r=recorder: _r)
+    census, captured = CS.install_recorders(dispatch)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    t0 = time.perf_counter()
+    runs = {"SERVE": CS.run_serve_phase, "SERVE.MOE": CS.run_moe_phase,
+            "SERVE.ZOO": CS.run_zoo_phase}
+    phases = args.phases.split(",")
+    inputs, figs, walks, secs = {}, {}, {}, {}
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
-        _, inputs, figs = CS.run_serve_phase(dispatch, census, captured,
-                                             card, d, args.seed)
-    phase_s = time.perf_counter() - t0
+        for phase in phases:
+            t0 = time.perf_counter()
+            extra = () if phase == "SERVE" else (walks,)
+            _, inputs[phase], figs[phase] = runs[phase](
+                dispatch, census, captured, card, d, args.seed, *extra)
+            secs[phase] = time.perf_counter() - t0
     t0 = time.perf_counter()
     rows = {}
-    CS.serve_kernel_rows({"SERVE": inputs}, rows)
+    if "SERVE" in phases:
+        CS.serve_kernel_rows({"SERVE": inputs["SERVE"]}, rows)
+    CS.zoo_kernel_rows(walks, rows)
     holds_s = time.perf_counter() - t0
-    print(f"serve_phase: phase {phase_s} s, kernel holds {holds_s} s")
+    print(f"serve_phase: phases {secs} s, kernel holds {holds_s} s")
     keep = ("ms", "device_ms", "bound_ms", "pct_of_bound", "shape", "cases")
     print(json.dumps({
-        "serve": {k: v for k, v in figs.items()
-                  if isinstance(v, (int, float, dict))},
+        "serve": figs,
         "kernels": {n: {k: r.get(k) for k in keep} for n, r in rows.items()},
-        "card": card}))
+        "card": card}, default=str))
     print(card)
     return 0
 
