@@ -60,10 +60,12 @@ through the public facade, at rel eb 1e-4 unless said otherwise:
            CESM field as phase A (one 32 MB chunk: dq2d, the histogram
            kernel, the large-chunk packer), T.E the NWChem field
            value-direct at rel 1e-3 (the value kernels, dq_center,
-           histogram, the large-chunk packer), T.G the HACC field at
-           fixed ratio 10 in 256 chunks of 2^15 (chunk_bytes=2^17, the
-           reference's section 4.7 settings: dq1d, histogram and the
-           gather-pack per chunk, 8 tiles on 8 CTAs). Staged decode is
+           histogram, the large-chunk packer), T.G the HACC field's first
+           2^21 values at fixed ratio 10 in 64 chunks of 2^15
+           (chunk_bytes=2^17, the reference's section 4.7 settings: dq1d,
+           histogram and the gather-pack per chunk, 8 tiles on 8 CTAs;
+           the whole field's 256 chunks until phase SERVE.SSM came, cut
+           for the run's time). Staged decode is
            the host table decode. T.A's stream must equal phase A's, T.E's phase E.exact's
            and T.G's the fused route's at the same settings;
   BATCH    the HACC field as 4 shards of 2^21 through ``compress_batch``:
@@ -152,13 +154,15 @@ through the public facade, at rel eb 1e-4 unless said otherwise:
            one, raw leaves the bf16 cast) and paged (unit 0, embed/table
            and every leaf bitwise the full restore's; one decode step
            from the paged tree the same logits bits); 4 requests at B = 4
-           of 600 seeded prompt tokens (the rings wrap) teacher-forced
-           through ``make_decode_fn``'s step and 32 greedy tokens (logits
-           finite, pos 632), ``make_prefill_fn`` on the prompts. The
+           of 264 seeded prompt tokens teacher-forced through
+           ``make_decode_fn``'s step and 8 greedy tokens (logits finite,
+           pos 272; 600 + 32 until phase SERVE.SSM came, cut for the
+           run's time), ``make_prefill_fn`` on the prompts. The
            restored weights cut to the first unit's first repeat (5 local
            layers, 1 global) hold the bound the CPU parity tests state
            (rtol 0.06, atol 0.05) with the compute dtype f32: prefill
-           against the 600-token teacher-forced decode on the card, and a
+           against the 520-token teacher-forced decode on the card (the
+           512-slot rings wrap), and a
            64-token prompt with 4 greedy steps at B = 2 on the card
            against the port on the CPU. The bf16 path that serves reads
            over that bound (bf16 rounds in other places on each side), so
@@ -204,8 +208,28 @@ through the public facade, at rel eb 1e-4 unless said otherwise:
            leaf within its bound and every tiled walk bitwise, then a
            prefill of 2 x 64 tokens, the prompt teacher-forced and 4
            greedy steps with finite logits (counted runs
-           SERVE.ZOO.<arch>). Row 4 gets a timed case at each walk shape
-           these two phases add.
+           SERVE.ZOO.<arch>);
+  SERVE.SSM the SSM archs at their published widths: rwkv6-1.6b whole
+           (24 layers, d 2048, d_ff 7168, vocab 65536; 1,465,501,696
+           parameters) saved, restored in full as bf16 and served, and
+           zamba2-7b's first unit's first repeat (the shared attention
+           block, 6 mamba2 layers of 112 heads, state 64, the embedding;
+           788,088,032 parameters) saved and restored, then the whole
+           zamba2 (81 mamba2 layers in units of 13 x 7 and 1 x 4 with
+           the shared block; 6,636,442,832 parameters) drawn on the card
+           as bf16 and served: each a prefill of 2 x 256 tokens, the
+           prompt teacher-forced and 8 greedy steps (logits finite, pos
+           264), every restored leaf within its bound and every tiled
+           walk bitwise. Then rwkv6's first 4 layers and zamba2's
+           restored cut are held layer by layer against the port on the
+           CPU as SERVE.MOE's are (2 x 80 tokens and 2 steps; an SSM
+           layer's conv, state, sx and sx_cmix after the prompt against
+           the CPU's own teacher-forced decode of the layer's recorded
+           inputs), f32 to the bound and bf16 read. Prints the save and
+           restore seconds, GB/s and peaks, prefill ms, decode ms a step,
+           tokens/s and the decode cache's bytes a sequence beside a
+           bf16 K and V cache's (counted runs SERVE.SSM.<arch>). Row 4
+           gets a timed case at each walk shape these three phases add.
 
 Each phase is run with the kernels' launch counts set to 0 just before
 and read just after, and must launch every kernel of its path. Phases P
@@ -376,6 +400,10 @@ PHASE_KERNELS = {
     # the other attention archs' full-vocabulary saves and restores
     **{f"SERVE.ZOO.{a}": ("gather_pack_tiled",) for a in (
         "gemma3-4b", "gemma-7b", "glm4-9b", "qwen2-vl-7b", "whisper-base")},
+    # the SSM archs: rwkv6 whole and zamba2's first repeat saved and
+    # restored; zamba2's whole model is drawn on the card
+    **{f"SERVE.SSM.{a}": ("gather_pack_tiled",) for a in (
+        "rwkv6-1.6b", "zamba2-7b")},
 }
 # the serving phases after SERVE keep no kernel arguments (a kept
 # (C, 2^20) group is GBs, and five archs' groups would not fit beside
@@ -387,16 +415,16 @@ SIGHT_VALUES = 1 << 26
 # dispatch ops held at first sight beside the censuses' wrappers (rows
 # 3, 9 and 13 are held in theirs): op -> the indices of its arguments
 # sliced by rows, or None (held whole). The tiled decode walks are all
-# kept and held after the run (hold_kept_walks)
+# kept and held after the run (hold_kept_decodes)
 SIGHT_OPS = {"dualquant": None, "histogram": (0, 1),
              "value_quant": (0, 1), "value_finalize": (0, 1, 2),
              "lorenzo_quant": (0, 1, 2, 3), "bank_select": (0,)}
 # the staged phases' fused counterparts at the same settings: the
 # streams must be identical (T.G's counterpart is run there)
 STAGED_TWINS = {"T.A": "A", "T.E": "E.exact"}
-# phases whose staged host decode (256 chunks of 2^15 through the table
-# walk of core/huffman.py) takes tens of seconds: timed once, on the
-# counted run, and left out of the traced round trip
+# phases whose staged host decode (64 chunks of 2^15 through the table
+# walk of core/huffman.py) takes seconds: timed once, on the counted
+# run, and left out of the traced round trip
 ONE_DECODE_PHASES = ("T.G",)
 # the split decodes: stream of phase -> its S phase; the walk kernel must
 # launch and neither decode megakernel kernel may
@@ -2250,9 +2278,9 @@ def counted_run(name, fn, dispatch, census, captured, also=()):
         check(counts.get(k, 0) > 0,
               f"phase {name}: kernel {k} was not launched ({counts})")
     if name in SIGHT_PHASES:
-        # every tiled walk is kept and held after the run
+        # every decode call is kept and held after the run
         unheld = {k for k, n in counts.items() if n} \
-            - SIGHT.kernels(name) - {"hufdec_tiles"}
+            - SIGHT.kernels(name) - set(DECODE_WALKS)
         check(not unheld, f"phase {name}: kernels {sorted(unheld)} "
               f"launched by no call held at first sight ({counts})")
     return out, counts, inputs
@@ -2957,7 +2985,12 @@ def run_consumer_phases(nyx, mean, dispatch, census, captured, card, tmp,
 
 # phase SERVE: gemma3-1b at its published widths (configs/gemma3_1b.py)
 SERVE_PARAMS = 999_885_952
-SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_CACHE = 4, 600, 32, 1024
+# the requests: 264 prompt tokens and 8 greedy ones (cut from 600 + 32
+# when phase SERVE.SSM came, for the whole run's time); the cut's f32
+# prefill against its teacher-forced decode takes SERVE_WRAP_PROMPT
+# tokens, past the 512-slot rings
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_CACHE = 4, 264, 8, 1024
+SERVE_WRAP_PROMPT = 520
 # the card-against-CPU cut: the first unit's first repeat (5 local layers
 # and 1 global), B = 2, a 64-token prompt and 4 greedy steps
 SERVE_CUT_BATCH, SERVE_CUT_PROMPT, SERVE_CUT_GEN = 2, 64, 4
@@ -3022,15 +3055,19 @@ def check_restored_leaves(restored, saved, manifest, eb, phase="SERVE"):
     return n_lossy, n_raw
 
 
-def cut_to_first_repeat(cfg, params):
-    """(cfg, params) of the first unit's first repeat, the embedding and
-    the final norm (views of `params`)."""
+def cut_to_first_repeat(cfg, params, repeats=1):
+    """(cfg, params) of the first unit's first `repeats` repeats, the
+    embedding, the final norm and a shared block's params (zamba2's
+    ``params['shared']``), as views of `params`."""
     import dataclasses
     from repro_torch.convert import map_tree
-    unit = dataclasses.replace(cfg.units[0], repeat=1)
-    return dataclasses.replace(cfg, units=(unit,)), {
-        "embed": params["embed"], "final_norm": params["final_norm"],
-        "units": [map_tree(lambda _p, x: x[:1], params["units"][0])]}
+    unit = dataclasses.replace(cfg.units[0], repeat=repeats)
+    cut = {"embed": params["embed"], "final_norm": params["final_norm"],
+           "units": [map_tree(lambda _p, x: x[:repeats],
+                              params["units"][0])]}
+    if "shared" in params:
+        cut["shared"] = params["shared"]
+    return dataclasses.replace(cfg, units=(unit,)), cut
 
 
 @contextlib.contextmanager
@@ -3112,7 +3149,7 @@ def cut_checks(cfg, full, prompt, dev):
     """On the restored weights cut to the first unit's first repeat (5
     local layers and 1 global): the prefill of the whole prompt against
     its teacher-forced decode on the card with the compute dtype f32
-    (600 tokens: the 512-slot rings wrap); a 64-token prompt with 4
+    (520 tokens: the 512-slot rings wrap); a 64-token prompt with 4
     greedy steps on the card against the port on the CPU, both with the
     compute dtype f32 (the CPU fed the card's tokens); the same in bf16
     on both sides, and, the control, the card's bf16 run with a float8
@@ -3169,7 +3206,7 @@ def run_serve_phase(dispatch, census, captured, card, tmp, seed, dev="cuda"):
     parameters) from a seeded generator on the card, saved through
     save_checkpoint (the defaults: rel 5e-4, predictor 'auto', 4 MB
     chunks), restored for serving in full (bf16) and paged; four requests
-    of 600 prompt tokens and 32 greedy tokens at B = 4 through the
+    of 264 prompt tokens and 8 greedy tokens at B = 4 through the
     make_prefill_fn / make_decode_fn callables, prefill against the
     teacher-forced decode held to its bf16 limit (and its control, the
     last prompt step from a float8 cache, past it); the restored weights
@@ -3238,8 +3275,9 @@ def run_serve_phase(dispatch, census, captured, card, tmp, seed, dev="cuda"):
         dec, _, _, _ = S.make_decode_fn(cfg, plan, B, L)
         pre, _, _ = S.make_prefill_fn(cfg, plan, B, P_LEN)
         gen = torch.Generator(device=dev).manual_seed(seed + 7)
-        prompt = torch.randint(0, cfg.vocab_size, (B, P_LEN), generator=gen,
-                               device=dev, dtype=torch.int32)
+        long = torch.randint(0, cfg.vocab_size, (B, SERVE_WRAP_PROMPT),
+                             generator=gen, device=dev, dtype=torch.int32)
+        prompt = long[:, :P_LEN]
         c0 = T.init_cache(cfg, B, L, device=dev)
         lf, _ = dec(full, prompt[:, 0], c0)
         lp, _ = dec(paged, prompt[:, 0], c0)
@@ -3259,7 +3297,7 @@ def run_serve_phase(dispatch, census, captured, card, tmp, seed, dev="cuda"):
                                           L, dev, step_ms=out["step_ms"],
                                           saved=out["saved"]))
         out["serve_peak"] = torch.cuda.max_memory_allocated()
-        out["prompt"], out["dec"] = prompt, dec
+        out["prompt"], out["dec"] = long, dec
         return out
 
     def first_at_chunk(op):
@@ -3478,17 +3516,40 @@ def hold_kept_walks(kept, phase, timed):
 
 
 def serve_kept_calls():
-    """KEEP_CALLS for the serving phases: every decode call that takes
-    the tiled walk."""
+    """KEEP_CALLS for the serving phases: every decode call, the tiled
+    walk's and the decode megakernel's (rows of at most DEC_FUSE_LIMIT
+    values), each held after the run (hold_kept_decodes)."""
+    return {"ceaz_chunk_dec": lambda a: True}
+
+
+def hold_kept_decodes(kept, phase, counts, timed):
+    """Every decode call a counted run kept (serve_kept_calls), bitwise
+    against its plain version on the card: the tiled walks
+    (hold_kept_walks) and the decode megakernel's calls. Their numbers
+    must equal the run's launches of the two kernels. -> the tiled
+    walks' shapes."""
     from repro_torch.kernels.megakernel import ops as MK
-    return {"ceaz_chunk_dec":
-            lambda a: a[1].shape[1] * a[10] > MK.DEC_FUSE_LIMIT}
+    tiled = lambda a: a[1].shape[1] * a[10] > MK.DEC_FUSE_LIMIT
+    walks = [a for a in kept if tiled(a)]
+    fused = [a for a in kept if not tiled(a)]
+    check(0 < len(walks) == counts.get("hufdec_tiles", 0)
+          and len(fused) == counts.get("ceaz_chunk_dec_fused", 0),
+          f"phase {phase}: {len(walks)} tiled walks and {len(fused)} "
+          f"megakernel decodes kept, launches {counts}")
+    cuda, plain = walk_fns("ceaz_chunk_dec_fused")
+    for a in fused:
+        d = as_dec_args("ceaz_chunk_dec", a)
+        check(same_outputs(cuda(d), plain(d)),
+              f"kernel ceaz_chunk_dec_fused disagrees with its plain "
+              f"version at phase {phase}'s decode of {tuple(d[1].shape)}")
+    return hold_kept_walks(walks, phase, timed)
 
 
 def serve_steps(dec, params, cfg, prompt, n_gen, cache_len, dev,
-                cache_dtype=None, step_ms=None):
+                cache_dtype=None, step_ms=None, saved=None):
     """The prompt teacher-forced through decode, then n_gen greedy steps
-    -> (every step's logits, the final cache)."""
+    -> (every step's logits, the final cache). A dict `saved` gets the
+    cache after the prompt's last token under "cache"."""
     import torch
     from repro_torch.models import transformer as T
     B, P_LEN = prompt.shape
@@ -3501,6 +3562,8 @@ def serve_steps(dec, params, cfg, prompt, n_gen, cache_len, dev,
             step_ms.append(s * 1e3)
         else:
             logits, cache = dec(params, tok, cache)
+        if saved is not None and t == P_LEN - 1:
+            saved["cache"] = cache
         steps.append(logits)
         tok = prompt[:, t + 1] if t + 1 < P_LEN else \
             logits.argmax(-1).to(torch.int32)
@@ -3557,18 +3620,23 @@ def peak_rss():
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
 
 
-def layer_holds(cfg, params, prompt, n_gen, dev, dtype, what):
+def layer_holds(cfg, params, prompt, n_gen, dev, dtype, what,
+                phase="SERVE.MOE"):
     """The model on `params` (on the card) with the compute dtype `dtype`,
     on the card and, layer by layer, on the CPU: the card's prefill and
     its teacher-forced decode of the prompt plus n_gen greedy steps are
     recorded block by block; then for each layer its weights alone come
-    to the host, where it runs on the card's inputs. Holds (as ratios
-    to the bound, logit_stats): each prefill layer's output; the
-    routing of each MoE layer given the card's gates, bitwise; each
+    to the host, where it runs on the card's inputs (a shared block's
+    are ``params['shared']``). Holds (as ratios to the bound,
+    logit_stats): each prefill layer's output; the routing of each MoE
+    layer given the card's gates, bitwise; each attention or MLA
     layer's cache slots against the CPU's prefill of that layer's
-    recorded decode inputs; the logits from the card's last hidden
-    state. -> dict of the readings, the CPU seconds and the prefill's
-    dropped pairs."""
+    recorded decode inputs; each SSM layer's cache after the prompt
+    (mamba's conv and state; rwkv's sx, sx_cmix and state) against the
+    CPU's own teacher-forced decode of that layer's recorded prompt
+    inputs (an SSM prefill emits no cache); the logits from the card's
+    last hidden state. -> dict of the readings, the CPU seconds and the
+    prefill's dropped pairs."""
     import torch
     from repro_torch.convert import map_tree, tree_items
     from repro_torch.launch import serve as S
@@ -3581,17 +3649,17 @@ def layer_holds(cfg, params, prompt, n_gen, dev, dtype, what):
     layers = [(ui, r, bi, b) for ui, unit in enumerate(cfg.units)
               for r in range(unit.repeat) for bi, b in enumerate(unit.blocks)]
     card = map_tree(lambda _p, x: x.to(dtype), params)
-    pre_rec, dec_rec, routes = [], [], []
+    pre_rec, dec_rec, routes, after = [], [], [], {}
     with compute_dtype(dtype), recording(pre_rec, None, routes):
         pre_logits = T.serve_prefill(card, cfg, prompt, plan)
     with compute_dtype(dtype), recording(None, dec_rec, None):
         dec = S.make_decode_fn(cfg, plan, B, N)[0]
         steps, cache = serve_steps(dec, card, cfg, prompt, n_gen, N, dev,
-                                   cache_dtype=dtype)
+                                   cache_dtype=dtype, saved=after)
     del card
     torch.cuda.empty_cache()
     check(len(pre_rec) == len(layers) and len(dec_rec) == len(layers) * N,
-          f"phase SERVE.MOE: {what}: recorded {len(pre_rec)} prefill and "
+          f"phase {phase}: {what}: recorded {len(pre_rec)} prefill and "
           f"{len(dec_rec)} decode blocks")
     out = dict(layers=[], routing=[], caches=[], dropped=0,
                mem_available=mem_available())
@@ -3600,11 +3668,12 @@ def layer_holds(cfg, params, prompt, n_gen, dev, dtype, what):
     aux0 = torch.zeros((), dtype=torch.float32)
     moe_i = 0
     for i, (ui, r, bi, b) in enumerate(layers):
-        bp_card = T._index(params["units"][ui], r)[f"b{bi}"]
+        bp_card = params["shared"] if b.use_shared else \
+            T._index(params["units"][ui], r)[f"b{bi}"]
         layer_bytes = sum(x.numel() for _, x in tree_items(bp_card)) \
             * torch.finfo(dtype).bits // 8
         free = mem_available()
-        check(free > layer_bytes, f"phase SERVE.MOE: {what}: layer {i}'s "
+        check(free > layer_bytes, f"phase {phase}: {what}: layer {i}'s "
               f"{layer_bytes} B of weights do not fit the host's "
               f"MemAvailable {free} B")
         h_in, h_out = pre_rec[i]
@@ -3625,7 +3694,7 @@ def layer_holds(cfg, params, prompt, n_gen, dev, dtype, what):
                                b.moe.n_experts, cap)
             same = {k: bool(torch.equal(rcpu[k], v.cpu()))
                     for k, v in rc.items()}
-            check(all(same.values()), f"phase SERVE.MOE: {what}: layer {i}'s "
+            check(all(same.values()), f"phase {phase}: {what}: layer {i}'s "
                   f"routing on the CPU given the card's gates differs: {same}")
             dropped = int((~rc["valid"]).sum())
             out["dropped"] += dropped
@@ -3634,19 +3703,31 @@ def layer_holds(cfg, params, prompt, n_gen, dev, dtype, what):
                 capacity=cap, tokens_routed_differently_by_cpu_gates=int(
                     (own["top_i"] != rc["top_i"].cpu()).any(-1).sum())))
         hd = torch.cat(dec_rec[i::len(layers)], 1).cpu()      # (B, N, d)
-        with compute_dtype(dtype):
-            x = M.norm_apply(bp["ln1"], hd)
-            npos = torch.arange(N)[None, :]
-            if b.kind == "mla":
-                _, (c1, c2) = M.mla_apply(bp, b.mla, x, npos, plan)
-                names = ("c_kv", "k_rope")
-            else:
-                _, (c1, c2) = M.attn_apply(bp, b.attn, x, npos, plan)
-                names = ("k", "v")
-        cc = T._index(cache["units"][ui], r)[f"b{bi}"]
-        out["caches"].append(dict(layer=i, leaves=names, **logit_stats(
-            [(cc[names[0]][:, :N], c1), (cc[names[1]][:, :N], c2)])))
-        del bp, y, hd, x
+        if b.kind in ("mamba", "rwkv"):
+            c = T._block_cache_init(b, B, N, cfg, dtype, "cpu")
+            with compute_dtype(dtype):
+                for t in range(P_LEN):
+                    _, c = T._block_decode(
+                        bp, b, hd[:, t:t + 1],
+                        torch.full((B,), t, dtype=torch.int32), c, plan)
+            cc = T._index(after["cache"]["units"][ui], r)[f"b{bi}"]
+            names = tuple(sorted(c))
+            out["caches"].append(dict(layer=i, leaves=names, **logit_stats(
+                [(cc[n], c[n]) for n in names])))
+        else:
+            with compute_dtype(dtype):
+                x = M.norm_apply(bp["ln1"], hd)
+                npos = torch.arange(N)[None, :]
+                if b.kind == "mla":
+                    _, (c1, c2) = M.mla_apply(bp, b.mla, x, npos, plan)
+                    names = ("c_kv", "k_rope")
+                else:
+                    _, (c1, c2) = M.attn_apply(bp, b.attn, x, npos, plan)
+                    names = ("k", "v")
+            cc = T._index(cache["units"][ui], r)[f"b{bi}"]
+            out["caches"].append(dict(layer=i, leaves=names, **logit_stats(
+                [(cc[names[0]][:, :N], c1), (cc[names[1]][:, :N], c2)])))
+        del bp, y, hd
     host = lambda x: x.to("cpu", dtype)
     with compute_dtype(dtype):
         h = M.norm_apply(map_tree(lambda _p, x: host(x),
@@ -3769,9 +3850,8 @@ def run_moe_phase(dispatch, census, captured, card, tmp, seed, timed,
         captured.clear()
         if arch == MOE_PHI:
             check_decoded_on_card(name, counts[name])
-            check(0 < len(kept) == counts[name].get("hufdec_tiles", 0),
-                  f"phase {name}: the tiled walks were not kept")
-            r["walk_shapes"] = hold_kept_walks(kept, name, timed)
+            r["walk_shapes"] = hold_kept_decodes(kept, name, counts[name],
+                                                 timed)
         del kept
         full = r.pop("full")
         holds = {}
@@ -3869,9 +3949,8 @@ def run_zoo_phase(dispatch, census, captured, card, tmp, seed, timed,
         captured.clear()
         torch.cuda.empty_cache()
         check_decoded_on_card(name, counts[name])
-        check(0 < len(kept) == counts[name].get("hufdec_tiles", 0),
-              f"phase {name}: the tiled walks were not kept")
-        r["walk_shapes"] = hold_kept_walks(kept, name, timed)
+        r["walk_shapes"] = hold_kept_decodes(kept, name, counts[name],
+                                             timed)
         del kept
         torch.cuda.empty_cache()
         r["arch_s"] = time.perf_counter() - t_arch
@@ -3897,8 +3976,183 @@ def run_zoo_phase(dispatch, census, captured, card, tmp, seed, timed,
     return counts, inputs, figs
 
 
+# phase SERVE.SSM: the SSM archs at their published widths
+SSM_RWKV, SSM_ZAMBA = "rwkv6-1.6b", "zamba2-7b"
+# parameters: rwkv6 whole (24 layers); zamba2's first unit's first repeat
+# (the shared block, 6 mamba layers, the embedding), and the whole model
+SSM_PARAMS = {SSM_RWKV: 1_465_501_696, SSM_ZAMBA: 788_088_032}
+ZAMBA_PARAMS = 6_636_442_832
+SSM_BATCH, SSM_PROMPT, SSM_GEN = 2, 256, 8
+# the CPU holds: rwkv6's first 4 layers and zamba2's restored cut, at B =
+# 2 with an 80-token prompt (two mamba chunks, the second's tail padded;
+# five WKV chunks) and 2 greedy steps: the CPU decodes each SSM layer's
+# prompt step by step
+SSM_HOLD_LAYERS, SSM_HOLD_PROMPT, SSM_HOLD_GEN = 4, 80, 2
+
+
+def cache_bytes(cfg, tokens):
+    """A sequence's decode cache at `tokens` positions, bytes (bf16 with
+    f32 SSM states), and what a K and V cache of d_model values a token
+    and layer in bf16 would take for the same layers."""
+    from repro_torch.convert import tree_items
+    from repro_torch.models import transformer as T
+    cache = T.init_cache(cfg, 1, tokens, device="meta")
+    have = sum(v.numel() * v.element_size() for k, v in tree_items(cache)
+               if k != "pos")
+    return have, 2 * cfg.n_layers * cfg.d_model * tokens * 2
+
+
+def run_ssm_phase(dispatch, census, captured, card, tmp, seed, timed,
+                  dev="cuda"):
+    """Phase SERVE.SSM: rwkv6-1.6b at its published config and full depth
+    (24 layers, d 2048, d_ff 7168, vocab 65536; 1,465,501,696 parameters)
+    drawn, saved and restored in full as bf16, then served (prefill of 2
+    x 256 tokens, the prompt teacher-forced and 8 greedy steps: logits
+    finite, pos 264); zamba2-7b at its published widths (d 3584, 112 SSM
+    heads of 64, state 64; the shared block of 32 heads x 112, d_ff
+    14336; vocab 32000): its first unit's first repeat (the shared
+    block, 6 mamba layers, the embedding; 788,088,032 parameters) saved
+    and restored in full as bf16, then the whole model (81 mamba layers
+    in units of 13 x 7 and 1 x 4 with the shared block; 6,636,442,832
+    parameters) drawn on the card, cast to bf16 and served the same way
+    (no save: 26.5 GB of f32). Each arch is a counted run of its own
+    (SERVE.SSM.<arch>); then rwkv6's first 4 layers and zamba2's
+    restored cut are held layer by layer against the port on the CPU
+    (layer_holds) in f32, to the bound, and read in bf16."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import map_tree, tree_items
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    figs, counts, inputs = {}, {}, {}
+    bf16 = torch.bfloat16
+    for arch in (SSM_RWKV, SSM_ZAMBA):
+        t_arch = time.perf_counter()
+        name = f"SERVE.SSM.{arch}"
+        full_cfg = get_arch(arch).config()
+        cfg = full_cfg if arch == SSM_RWKV else cut_units(full_cfg)
+        gen = torch.Generator(device=dev).manual_seed(seed + 17)
+        prompt = torch.randint(0, cfg.vocab_size, (SSM_BATCH, SSM_PROMPT),
+                               generator=gen, device=dev, dtype=torch.int32)
+
+        def run():
+            t0 = time.perf_counter()
+            r = save_and_restore(cfg, seed, os.path.join(tmp, name), dev,
+                                 "SERVE.SSM", SSM_PARAMS[arch])
+            secs["save_and_restore"] = time.perf_counter() - t0
+            if arch == SSM_ZAMBA:
+                t0 = time.perf_counter()
+                f32 = T.init_params(seed, full_cfg, device=dev)
+                n = sum(v.numel() for _, v in tree_items(f32))
+                check(n == ZAMBA_PARAMS == meta_count(full_cfg),
+                      f"phase SERVE.SSM: {arch}: {n} parameters drawn")
+                served = map_tree(lambda _p, x: x.to(bf16), f32)
+                del f32
+                torch.cuda.empty_cache()
+                r["served_n"] = n
+                secs["draw_and_cast"] = time.perf_counter() - t0
+            else:
+                served = r["full"]
+            t0 = time.perf_counter()
+            r.update(serve_figures(full_cfg, served, prompt, SSM_GEN, dev,
+                                   "SERVE.SSM", arch))
+            secs["serve"] = time.perf_counter() - t0
+            del served
+            return r
+
+        secs = {}
+        KEEP_CALLS.update(serve_kept_calls())
+        try:
+            r, counts[name], inputs[name] = counted_run(
+                name, run, dispatch, census, captured)
+        finally:
+            KEEP_CALLS.clear()
+        kept = inputs[name].pop("ceaz_chunk_dec.kept", [])
+        captured.clear()
+        torch.cuda.empty_cache()
+        check_decoded_on_card(name, counts[name])
+        t0 = time.perf_counter()
+        r["walk_shapes"] = hold_kept_decodes(kept, name, counts[name],
+                                             timed)
+        secs["decode_holds"] = time.perf_counter() - t0
+        del kept
+        full = r.pop("full")
+        if arch == SSM_RWKV:
+            hold_cfg, held = cut_to_first_repeat(cfg, full, SSM_HOLD_LAYERS)
+        else:
+            hold_cfg, held = cfg, full
+        hold_prompt = prompt[:, :SSM_HOLD_PROMPT]
+        holds = {}
+        for dt in (torch.float32, bf16):
+            t0 = time.perf_counter()
+            holds[str(dt).replace("torch.", "")] = layer_holds(
+                hold_cfg, held, hold_prompt, SSM_HOLD_GEN, dev, dt, arch,
+                "SERVE.SSM")
+            secs[f"holds_{dt}".replace("torch.", "")] = \
+                time.perf_counter() - t0
+        del full, held
+        torch.cuda.empty_cache()
+        f32 = holds["float32"]
+        check(f32["worst"] <= 1.0 and f32["finite"] and f32["pos"] ==
+              [SSM_HOLD_PROMPT + SSM_HOLD_GEN] * SSM_BATCH,
+              f"phase SERVE.SSM: {arch}: the card against the CPU in f32 "
+              f"past the bound (rtol {LOGIT_RTOL}, atol {LOGIT_ATOL}): "
+              f"{f32}")
+        r["holds"] = holds
+        tokens = SSM_PROMPT + SSM_GEN
+        r["cache_bytes_per_seq"], r["attention_cache_bytes_per_seq"] = \
+            cache_bytes(full_cfg, tokens)
+        r["arch_s"] = time.perf_counter() - t_arch
+        r["seconds"] = secs
+        figs[arch] = r
+        served = (f"{full_cfg.n_layers} layers as restored" if arch ==
+                  SSM_RWKV else f"the whole model, {r['served_n']} "
+                  f"parameters drawn on the card and cast to bf16 (no "
+                  f"save), {full_cfg.n_layers} layers")
+        print(f"serve phase SERVE.SSM [{card}]: {arch}, {r['n']} parameters "
+              f"saved: save {r['save_s']} s ({4 * r['n'] / 1e9 / r['save_s']}"
+              f" GB/s; less {r['save_holds_s']} s of first-sight holds), "
+              f"ratio {4 * r['n'] / r['stored']} ({r['lossy']} lossy "
+              f"leaves, {r['raw']} raw); full restore (bf16) "
+              f"{r['restore_s']} s ({4 * r['n'] / 1e9 / r['restore_s']} "
+              f"GB/s), allocated {r['restore_base']} B before it and "
+              f"{r['restore_peak']} B at its peak; tiled walks bitwise == "
+              f"plain at {r['walk_shapes']}; served {served}: bf16 prefill "
+              f"of {SSM_BATCH} x {SSM_PROMPT} tokens {r['prefill_ms']} ms "
+              f"(median of 3: {r['prefill_ms_all']}); decode "
+              f"{r['decode_ms_per_step']} ms a step (median of {SSM_GEN}: "
+              f"{r['decode_ms_all']}), {r['tokens_per_s']} tokens/s; "
+              f"{SSM_PROMPT} + {SSM_GEN} steps {r['requests_s']} s; "
+              f"allocated {r['serve_base_bytes']} B before and "
+              f"{r['serve_peak_bytes']} B at the peak; decode cache "
+              f"{r['cache_bytes_per_seq']} B a sequence at {tokens} "
+              f"tokens, against {r['attention_cache_bytes_per_seq']} B for "
+              f"a bf16 K and V cache of d_model a token and layer; "
+              f"{r['arch_s']:.1f} s with the CPU holds, of which {secs}")
+        for dt, h in holds.items():
+            print(f"serve phase SERVE.SSM: {arch} card against the CPU "
+                  f"({hold_cfg.n_layers} layers, {SSM_BATCH} x "
+                  f"{SSM_HOLD_PROMPT} + {SSM_HOLD_GEN} tokens), compute {dt}"
+                  f", ratios to the bound (rtol {LOGIT_RTOL}, atol "
+                  f"{LOGIT_ATOL}){' (held)' if dt == 'float32' else ' (read; no limit)'}: "
+                  f"layers {[(x['layer'], x['kind'], x['mlp'], x['ratio'], x['over']) for x in h['layers']]}; "
+                  f"caches {[(x['layer'], x['leaves'], x['ratio']) for x in h['caches']]}; "
+                  f"logits {h['logits']}; MemAvailable {h['mem_available']} "
+                  f"B before the holds; the process's peak RSS "
+                  f"{h['host_peak_rss']} B; cpu {h['cpu_s']:.1f} s")
+    figs["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase SERVE.SSM: restored leaves within eb range + half a bf16 "
+          f"ulp, tiled walks bitwise, every other kernel call bitwise at "
+          f"the first sight of its key, bf16 logits finite, pos "
+          f"{SSM_PROMPT + SSM_GEN}, f32 layers, caches and logits within "
+          f"the bound: True (phase {figs['phase_s']:.1f} s) "
+          f"launches={counts}")
+    return counts, inputs, figs
+
+
 def zoo_kernel_rows(timed, rows):
-    """Row 4 at the walk shapes phases SERVE.MOE and SERVE.ZOO gave it
+    """Row 4 at the walk shapes phases SERVE.MOE, SERVE.ZOO and SERVE.SSM
+    gave it
     (hold_kept_walks) and no earlier phase did: one case a (C, NB, bs),
     timed (plain versions held, not timed)."""
     cuda, plain = walk_fns("hufdec_tiles")
@@ -3992,13 +4246,17 @@ PHASES = (
     # the staged route (use_fused=False, backend 'torch')
     ("T.A", "cesm", dict(use_fused=False)),
     ("T.E", "nwchem", dict(use_fused=False, eb=1e-3, predictor="none")),
-    ("T.G", "hacc", dict(use_fused=False, mode="fixed_ratio",
-                         target_ratio=10.0, chunk_bytes=1 << 17)),
+    ("T.G", "hacc_tg", dict(use_fused=False, mode="fixed_ratio",
+                            target_ratio=10.0, chunk_bytes=1 << 17)),
 )
+# T.G's field: the HACC field's first 2^21 values (64 chunks of 2^15; its
+# staged host decode and CPU run take ~1 s a chunk of the run's time)
+T_G_VALUES = 1 << 21
 
 
 def main():
     import argparse
+    import numpy as np
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -4041,6 +4299,7 @@ def main():
     check(fields["cesm"].shape == (1800, 3600)
           and fields["hacc"].shape == (1 << 23,)
           and fields["nwchem"].shape == (1 << 23,), "unexpected phase shapes")
+    fields["hacc_tg"] = np.ascontiguousarray(fields["hacc"][:T_G_VALUES])
     counts, inputs, thr, streams, kws = {}, {}, {}, {}, {}
     for name, field, kw in PHASES:
         kws[name] = {"mode": "rel", "eb": 1e-4, **kw}
@@ -4056,7 +4315,7 @@ def main():
     fused_kw = {k: v for k, v in kws["T.G"].items() if k != "use_fused"}
     assert_same_stream(streams["T.G"][0], CEAZ(
         CEAZConfig(device="cuda", **fused_kw), offline_codebook=offline)
-        .compress(fields["hacc"]), "phase T.G vs the fused route")
+        .compress(fields["hacc_tg"]), "phase T.G vs the fused route")
     print("staged streams == fused streams (T.A == A, T.E == E.exact, T.G "
           "== fused at its settings) on the card: True")
     c, i, t = run_batch_phases(fields["hacc"], offline, dispatch, CEAZ,
@@ -4114,10 +4373,12 @@ def main():
         # the serving path: gemma3-1b saved, restored and served
         counts["SERVE"], inputs["SERVE"], serve = run_serve_phase(
             dispatch, census, captured, card, tmp, args.seed)
-        # the MoE and MLA archs, then the other attention archs' tables
+        # the MoE and MLA archs, the other attention archs' tables, then
+        # the SSM archs
         walks, serve_new = {}, {}
         for phase, run_new in (("SERVE.MOE", run_moe_phase),
-                               ("SERVE.ZOO", run_zoo_phase)):
+                               ("SERVE.ZOO", run_zoo_phase),
+                               ("SERVE.SSM", run_ssm_phase)):
             c2, i2, serve_new[phase] = run_new(
                 dispatch, census, captured, card, tmp, args.seed, walks)
             counts.update(c2)

@@ -4,8 +4,9 @@ shardings, and the startup restore of a compressed checkpoint.
 
 Decode-time placement (the reference's specs): KV/cache SEQUENCE dims
 are sharded over the model axis (context parallelism), batch over the
-DP axes; for a batch smaller than the DP size the cache sequence shards
-over (data, model) jointly and batch stays replicated. The port places
+DP axes; SSM states shard heads over model. For a batch smaller than
+the DP size the cache sequence shards over (data, model) jointly and
+batch stays replicated. The port places
 on a mesh that spans one device; a mesh over several raises
 NotImplementedError (ROADMAP Queue 1 item 5c).
 
@@ -71,6 +72,22 @@ def cache_shardings(cache, plan: ShardingPlan, batch_sharded: bool = True):
             parts[-3] = bat
             if shape[-2] % msize == 0:
                 parts[-2] = plan.model_axis
+            return P(*parts)
+        if name == "conv":                   # (R, B, K-1, C) mamba
+            parts = [None] * nd
+            parts[-3] = bat
+            if shape[-1] % msize == 0:
+                parts[-1] = plan.model_axis
+            return P(*parts)
+        if name == "state":                  # (R, B, H, P, N|P) SSM state
+            parts = [None] * nd
+            parts[-4] = bat
+            if shape[-3] % msize == 0:
+                parts[-3] = plan.model_axis
+            return P(*parts)
+        if name in ("sx", "sx_cmix"):        # (R, B, d) rwkv token shifts
+            parts = [None] * nd
+            parts[-2] = bat
             return P(*parts)
         return P(*([None] * nd))
 

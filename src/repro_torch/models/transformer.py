@@ -11,13 +11,15 @@ nothing to do at inference. Heterogeneous schedules (gemma3's 5 local :
 
 Block kinds: 'attn' (GQA/MQA, optional sliding window / qk-norm /
 M-RoPE / cross-attention), 'mla' (DeepSeek latent attention, decoding
-from its compressed cache). MLP kinds: 'dense', 'moe' (token-choice
-top-k on one device), 'none'. The kinds 'mamba', 'rwkv' and the MLP
-kind 'rwkv_cmix' raise NotImplementedError (ROADMAP Queue 1 item 5b).
+from its compressed cache), 'mamba' (SSD), 'rwkv' (RWKV-6). MLP kinds:
+'dense', 'moe' (token-choice top-k on one device), 'rwkv_cmix',
+'none'. A block with ``use_shared`` (zamba2's shared block) reads
+``params['shared']`` and keeps a cache of its own at every insertion.
 
 Decode caches: windowed attention layers use RING buffers (window
 slots, not context slots), taken only when the cache was sized to the
-window.
+window; the SSM blocks keep a fixed-size state (mamba's conv window and
+SSD state, rwkv's token shifts and WKV state), new tensors every step.
 """
 from __future__ import annotations
 
@@ -28,14 +30,10 @@ import torch
 
 from ..runtime.fused import target_device
 from ..runtime.sharding import ShardingPlan
+from . import mamba2 as M2
 from . import modules as mod
+from . import rwkv6 as R6
 from .modules import AttnConfig, MLAConfig, MoEConfig
-
-
-def _unported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP Queue 1 item "
-        "5b: mamba2, the shared block and rwkv6 with their two archs)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,8 +41,8 @@ class BlockSpec:
     kind: str                                # attn | mla | mamba | rwkv
     attn: Optional[AttnConfig] = None
     mla: Optional[MLAConfig] = None
-    mamba: Optional[Any] = None              # Mamba2Config (item 5b)
-    rwkv: Optional[Any] = None               # RWKV6Config (item 5b)
+    mamba: Optional[M2.Mamba2Config] = None
+    rwkv: Optional[R6.RWKV6Config] = None
     mlp_kind: str = "dense"                  # dense | moe | rwkv_cmix | none
     d_ff: int = 0
     moe: Optional[MoEConfig] = None
@@ -133,8 +131,10 @@ def _block_init(key, b: BlockSpec, d_model: int):
         p.update(mod.attn_init(key, b.attn))
     elif b.kind == "mla":
         p.update(mod.mla_init(key, b.mla))
-    elif b.kind in ("mamba", "rwkv"):
-        _unported(f"block kind {b.kind!r}")
+    elif b.kind == "mamba":
+        p.update(M2.mamba2_init(key, b.mamba))
+    elif b.kind == "rwkv":
+        p.update(R6.rwkv6_init(key, b.rwkv))
     else:
         raise ValueError(b.kind)
     if b.cross_attn:
@@ -149,7 +149,7 @@ def _block_init(key, b: BlockSpec, d_model: int):
         elif b.mlp_kind == "moe":
             p.update(mod.moe_init(key, b.moe))
         elif b.mlp_kind == "rwkv_cmix":
-            _unported(f"MLP kind {b.mlp_kind!r}")
+            p.update(R6.rwkv6_cmix_init(key, b.rwkv))
         else:
             raise ValueError(b.mlp_kind)
         if b.post_norms:
@@ -202,8 +202,12 @@ def _block_apply(bp, b: BlockSpec, h, positions, plan, aux, memory,
         y, _ = mod.attn_apply(bp, b.attn, x, positions, plan, q_offset)
     elif b.kind == "mla":
         y, _ = mod.mla_apply(bp, b.mla, x, positions, plan, q_offset)
+    elif b.kind == "mamba":
+        y, _ = M2.mamba2_apply(bp, b.mamba, x, plan)
+    elif b.kind == "rwkv":
+        y, _ = R6.rwkv6_apply(bp, b.rwkv, x, plan)
     else:
-        _unported(f"block kind {b.kind!r}")
+        raise ValueError(b.kind)
     if b.post_norms:
         y = mod.norm_apply(bp["ln1_post"], y)
     h = h + y
@@ -219,8 +223,10 @@ def _block_apply(bp, b: BlockSpec, h, positions, plan, aux, memory,
     elif b.mlp_kind == "moe":
         y2, a = mod.moe_apply(bp, b.moe, x2, plan)
         aux = aux + a
+    elif b.mlp_kind == "rwkv_cmix":
+        y2, _ = R6.rwkv6_cmix_apply(bp, b.rwkv, x2, plan)
     else:
-        _unported(f"MLP kind {b.mlp_kind!r}")
+        raise ValueError(b.mlp_kind)
     if b.post_norms:
         y2 = mod.norm_apply(bp["ln2_post"], y2)
     return h + y2, aux
@@ -295,8 +301,12 @@ def _block_cache_init(b: BlockSpec, batch: int, cache_len: int, cfg,
     if b.kind == "mla":
         return {"c_kv": zeros(batch, cache_len, b.mla.kv_lora),
                 "k_rope": zeros(batch, cache_len, b.mla.qk_rope)}
+    if b.kind == "mamba":
+        return M2.mamba2_cache_init(b.mamba, batch, dtype, device, lead)
+    if b.kind == "rwkv":
+        return R6.rwkv6_cache_init(b.rwkv, batch, dtype, device, lead)
     if b.kind != "attn":
-        _unported(f"the decode cache of block kind {b.kind!r}")
+        raise ValueError(b.kind)
     L = _cache_len_for(b, cache_len)
     K, D = b.attn.n_kv_heads, b.attn.head_dim
     c = {"k": zeros(batch, L, K, D), "v": zeros(batch, L, K, D)}
@@ -368,8 +378,15 @@ def _block_decode(bp, b: BlockSpec, h, pos, cache, plan):
     x = mod.norm_apply(bp["ln1"], h)
     if b.kind == "mla":
         y, nc = mod.mla_decode(bp, b.mla, x, pos, cache, plan)
+    elif b.kind == "mamba":
+        y, nc = M2.mamba2_decode(bp, b.mamba, x, cache, plan)
+    elif b.kind == "rwkv":
+        y, nc = R6.rwkv6_decode(bp, b.rwkv, x,
+                                {"sx": cache["sx"], "state": cache["state"]},
+                                plan)
+        nc = {**cache, **nc}
     elif b.kind != "attn":
-        _unported(f"block kind {b.kind!r}")
+        raise ValueError(b.kind)
     # the ring only when the cache was sized to the window
     elif b.attn.window is not None and cache["k"].shape[1] < 1 << 30 \
             and cache["k"].shape[1] <= b.attn.window:
@@ -401,8 +418,12 @@ def _block_decode(bp, b: BlockSpec, h, pos, cache, plan):
         y2 = mod.mlp_apply(bp, x2, plan, b.act)
     elif b.mlp_kind == "moe":
         y2, _ = mod.moe_apply(bp, b.moe, x2, plan)
+    elif b.mlp_kind == "rwkv_cmix":
+        y2, last = R6.rwkv6_cmix_apply(bp, b.rwkv, x2, plan,
+                                       last=cache.get("sx_cmix"))
+        nc = {**nc, "sx_cmix": last}
     else:
-        _unported(f"MLP kind {b.mlp_kind!r}")
+        raise ValueError(b.mlp_kind)
     if b.post_norms:
         y2 = mod.norm_apply(bp["ln2_post"], y2)
     return h + y2, nc

@@ -1301,3 +1301,42 @@ def test_reduced_moe_serving_on_card_matches_cpu(dev, arch):
     for k, v in tree_items(gc):
         close(v, want[k])
     assert gc["pos"].tolist() == [12, 12]
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b"])
+def test_reduced_ssm_serving_on_card_matches_cpu(dev, arch):
+    """The reduced SSM archs on the card against the port on the CPU,
+    the compute dtype f32 on both: prefill of 32 tokens (rwkv6's chunked
+    WKV needs a multiple of 16; zamba2's one chunk of 64 pads its tail),
+    then 32 teacher-forced decode steps and the final
+    caches (conv, state, sx, sx_cmix, the shared block's k and v) within
+    the bound (rtol 0.06, atol 0.05)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import map_tree, tree_items
+    from repro_torch.models import modules as M
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.sharding import ShardingPlan
+    cfg, plan = get_arch(arch).reduced(), ShardingPlan(mesh=None)
+    cpu = T.init_params(0, cfg, device="cpu")
+    card = map_tree(lambda _k, v: v.to(dev), cpu)
+    toks = torch.randint(0, cfg.vocab_size, (2, 32),
+                         generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    close = lambda a, b: np.testing.assert_allclose(
+        a.float().cpu().numpy(), b.float().numpy(), rtol=0.06, atol=0.05)
+    old, M.COMPUTE_DTYPE = M.COMPUTE_DTYPE, torch.float32
+    try:
+        close(T.serve_prefill(card, cfg, toks.to(dev), plan),
+              T.serve_prefill(cpu, cfg, toks, plan))
+        gc = T.init_cache(cfg, 2, 32, torch.float32, device=dev)
+        cc = T.init_cache(cfg, 2, 32, torch.float32, device="cpu")
+        for t in range(32):
+            lg, gc = T.serve_decode(card, cfg, toks[:, t].to(dev), gc, plan)
+            lc, cc = T.serve_decode(cpu, cfg, toks[:, t], cc, plan)
+            close(lg, lc)
+    finally:
+        M.COMPUTE_DTYPE = old
+    want = dict(tree_items(cc))
+    for k, v in tree_items(gc):
+        close(v, want[k])
+    assert gc["pos"].tolist() == [32, 32]

@@ -87,6 +87,15 @@ def test_import_leaves_jax_and_reference_out():
             "dtype=torch.int32), ShardingPlan()).shape == (2, cfg.vocab_size)\n"
             "logits, _ = T.serve_decode(p, cfg, torch.zeros(2, dtype=torch.int32), "
             "T.init_cache(cfg, 2, 8, device='cpu'), ShardingPlan())\n"
+            # the SSM archs: zamba2 (mamba2, the shared block), rwkv6
+            "for a in ('zamba2-7b', 'rwkv6-1.6b'):\n"
+            "    cfg = get_arch(a).reduced()\n"
+            "    p = T.init_params(0, cfg, device='cpu')\n"
+            "    assert T.serve_prefill(p, cfg, torch.zeros((2, 16), "
+            "dtype=torch.int32), ShardingPlan()).shape == (2, cfg.vocab_size)\n"
+            "    logits, _ = T.serve_decode(p, cfg, torch.zeros(2, "
+            "dtype=torch.int32), T.init_cache(cfg, 2, 8, device='cpu'), "
+            "ShardingPlan())\n"
             "from repro_torch.core import compress, decompress, dequantize\n"
             "assert decompress(compress(x, device='cpu'), device='cpu').shape "
             "== x.shape\n"

@@ -232,18 +232,14 @@ def test_paged_and_mesh_restores_match_full(ckpts):
         S.restore_serving_params(d_ref, two, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "phi3.5-moe-42b-a6.6b"])
-def test_moe_mla_checkpoints_restore_across_packages(tmp_path, arch):
-    """A reduced MoE arch's checkpoint (the 4-D stacked expert weights,
-    the shared expert, the latent projections) saved by each package
-    restores through the other with the same bf16 bits, and the port's
-    init has the reference's leaves."""
+def _restore_across_packages(tmp_path, arch):
+    """A reduced arch's checkpoint saved by each package restores through
+    the other with the same bf16 bits; the port's init has the
+    reference's leaves. -> the port's leaf paths and shapes."""
     rcfg = ref_arch(arch).reduced()
     rp = jax.device_get(RT.init_params(jax.random.key(7), rcfg))
     got = T.init_params(0, get_arch(arch).reduced(), device="cpu")
     assert _shapes(got) == _shapes(rp)
-    assert any(k.endswith("moe/wi") and len(v.shape) == 4
-               for k, v in CV.tree_items(got))
     d_ref, d_port = str(tmp_path / "ref"), str(tmp_path / "port")
     RC.save_checkpoint(d_ref, rp, 1)
     flat = CV.tree_from_reference(rp, "cpu")
@@ -255,6 +251,32 @@ def test_moe_mla_checkpoints_restore_across_packages(tmp_path, arch):
                                               device="cpu")
         assert meta == rmeta == {"step": step}
         _same_bits(port, ref)
+    return {k: tuple(v.shape) for k, v in CV.tree_items(got)}
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "phi3.5-moe-42b-a6.6b"])
+def test_moe_mla_checkpoints_restore_across_packages(tmp_path, arch):
+    """A reduced MoE arch's checkpoint (the 4-D stacked expert weights,
+    the shared expert, the latent projections) saved by each package
+    restores through the other with the same bf16 bits, and the port's
+    init has the reference's leaves."""
+    leaves = _restore_across_packages(tmp_path, arch)
+    assert any(k.endswith("moe/wi") and len(s) == 4
+               for k, s in leaves.items())
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b"])
+def test_ssm_checkpoints_restore_across_packages(tmp_path, arch):
+    """The same for the SSM archs: the ssm/ and ssm_cmix/ leaves (rwkv6's
+    4-D lora_w2, mamba2's a_log), and zamba2's params['shared']."""
+    leaves = _restore_across_packages(tmp_path, arch)
+    assert any("/ssm/" in k for k in leaves)
+    if arch == "zamba2-7b":
+        assert any(k.startswith("shared/") for k in leaves)
+        assert "units/0/b1/ssm/a_log" in leaves
+    else:
+        assert len(leaves["units/0/b0/ssm/lora_w2"]) == 4
+        assert any("/ssm_cmix/" in k for k in leaves)
 
 
 def test_restore_without_a_checkpoint(tmp_path, capsys):
