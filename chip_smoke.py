@@ -197,39 +197,68 @@ through the public facade, at rel eb 1e-4 unless said otherwise:
            logits within the bound, each MoE layer's routing on the CPU
            given the card's gates bitwise (top-k ids and weights, order,
            counts, slots, drop mask), and the tokens the CPU's own gates
-           route otherwise counted; the same in bf16, printed with no
-           limit. Each arch is a counted run of its own
-           (SERVE.MOE.<arch>);
+           route otherwise counted (the same in bf16, printed with no
+           limit, until phase TRAIN came, cut for the run's time). Each arch
+           is a counted run of its own (SERVE.MOE.<arch>);
   SERVE.ZOO gemma3-4b, gemma-7b, glm4-9b, qwen2-vl-7b and whisper-base at
-           their published widths, depth cut to the first unit's first
-           repeat, each with its full vocabulary and embedding (gemma-7b's
+           their published widths, depth cut to the first layer
+           (gemma3-4b's first repeat of 6 until phase TRAIN came, cut for
+           the run's time; the other four have one layer a repeat), each
+           with its full vocabulary and embedding (gemma-7b's
            786 M-value table the largest the codec decodes here): saved,
            restored in full as bf16 (seconds and peak allocated), every
            leaf within its bound and every tiled walk bitwise, then a
            prefill of 2 x 64 tokens, the prompt teacher-forced and 4
            greedy steps with finite logits (counted runs
            SERVE.ZOO.<arch>);
-  SERVE.SSM the SSM archs at their published widths: rwkv6-1.6b whole
-           (24 layers, d 2048, d_ff 7168, vocab 65536; 1,465,501,696
-           parameters) saved, restored in full as bf16 and served, and
+  SERVE.SSM the SSM archs at their published widths: rwkv6-1.6b's
+           first 4 of its 24 layers (d 2048, d_ff 7168, vocab 65536;
+           356,100,096 parameters; all 24 until phase TRAIN came, cut for
+           the run's time) saved, restored in full as bf16 and served, and
            zamba2-7b's first unit's first repeat (the shared attention
            block, 6 mamba2 layers of 112 heads, state 64, the embedding;
-           788,088,032 parameters) saved and restored, then the whole
+           788,088,032 parameters; its restore launches the decode
+           megakernel) saved and restored, then the whole
            zamba2 (81 mamba2 layers in units of 13 x 7 and 1 x 4 with
            the shared block; 6,636,442,832 parameters) drawn on the card
-           as bf16 and served: each a prefill of 2 x 256 tokens, the
-           prompt teacher-forced and 8 greedy steps (logits finite, pos
-           264), every restored leaf within its bound and every tiled
-           walk bitwise. Then rwkv6's first 4 layers and zamba2's
-           restored cut are held layer by layer against the port on the
+           as bf16 and served: a prefill of 2 x 80 tokens, zamba2's whole
+           model 2 x 32 (both 256 until phase TRAIN came, cut for the
+           run's time), the prompt teacher-forced and 8 greedy steps
+           (logits finite),
+           every restored leaf within its bound and every decode call of
+           the restores bitwise. Then rwkv6's first 2 layers and the
+           first two blocks of zamba2's restored cut (4 layers and the
+           whole cut until phase TRAIN came) are held layer by layer
+           against the port on the
            CPU as SERVE.MOE's are (2 x 80 tokens and 2 steps; an SSM
            layer's conv, state, sx and sx_cmix after the prompt against
            the CPU's own teacher-forced decode of the layer's recorded
-           inputs), f32 to the bound and bf16 read. Prints the save and
+           inputs), f32 to the bound. Prints the save and
            restore seconds, GB/s and peaks, prefill ms, decode ms a step,
            tokens/s and the decode cache's bytes a sequence beside a
            bf16 K and V cache's (counted runs SERVE.SSM.<arch>). Row 4
            gets a timed case at each walk shape these three phases add.
+  TRAIN    the training path: gemma3-1b at its published widths and full
+           depth (999,885,952 parameters, f32, bf16 AdamW moments) drawn
+           by ``launch.train``'s init_state on the card and trained by
+           ``launch.train.main`` for 6 steps of ``batch_for_step`` data
+           at B = 2, S = 2048 (bf16 compute, remat 'block', the flash
+           backward, ``chunked_xent``), the whole state checkpointed
+           compressed at steps 3 and 6; step 3's checkpoint alone resumed
+           by ``main --resume`` (restored on the card) for steps 4-6
+           again, which checkpoint step 6 once more:
+           losses finite, step 0's within (0.5 ln V, 3 ln V), grad norms
+           finite and > 0, the resumed batches bitwise, the restored
+           state within the checkpoint's rel 5e-4 (raw leaves bitwise)
+           and some of its leaves bitwise the CPU's decode, every restore
+           walk bitwise; the first repeat's loss and gradients on the card
+           against the CPU in f32, and the flash backward at the model's
+           attention shapes against the CPU and a naive f32 attention,
+           to one bf16 rounding (2^-7 relative L2). Prints step ms, a
+           profiled step's device ms and idle share, tokens/s, the peak
+           allocated with remat 'block' and 'none', the save and restore
+           seconds, GB/s and ratio (counted run TRAIN; its codec calls
+           held at first sight as the SERVE.* phases' are).
 
 Each phase is run with the kernels' launch counts set to 0 just before
 and read just after, and must launch every kernel of its path. Phases P
@@ -400,17 +429,23 @@ PHASE_KERNELS = {
     # the other attention archs' full-vocabulary saves and restores
     **{f"SERVE.ZOO.{a}": ("gather_pack_tiled",) for a in (
         "gemma3-4b", "gemma-7b", "glm4-9b", "qwen2-vl-7b", "whisper-base")},
-    # the SSM archs: rwkv6 whole and zamba2's first repeat saved and
-    # restored; zamba2's whole model is drawn on the card
+    # the SSM archs: rwkv6's first 4 layers and zamba2's first repeat
+    # saved and restored (zamba2's restore must also launch the decode
+    # megakernel: SSM_ALSO); zamba2's whole model is drawn on the card
     **{f"SERVE.SSM.{a}": ("gather_pack_tiled",) for a in (
         "rwkv6-1.6b", "zamba2-7b")},
+    # training: the checkpoints of the whole state encode as K's do; the
+    # resume decodes (the walk by chunk length)
+    "TRAIN": ("gather_pack_tiled",),
 }
-# the serving phases after SERVE keep no kernel arguments (a kept
-# (C, 2^20) group is GBs, and five archs' groups would not fit beside
-# them on the card): each call there is held bitwise against its plain
-# version when its (phase, wrapper, key) is first seen (Sight), in row
-# slices of at most SIGHT_VALUES values, and its arguments dropped
-SIGHT_PHASES = tuple(p for p in PHASE_KERNELS if p.startswith("SERVE."))
+# the serving phases after SERVE and the training phase keep no kernel
+# arguments (a kept (C, 2^20) group is GBs, and five archs' groups would
+# not fit beside them on the card): each call there is held bitwise
+# against its plain version when its (phase, wrapper, key) is first seen
+# (Sight), in row slices of at most SIGHT_VALUES values, and its
+# arguments dropped
+SIGHT_PHASES = tuple(p for p in PHASE_KERNELS
+                     if p.startswith(("SERVE.", "TRAIN")))
 SIGHT_VALUES = 1 << 26
 # dispatch ops held at first sight beside the censuses' wrappers (rows
 # 3, 9 and 13 are held in theirs): op -> the indices of its arguments
@@ -1578,15 +1613,19 @@ def gemma_leaf_shapes():
     return {k: v.shape for k, v in tree_items(tree)}
 
 
-def device_breakdown(name, fn, top=5):
+def device_breakdown(name, fn, top=5, host_ops=True):
     """One call of fn under torch.profiler: wall ms (host clock, ending in
     a sync), the summed device time of its kernels, the device's idle
-    share of the wall time, and the kernels with the most device time."""
+    share of the wall time, and the kernels with the most device time.
+    ``host_ops=False`` records the device's activity alone (a train
+    step's ~10^5 host ops would slow the call and the profiler's
+    report)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if host_ops else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3055,19 +3094,24 @@ def check_restored_leaves(restored, saved, manifest, eb, phase="SERVE"):
     return n_lossy, n_raw
 
 
-def cut_to_first_repeat(cfg, params, repeats=1):
-    """(cfg, params) of the first unit's first `repeats` repeats, the
-    embedding, the final norm and a shared block's params (zamba2's
-    ``params['shared']``), as views of `params`."""
-    import dataclasses
+def cut_to_first_repeat(cfg, params, repeats=1, blocks=None):
+    """(cfg, params) of the first unit's first `repeats` repeats (and,
+    where given, its first `blocks` blocks), the embedding, the final
+    norm and a shared block's params (zamba2's ``params['shared']``), as
+    views of `params`."""
     from repro_torch.convert import map_tree
-    unit = dataclasses.replace(cfg.units[0], repeat=repeats)
+    cut_cfg = cut_units(cfg, repeat=repeats, blocks=blocks)
+    unit = params["units"][0]
+    # a block with no params of its own (zamba2's shared block) has no
+    # entry in a restored tree
+    kept = [f"b{i}" for i in range(len(cut_cfg.units[0].blocks))
+            if f"b{i}" in unit]
     cut = {"embed": params["embed"], "final_norm": params["final_norm"],
            "units": [map_tree(lambda _p, x: x[:repeats],
-                              params["units"][0])]}
+                              {b: unit[b] for b in kept})]}
     if "shared" in params:
         cut["shared"] = params["shared"]
-    return dataclasses.replace(cfg, units=(unit,)), cut
+    return cut_cfg, cut
 
 
 @contextlib.contextmanager
@@ -3423,7 +3467,7 @@ def run_serve_phase(dispatch, census, captured, card, tmp, seed, dev="cuda"):
 
 
 # phases SERVE.MOE and SERVE.ZOO: the MoE and MLA archs at their published
-# widths (depth cut), and the five other attention archs' full-vocabulary
+# widths (depth cut), and four other attention archs' full-vocabulary
 # tables through save and restore
 MOE_PHI, MOE_DS = "phi3.5-moe-42b-a6.6b", "deepseek-v2-236b"
 # parameters of the cuts (a meta init of each cut config): phi3.5's first
@@ -3433,18 +3477,23 @@ MOE_UNITS = {MOE_PHI: 1, MOE_DS: 2}
 MOE_BATCH, MOE_PROMPT, MOE_GEN = 2, 256, 8
 ZOO_ARCHS = ("gemma3-4b", "gemma-7b", "glm4-9b", "qwen2-vl-7b",
              "whisper-base")
-# the first unit's first repeat, with the full vocabulary and embedding
-ZOO_PARAMS = {"gemma3-4b": 1_237_386_752, "gemma-7b": 1_063_265_280,
+# the first layer, with the full vocabulary and embedding (gemma3-4b's
+# first repeat of 6, 1,237,386,752 parameters, until phase TRAIN came,
+# cut for the run's time: its blocks are gemma3-1b's, which SERVE and
+# TRAIN run at full depth)
+ZOO_PARAMS = {"gemma3-4b": 765_473_792, "gemma-7b": 1_063_265_280,
               "glm4-9b": 824_717_312, "qwen2-vl-7b": 778_054_144,
               "whisper-base": 50_461_696}
 ZOO_BATCH, ZOO_PROMPT, ZOO_GEN = 2, 64, 4
 
 
-def cut_units(cfg, n_units=1):
-    """`cfg` with its first `n_units` units, each cut to one repeat."""
+def cut_units(cfg, n_units=1, repeat=1, blocks=None):
+    """`cfg` with its first `n_units` units, each cut to `repeat` repeats
+    and, where given, to its first `blocks` blocks."""
     import dataclasses
     return dataclasses.replace(cfg, units=tuple(
-        dataclasses.replace(u, repeat=1) for u in cfg.units[:n_units]))
+        dataclasses.replace(u, repeat=repeat, blocks=u.blocks[:blocks])
+        for u in cfg.units[:n_units]))
 
 
 def meta_count(cfg):
@@ -3807,8 +3856,7 @@ def run_moe_phase(dispatch, census, captured, card, tmp, seed, timed,
     shared; vocab 102400; 4,834,391,040 parameters) drawn on the card and
     cast to bf16, no save or restore, served the same way through the
     absorbed MLA cache. Each is then held layer by layer against the
-    port on the CPU (layer_holds) in f32, to the bound, and read in
-    bf16."""
+    port on the CPU (layer_holds) in f32, to the bound."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.convert import map_tree, tree_items
@@ -3855,7 +3903,7 @@ def run_moe_phase(dispatch, census, captured, card, tmp, seed, timed,
         del kept
         full = r.pop("full")
         holds = {}
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in (torch.float32,):
             holds[str(dt).replace("torch.", "")] = layer_holds(
                 cfg, full, prompt, MOE_GEN, dev, dt, arch)
         del full
@@ -3913,8 +3961,8 @@ def run_moe_phase(dispatch, census, captured, card, tmp, seed, timed,
 def run_zoo_phase(dispatch, census, captured, card, tmp, seed, timed,
                   dev="cuda"):
     """Phase SERVE.ZOO: gemma3-4b, gemma-7b, glm4-9b, qwen2-vl-7b and
-    whisper-base at their published widths, depth cut to the first
-    unit's first repeat, each with its full vocabulary and embedding:
+    whisper-base at their published widths, depth cut to the first layer,
+    each with its full vocabulary and embedding:
     saved, restored in full as bf16 (seconds and peak allocated; every
     leaf within its bound; every tiled walk bitwise), then a prefill of
     2 x 64 tokens, the prompt teacher-forced and 4 greedy steps with
@@ -3926,7 +3974,7 @@ def run_zoo_phase(dispatch, census, captured, card, tmp, seed, timed,
     for arch in ZOO_ARCHS:
         t_arch = time.perf_counter()
         name = f"SERVE.ZOO.{arch}"
-        cfg = cut_units(get_arch(arch).config())
+        cfg = cut_units(get_arch(arch).config(), blocks=1)
         gen = torch.Generator(device=dev).manual_seed(seed + 13)
         prompt = torch.randint(0, cfg.vocab_size, (ZOO_BATCH, ZOO_PROMPT),
                                generator=gen, device=dev, dtype=torch.int32)
@@ -3978,16 +4026,33 @@ def run_zoo_phase(dispatch, census, captured, card, tmp, seed, timed,
 
 # phase SERVE.SSM: the SSM archs at their published widths
 SSM_RWKV, SSM_ZAMBA = "rwkv6-1.6b", "zamba2-7b"
-# parameters: rwkv6 whole (24 layers); zamba2's first unit's first repeat
-# (the shared block, 6 mamba layers, the embedding), and the whole model
-SSM_PARAMS = {SSM_RWKV: 1_465_501_696, SSM_ZAMBA: 788_088_032}
+# parameters: rwkv6's first 4 of its 24 layers (all 24, 1,465,501,696
+# parameters, until phase TRAIN came, cut for the run's time); zamba2's
+# first unit's first repeat (the shared block, 6 mamba layers, the
+# embedding), and the whole model
+SSM_RWKV_LAYERS = 4
+SSM_PARAMS = {SSM_RWKV: 356_100_096, SSM_ZAMBA: 788_088_032}
 ZAMBA_PARAMS = 6_636_442_832
-SSM_BATCH, SSM_PROMPT, SSM_GEN = 2, 256, 8
-# the CPU holds: rwkv6's first 4 layers and zamba2's restored cut, at B =
-# 2 with an 80-token prompt (two mamba chunks, the second's tail padded;
-# five WKV chunks) and 2 greedy steps: the CPU decodes each SSM layer's
-# prompt step by step
-SSM_HOLD_LAYERS, SSM_HOLD_PROMPT, SSM_HOLD_GEN = 4, 80, 2
+# the requests: 80 prompt tokens (two mamba chunks, the second's tail
+# padded; five WKV chunks) and 8 greedy ones (256 + 8 until phase TRAIN
+# came, cut for the run's time)
+SSM_BATCH, SSM_PROMPT, SSM_GEN = 2, 80, 8
+# zamba2's whole model serves the prompt's first 32 tokens (one mamba
+# chunk, padded; 80 + 8 until phase TRAIN came, cut for the run's time)
+ZAMBA_SERVE_PROMPT = 32
+# the CPU holds: rwkv6's first 2 layers (4 until phase TRAIN came) and
+# the first 2 blocks of zamba2's restored cut (the shared block and a
+# mamba layer; the whole cut until phase TRAIN came), at B = 2 with an
+# 80-token prompt (two mamba chunks, the second's tail padded; five WKV
+# chunks) and 2 greedy steps: the CPU decodes each SSM layer's prompt
+# step by step
+SSM_HOLD_LAYERS, SSM_HOLD_BLOCKS = 2, 2
+SSM_HOLD_PROMPT, SSM_HOLD_GEN = 80, 2
+# kernels a counted run must launch beyond PHASE_KERNELS: zamba2's small
+# leaves decode in the decode megakernel, the one model path that
+# launches it (held by hold_kept_decodes; these phases keep no inputs
+# for the kernel rows, which take their phases from PHASE_KERNELS)
+SSM_ALSO = {SSM_ZAMBA: ("ceaz_chunk_dec_fused",)}
 
 
 def cache_bytes(cfg, tokens):
@@ -4004,21 +4069,22 @@ def cache_bytes(cfg, tokens):
 
 def run_ssm_phase(dispatch, census, captured, card, tmp, seed, timed,
                   dev="cuda"):
-    """Phase SERVE.SSM: rwkv6-1.6b at its published config and full depth
-    (24 layers, d 2048, d_ff 7168, vocab 65536; 1,465,501,696 parameters)
-    drawn, saved and restored in full as bf16, then served (prefill of 2
-    x 256 tokens, the prompt teacher-forced and 8 greedy steps: logits
-    finite, pos 264); zamba2-7b at its published widths (d 3584, 112 SSM
-    heads of 64, state 64; the shared block of 32 heads x 112, d_ff
-    14336; vocab 32000): its first unit's first repeat (the shared
-    block, 6 mamba layers, the embedding; 788,088,032 parameters) saved
-    and restored in full as bf16, then the whole model (81 mamba layers
-    in units of 13 x 7 and 1 x 4 with the shared block; 6,636,442,832
-    parameters) drawn on the card, cast to bf16 and served the same way
-    (no save: 26.5 GB of f32). Each arch is a counted run of its own
-    (SERVE.SSM.<arch>); then rwkv6's first 4 layers and zamba2's
-    restored cut are held layer by layer against the port on the CPU
-    (layer_holds) in f32, to the bound, and read in bf16."""
+    """Phase SERVE.SSM: rwkv6-1.6b at its published widths, its first
+    SSM_RWKV_LAYERS of 24 layers (d 2048, d_ff 7168, vocab 65536;
+    356,100,096 parameters) drawn, saved and restored in full as bf16,
+    then served (prefill of 2 x 80 tokens, the prompt teacher-forced and
+    8 greedy steps: logits finite, pos 88); zamba2-7b at its published
+    widths (d 3584, 112 SSM heads of 64, state 64; the shared block of 32
+    heads x 112, d_ff 14336; vocab 32000): its first unit's first repeat
+    (the shared block, 6 mamba layers, the embedding; 788,088,032
+    parameters) saved and restored in full as bf16, then the whole model
+    (81 mamba layers in units of 13 x 7 and 1 x 4 with the shared block;
+    6,636,442,832 parameters) drawn on the card, cast to bf16 and served
+    on the prompt's first ZAMBA_SERVE_PROMPT tokens (no save: 26.5 GB of
+    f32). Each arch is a counted run of its own (SERVE.SSM.<arch>); then
+    rwkv6's first SSM_HOLD_LAYERS layers and the first SSM_HOLD_BLOCKS
+    blocks of zamba2's restored cut are held layer by layer against the
+    port on the CPU (layer_holds) in f32, to the bound."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.convert import map_tree, tree_items
@@ -4030,8 +4096,10 @@ def run_ssm_phase(dispatch, census, captured, card, tmp, seed, timed,
         t_arch = time.perf_counter()
         name = f"SERVE.SSM.{arch}"
         full_cfg = get_arch(arch).config()
-        cfg = full_cfg if arch == SSM_RWKV else cut_units(full_cfg)
+        cfg = cut_units(full_cfg, repeat=SSM_RWKV_LAYERS) \
+            if arch == SSM_RWKV else cut_units(full_cfg)
         gen = torch.Generator(device=dev).manual_seed(seed + 17)
+        serve_len = SSM_PROMPT if arch == SSM_RWKV else ZAMBA_SERVE_PROMPT
         prompt = torch.randint(0, cfg.vocab_size, (SSM_BATCH, SSM_PROMPT),
                                generator=gen, device=dev, dtype=torch.int32)
 
@@ -4054,7 +4122,9 @@ def run_ssm_phase(dispatch, census, captured, card, tmp, seed, timed,
             else:
                 served = r["full"]
             t0 = time.perf_counter()
-            r.update(serve_figures(full_cfg, served, prompt, SSM_GEN, dev,
+            r.update(serve_figures(cfg if arch == SSM_RWKV else full_cfg,
+                                   served, prompt[:, :serve_len], SSM_GEN,
+                                   dev,
                                    "SERVE.SSM", arch))
             secs["serve"] = time.perf_counter() - t0
             del served
@@ -4064,7 +4134,8 @@ def run_ssm_phase(dispatch, census, captured, card, tmp, seed, timed,
         KEEP_CALLS.update(serve_kept_calls())
         try:
             r, counts[name], inputs[name] = counted_run(
-                name, run, dispatch, census, captured)
+                name, run, dispatch, census, captured,
+                also=SSM_ALSO.get(arch, ()))
         finally:
             KEEP_CALLS.clear()
         kept = inputs[name].pop("ceaz_chunk_dec.kept", [])
@@ -4077,13 +4148,12 @@ def run_ssm_phase(dispatch, census, captured, card, tmp, seed, timed,
         secs["decode_holds"] = time.perf_counter() - t0
         del kept
         full = r.pop("full")
-        if arch == SSM_RWKV:
-            hold_cfg, held = cut_to_first_repeat(cfg, full, SSM_HOLD_LAYERS)
-        else:
-            hold_cfg, held = cfg, full
+        hold_cfg, held = cut_to_first_repeat(cfg, full, SSM_HOLD_LAYERS) \
+            if arch == SSM_RWKV else \
+            cut_to_first_repeat(cfg, full, blocks=SSM_HOLD_BLOCKS)
         hold_prompt = prompt[:, :SSM_HOLD_PROMPT]
         holds = {}
-        for dt in (torch.float32, bf16):
+        for dt in (torch.float32,):
             t0 = time.perf_counter()
             holds[str(dt).replace("torch.", "")] = layer_holds(
                 hold_cfg, held, hold_prompt, SSM_HOLD_GEN, dev, dt, arch,
@@ -4099,13 +4169,13 @@ def run_ssm_phase(dispatch, census, captured, card, tmp, seed, timed,
               f"past the bound (rtol {LOGIT_RTOL}, atol {LOGIT_ATOL}): "
               f"{f32}")
         r["holds"] = holds
-        tokens = SSM_PROMPT + SSM_GEN
+        tokens = serve_len + SSM_GEN
         r["cache_bytes_per_seq"], r["attention_cache_bytes_per_seq"] = \
             cache_bytes(full_cfg, tokens)
         r["arch_s"] = time.perf_counter() - t_arch
         r["seconds"] = secs
         figs[arch] = r
-        served = (f"{full_cfg.n_layers} layers as restored" if arch ==
+        served = (f"{cfg.n_layers} layers as restored" if arch ==
                   SSM_RWKV else f"the whole model, {r['served_n']} "
                   f"parameters drawn on the card and cast to bf16 (no "
                   f"save), {full_cfg.n_layers} layers")
@@ -4118,11 +4188,11 @@ def run_ssm_phase(dispatch, census, captured, card, tmp, seed, timed,
               f"GB/s), allocated {r['restore_base']} B before it and "
               f"{r['restore_peak']} B at its peak; tiled walks bitwise == "
               f"plain at {r['walk_shapes']}; served {served}: bf16 prefill "
-              f"of {SSM_BATCH} x {SSM_PROMPT} tokens {r['prefill_ms']} ms "
+              f"of {SSM_BATCH} x {serve_len} tokens {r['prefill_ms']} ms "
               f"(median of 3: {r['prefill_ms_all']}); decode "
               f"{r['decode_ms_per_step']} ms a step (median of {SSM_GEN}: "
               f"{r['decode_ms_all']}), {r['tokens_per_s']} tokens/s; "
-              f"{SSM_PROMPT} + {SSM_GEN} steps {r['requests_s']} s; "
+              f"{serve_len} + {SSM_GEN} steps {r['requests_s']} s; "
               f"allocated {r['serve_base_bytes']} B before and "
               f"{r['serve_peak_bytes']} B at the peak; decode cache "
               f"{r['cache_bytes_per_seq']} B a sequence at {tokens} "
@@ -4144,8 +4214,425 @@ def run_ssm_phase(dispatch, census, captured, card, tmp, seed, timed,
     print(f"phase SERVE.SSM: restored leaves within eb range + half a bf16 "
           f"ulp, tiled walks bitwise, every other kernel call bitwise at "
           f"the first sight of its key, bf16 logits finite, pos "
-          f"{SSM_PROMPT + SSM_GEN}, f32 layers, caches and logits within "
+          f"{SSM_PROMPT + SSM_GEN} and {ZAMBA_SERVE_PROMPT + SSM_GEN}, f32 "
+          f"layers, caches and logits within "
           f"the bound: True (phase {figs['phase_s']:.1f} s) "
+          f"launches={counts}")
+    return counts, inputs, figs
+
+
+# -- the training path (phase TRAIN) ------------------------------------------
+
+TRAIN_ARCH = "gemma3-1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY = 2, 2048, 6, 3
+# the card against the CPU: the first repeat (6 layers) at full width, one
+# sequence of 640 tokens (past the 512 window; 2 q blocks)
+TRAIN_HOLD_BATCH, TRAIN_HOLD_SEQ = 1, 640
+# a bf16 rounding: the flash backward rounds p, do, v and ds to bf16
+GRAD_REL = 2.0 ** -7
+LOSS_RTOL = 1e-5
+# the leaves decoded again on the CPU from the resumed checkpoint's
+# stream (the whole stream takes ~4 min of CPU decode): the global
+# layer's attention of unit 0 with its moments, the final norm, the step
+TRAIN_CPU_LEAVES = ("params/units/0/b5/attn/", "opt/mu/units/0/b5/attn/",
+                    "opt/nu/units/0/b5/attn/", "params/final_norm/",
+                    "opt/step")
+
+
+@contextlib.contextmanager
+def swapped(*swaps):
+    """(obj, name, value) attributes set while the block runs."""
+    old = [(o, n, getattr(o, n)) for o, n, _ in swaps]
+    for o, n, v in swaps:
+        setattr(o, n, v)
+    try:
+        yield
+    finally:
+        for o, n, v in old:
+            setattr(o, n, v)
+
+
+def rel_l2(got, want):
+    """||got - want|| / ||want|| in float64, on got's device."""
+    a, b = got.double(), want.to(got.device).double()
+    return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+
+def host_bytes(x) -> bytes:
+    """The bytes of a host leaf: a numpy array or a CPU tensor (bf16)."""
+    import numpy as np
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.reshape(-1).contiguous().view(torch.uint8).numpy() \
+            .tobytes()
+    return np.ascontiguousarray(x).tobytes()
+
+
+def lm_grads(params, cfg, batch, plan):
+    """(loss, {path: grad}) of lm_loss over the f32 leaves of params."""
+    import torch
+    from repro_torch.convert import map_tree, tree_items
+    from repro_torch.models import transformer as T
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in tree_items(params)}
+    loss, _ = T.lm_loss(map_tree(lambda k, _v: leaves[k], params), cfg,
+                        batch, plan)
+    got = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    return loss.detach(), {k: torch.zeros_like(v) if g is None else g
+                           for (k, v), g in zip(leaves.items(), got)}
+
+
+def grad_holds(cfg, params, batch, plan, dev):
+    """lm_loss and its gradients of `params` on the card against the port
+    on the CPU, the compute dtype f32 on both sides -> the loss's relative
+    difference, the grad norms' and the worst leaf's relative L2 (each
+    to hold within LOSS_RTOL, GRAD_REL, GRAD_REL), and the CPU seconds."""
+    import torch
+    from repro_torch.convert import map_tree
+    from repro_torch.optim.adamw import global_norm
+    with compute_dtype(torch.float32):
+        card_loss, card = lm_grads(params, cfg, batch, plan)
+        t0 = time.perf_counter()
+        cpu_loss, cpu = lm_grads(map_tree(lambda _p, x: x.cpu(), params),
+                                 cfg, {k: v.cpu() for k, v in batch.items()},
+                                 plan)
+        cpu_s = time.perf_counter() - t0
+    gn_card, gn_cpu = float(global_norm(card)), float(global_norm(cpu))
+    worst = max((rel_l2(card[k].cpu(), g), k) for k, g in cpu.items())
+    return dict(loss=[float(card_loss), float(cpu_loss)],
+                loss_rel=abs(float(card_loss) / float(cpu_loss) - 1),
+                grad_norm=[gn_card, gn_cpu],
+                grad_norm_rel=abs(gn_card / gn_cpu - 1),
+                worst_leaf=list(worst), leaves=len(cpu), cpu_s=cpu_s)
+
+
+def flash_holds(dev, seed):
+    """The flash backward at gemma3-1b's attention shapes (B 2, S 2048,
+    4 q heads and 1 kv head of 256, bf16; the 512 window and the global
+    layer): dq, dk, dv on the card against the port on the CPU and
+    against a naive f32 softmax attention under autograd on the card,
+    relative L2 each; the card's forward + backward ms (host clock after
+    syncs, median of 3)."""
+    import torch
+    from repro_torch.models import modules as M
+    B, S, H, K, D = TRAIN_BATCH, TRAIN_SEQ, 4, 1, 256
+    gen = torch.Generator(device=dev).manual_seed(seed + 29)
+    mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(
+        torch.bfloat16)
+    q, k, v, do = mk(B, S, H, D), mk(B, S, K, D), mk(B, S, K, D), \
+        mk(B, S, H, D)
+    out = {}
+    for window in (512, None):
+        kw = dict(causal=True, window=window)
+
+        def grads(q, k, v, do):
+            t = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+            o = M.flash_attention(*t, **kw)
+            return torch.autograd.grad(o, t, do)
+        card = grads(q, k, v, do)
+        ms = sorted(synced(lambda: grads(q, k, v, do))[1] * 1e3
+                    for _ in range(3))
+        t0 = time.perf_counter()
+        cpu = grads(*(x.cpu() for x in (q, k, v, do)))
+        cpu_s = time.perf_counter() - t0
+        t = [x.detach().float().requires_grad_(True) for x in (q, k, v)]
+        s = torch.einsum("bqhd,bkhd->bhqk", t[0],
+                         t[1].expand(B, S, H, D)) * D ** -0.5
+        qp = torch.arange(S, device=dev)[:, None]
+        kp = torch.arange(S, device=dev)[None, :]
+        mask = (kp <= qp) & ((kp > qp - window) if window else True)
+        s = torch.where(mask, s, torch.tensor(-1e30, device=dev))
+        o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1),
+                         t[2].expand(B, S, H, D))
+        naive = torch.autograd.grad(o, t, do.float())
+        del s, o
+        out[str(window)] = dict(
+            vs_cpu=[rel_l2(c.cpu(), g) for c, g in zip(card, cpu)],
+            vs_naive=[rel_l2(c, n) for c, n in zip(card, naive)],
+            card_ms=ms[1], cpu_s=cpu_s)
+    return out
+
+
+def run_train_phase(dispatch, census, captured, card, tmp, seed, timed,
+                    dev="cuda"):
+    """Phase TRAIN: gemma3-1b at its published widths and full depth
+    (999,885,952 parameters) trained through ``launch.train.main`` on the
+    card: init_state from a generator on the card, ``batch_for_step``
+    data at B = 2, S = 2048 (4 q blocks and 2 kv blocks of the flash,
+    the 512 window binding), 6 steps with a compressed checkpoint of the
+    whole state at steps 3 and 6; then step 3's checkpoint alone resumed
+    by ``main --resume`` (restored on the card) for steps 4-6 again,
+    which checkpoints step 6 once more. One counted run holds both.
+    Holds: every
+    loss finite, step 0's in (0.5 ln V, 3 ln V), every grad norm finite
+    and > 0; the resumed batches bitwise the uninterrupted ones (and
+    ``batch_for_step``'s); the restored state within the checkpoint's
+    rel 5e-4 of the step-3 state (raw leaves bitwise) and, for
+    TRAIN_CPU_LEAVES, bitwise the CPU's decode of the same records;
+    every restore walk bitwise against its plain version; the first
+    repeat's loss and gradients on the card against the CPU in f32
+    (grad_holds); the flash backward at the model's attention shapes
+    (flash_holds). Prints the step ms, one profiled step's device ms and
+    idle share, tokens/s, the peak allocated with remat 'block' and
+    'none', the save and restore seconds, GB/s and ratio, and the
+    phase's seconds."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import ckpt as C
+    from repro_torch.convert import dtype_name, tree_items
+    from repro_torch.core.ceaz import CEAZCompressed
+    from repro_torch.data.synthetic import DataConfig, batch_for_step
+    from repro_torch.io import engine as E
+    from repro_torch.launch import train as TR
+    from repro_torch.runtime.sharding import ShardingPlan
+    t_phase = time.perf_counter()
+    cfg, plan = serve_config(), ShardingPlan(mesh=None)
+    check(meta_count(cfg) == SERVE_PARAMS, "phase TRAIN: parameter count")
+    d_full, d_res = os.path.join(tmp, "train"), \
+        os.path.join(tmp, "train_resume")
+    args = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--ckpt-every",
+            str(TRAIN_CKPT_EVERY), "--device", dev]
+    dc = DataConfig(vocab_size=cfg.vocab_size, global_batch=TRAIN_BATCH,
+                    seq_len=TRAIN_SEQ)
+    runs = {"full": {}, "resumed": {}}
+    io = {"save_s": [], "save_holds_s": [], "restore_s": []}
+    keep, current, mark = {}, ["full"], [0.0]
+    save, restore = C.save_checkpoint, C.restore_checkpoint
+
+    # main makes its checkpoint calls itself: they are timed by wrapping
+    # the two functions for the run, and each moves the step clock's mark
+    def timed_save(*a, **kw):
+        held = SIGHT.seconds
+        out, s = synced(lambda: save(*a, **kw))
+        held = SIGHT.seconds - held
+        io["save_s"].append(s - held)
+        io["save_holds_s"].append(held)
+        mark[0] = time.perf_counter()
+        return out
+
+    def timed_restore(*a, **kw):
+        out, s = synced(lambda: restore(*a, **kw))
+        io["restore_s"].append(s)
+        keep["restored"] = out
+        mark[0] = time.perf_counter()
+        return out
+
+    def callback(i, state, metrics, batch):
+        # the host clock after a sync since the last step or checkpoint
+        # (a run's first step also takes its set-up)
+        torch.cuda.synchronize()
+        runs[current[0]][i] = dict(
+            ms=(time.perf_counter() - mark[0]) * 1e3,
+            batch={k: v.clone() for k, v in batch.items()},
+            **{k: float(v) for k, v in metrics.items()})
+        if current[0] == "full" and i + 1 == TRAIN_CKPT_EVERY:
+            keep["state"] = state
+        mark[0] = time.perf_counter()
+
+    def run():
+        with swapped((C, "save_checkpoint", timed_save),
+                     (C, "restore_checkpoint", timed_restore)):
+            mark[0] = time.perf_counter()
+            TR.main(args + ["--ckpt-dir", d_full], callback=callback)
+            step3 = f"step_{TRAIN_CKPT_EVERY:08d}"
+            os.makedirs(os.path.join(d_res, step3))
+            for f in os.listdir(os.path.join(d_full, step3)):
+                os.link(os.path.join(d_full, step3, f),
+                        os.path.join(d_res, step3, f))
+            current[0] = "resumed"
+            mark[0] = time.perf_counter()
+            return TR.main(args + ["--ckpt-dir", d_res, "--resume"],
+                           callback=callback)[0]
+
+    KEEP_CALLS.update(serve_kept_calls())
+    try:
+        state, counts, inputs = counted_run("TRAIN", run, dispatch, census,
+                                            captured)
+    finally:
+        KEEP_CALLS.clear()
+    secs = {"train_and_resume": time.perf_counter() - t_phase}
+    kept = inputs.pop("ceaz_chunk_dec.kept", [])
+    captured.clear()
+    torch.cuda.empty_cache()
+    check_decoded_on_card("TRAIN", counts)
+    t0 = time.perf_counter()
+    walk_shapes = hold_kept_decodes(kept, "TRAIN", counts, timed)
+    secs["decode_holds"] = time.perf_counter() - t0
+    del kept
+    full, res = runs["full"], runs["resumed"]
+    check(sorted(full) == list(range(TRAIN_STEPS)) and sorted(res) ==
+          list(range(TRAIN_CKPT_EVERY, TRAIN_STEPS)),
+          f"phase TRAIN: steps {sorted(full)} and resumed {sorted(res)}")
+    ln_v = float(np.log(cfg.vocab_size))
+    for name, r in runs.items():
+        for i, m in r.items():
+            check(all(np.isfinite(m[k]) for k in ("loss", "xent", "aux",
+                                                   "grad_norm"))
+                  and m["grad_norm"] > 0,
+                  f"phase TRAIN: {name} step {i} metrics {m}")
+    check(0.5 * ln_v < full[0]["loss"] < 3 * ln_v,
+          f"phase TRAIN: step 0's loss {full[0]['loss']} outside (0.5 ln V,"
+          f" 3 ln V)")
+    for i, m in full.items():
+        want = batch_for_step(dc, i)
+        check(all(np.array_equal(m["batch"][k].cpu().numpy(), want[k])
+                  for k in want), f"phase TRAIN: step {i}'s batch")
+        if i in res:
+            check(all(torch.equal(res[i]["batch"][k], v)
+                      for k, v in m["batch"].items()),
+                  f"phase TRAIN: the resumed step {i}'s batch differs")
+    # the restored state against the step-3 state; CPU decodes of some
+    # of its records
+    t0 = time.perf_counter()
+    rest, meta = keep.pop("restored")
+    check(meta == {"step": TRAIN_CKPT_EVERY,
+                   "data": {"step": TRAIN_CKPT_EVERY}},
+          f"phase TRAIN: restored {meta}")
+    step3 = os.path.join(d_res, f"step_{TRAIN_CKPT_EVERY:08d}")
+    with open(os.path.join(step3, "manifest.json")) as f:
+        manifest = json.load(f)["leaves"]
+    got = dict(tree_items(rest))
+    saved = dict(tree_items(keep.pop("state")))
+    check(sorted(got) == sorted(saved) == sorted(manifest),
+          "phase TRAIN: the restored state has other leaves")
+    eb = C.CheckpointConfig().eb
+    n_lossy = 0
+    for k, x in saved.items():
+        y = got[k]
+        y = (y if isinstance(y, torch.Tensor) else
+             torch.from_numpy(np.asarray(y))).to(x.device)
+        check(y.dtype == x.dtype and y.shape == x.shape,
+              f"phase TRAIN: restored leaf {k}")
+        if manifest[k]["codec"] == "ceaz":
+            n_lossy += 1
+            bound = eb * (float(x.max().double()) - float(x.min().double()))
+            xf, yf = x.reshape(-1), y.reshape(-1)
+            for j in range(0, xf.numel(), LEAF_CHECK_VALUES):
+                err = float((yf[j:j + LEAF_CHECK_VALUES].double()
+                             - xf[j:j + LEAF_CHECK_VALUES].double())
+                            .abs().max())
+                check(err <= bound, f"phase TRAIN: restored {k} off its "
+                      f"bound {bound} by {err}")
+        else:
+            check(torch.equal(y.view(-1).view(torch.uint8),
+                              x.reshape(-1).contiguous().view(torch.uint8)),
+                  f"phase TRAIN: raw leaf {k} changed")
+    del saved
+    secs["restored_leaves"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    comp = C._compressor(C.CheckpointConfig(), "cpu")
+    cpu_keys = [k for k in manifest if k.startswith(TRAIN_CPU_LEAVES)]
+    with E.StreamReader(os.path.join(step3, C.LEAVES_STREAM)) as reader:
+        for k in cpu_keys:
+            obj = reader.read_key(k)
+            if isinstance(obj, CEAZCompressed):
+                obj = comp.decompress(obj).astype(
+                    np.dtype(manifest[k]["dtype"])).reshape(got[k].shape)
+            check(dtype_name(obj) == dtype_name(got[k])
+                  and host_bytes(obj) == host_bytes(got[k]),
+                  f"phase TRAIN: the card's restore of {k} is not the "
+                  f"CPU's decode")
+    secs["cpu_decode"] = time.perf_counter() - t0
+    del rest, got
+    # the first repeat's gradients on the card against the CPU
+    hdc = DataConfig(vocab_size=cfg.vocab_size,
+                     global_batch=TRAIN_HOLD_BATCH, seq_len=TRAIN_HOLD_SEQ,
+                     seed=seed)
+    cut_cfg, cut = cut_to_first_repeat(cfg, state["params"])
+    t0 = time.perf_counter()
+    holds = grad_holds(cut_cfg, cut, TR.batch_on(batch_for_step(hdc, 0),
+                                                 dev), plan, dev)
+    secs["grad_holds"] = time.perf_counter() - t0
+    check(holds["loss_rel"] <= LOSS_RTOL and holds["grad_norm_rel"] <=
+          GRAD_REL and holds["worst_leaf"][0] <= GRAD_REL,
+          f"phase TRAIN: the card against the CPU past the bounds (loss "
+          f"rtol {LOSS_RTOL}, gradients {GRAD_REL}): {holds}")
+    t0 = time.perf_counter()
+    flash = flash_holds(dev, seed)
+    secs["flash_holds"] = time.perf_counter() - t0
+    check(all(max(f["vs_cpu"] + f["vs_naive"]) <= GRAD_REL
+              for f in flash.values()),
+          f"phase TRAIN: the flash backward past {GRAD_REL}: {flash}")
+    # one profiled step; the peak allocated by a step with remat 'block'
+    # and with 'none', from the same state
+    batch = TR.batch_on(batch_for_step(dc, TRAIN_STEPS), dev)
+    tc = TR.TrainConfig()
+    t0 = time.perf_counter()
+    peak = {}
+    for remat in ("block", "none"):
+        fn = TR.make_train_step(dataclasses.replace(cfg, remat=remat), tc,
+                                plan, device=dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        try:
+            if remat == "block":
+                prof = device_breakdown(
+                    "TRAIN step", lambda: fn(state, batch), top=8,
+                    host_ops=False)
+            else:
+                fn(state, batch)
+            peak[remat] = [base, torch.cuda.max_memory_allocated()]
+        except torch.cuda.OutOfMemoryError:
+            peak[remat] = [base, None]        # it did not fit
+    del state, batch
+    torch.cuda.empty_cache()
+    secs["profile_and_peaks"] = time.perf_counter() - t0
+    n = SERVE_PARAMS
+    stored = {}
+    for s in (TRAIN_CKPT_EVERY, TRAIN_STEPS):
+        with open(os.path.join(d_full, f"step_{s:08d}", "manifest.json")) as f:
+            stored[s] = sum(v["nbytes"] for v in json.load(f)["leaves"]
+                            .values())
+    state_bytes = sum(v["raw_nbytes"] for v in manifest.values())
+    # each run's first step also takes its set-up (init_state, or
+    # restore_state's copies to the card): left out of the median
+    ms = {name: [r[i]["ms"] for i in sorted(r)] for name, r in runs.items()}
+    steady = ms["full"][1:] + ms["resumed"][1:]
+    figs = dict(
+        params=n, steps_ms=ms["full"], resumed_steps_ms=ms["resumed"],
+        step_ms=statistics.median(steady),
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / statistics.median(steady)
+        * 1e3, profile=prof, peak=peak,
+        losses=[full[i]["loss"] for i in sorted(full)],
+        resumed_losses=[res[i]["loss"] for i in sorted(res)],
+        grad_norms=[full[i]["grad_norm"] for i in sorted(full)],
+        save_s=io["save_s"], save_holds_s=io["save_holds_s"],
+        restore_s=io["restore_s"], state_bytes=state_bytes,
+        ratio=state_bytes / stored[TRAIN_CKPT_EVERY], stored=stored,
+        lossy=n_lossy, raw=len(manifest) - n_lossy, cpu_leaves=len(cpu_keys),
+        walk_shapes=walk_shapes, holds=holds, flash=flash, seconds=secs)
+    figs["phase_s"] = time.perf_counter() - t_phase
+    print(f"train phase TRAIN [{card}]: {TRAIN_ARCH}, {n} parameters, B "
+          f"{TRAIN_BATCH} x S {TRAIN_SEQ}: steps {figs['steps_ms']} ms, "
+          f"resumed {figs['resumed_steps_ms']} ms (each with its run's "
+          f"set-up; median after each run's first {figs['step_ms']} ms, "
+          f"{figs['tokens_per_s']} tokens/s); one "
+          f"profiled step: wall {prof['wall_ms']} ms, device "
+          f"{prof['device_ms']} ms, idle share {prof['idle_share']}; "
+          f"allocated before a step and at its peak {peak['block']} B with "
+          f"remat 'block', {peak['none']} B with 'none'; losses "
+          f"{figs['losses']}, resumed "
+          f"from step {TRAIN_CKPT_EVERY} {figs['resumed_losses']} (no "
+          f"limit), grad norms {figs['grad_norms']}")
+    gb = state_bytes / 1e9
+    print(f"train phase TRAIN [{card}]: the state {state_bytes} B saved "
+          f"in {io['save_s']} s ({[gb / s for s in io['save_s']]} GB/s; "
+          f"less {io['save_holds_s']} s of first-sight holds), ratio "
+          f"{figs['ratio']} ({n_lossy} lossy leaves, {figs['raw']} raw); "
+          f"restored in {io['restore_s']} s "
+          f"({[gb / s for s in io['restore_s']]} GB/s), every leaf within "
+          f"rel {eb} of the step-{TRAIN_CKPT_EVERY} state, "
+          f"{len(cpu_keys)} leaves bitwise the CPU's decode; tiled walks "
+          f"bitwise == plain at {walk_shapes}")
+    print(f"train phase TRAIN: the first repeat on the card against the "
+          f"CPU in f32 (B {TRAIN_HOLD_BATCH} x S {TRAIN_HOLD_SEQ}): {holds}; "
+          f"the flash backward at B {TRAIN_BATCH} x S {TRAIN_SEQ}, 4 x 1 "
+          f"heads of 256 (card "
+          f"against CPU and naive f32, relative L2 of dq, dk, dv): "
+          f"{flash}; phase {figs['phase_s']:.1f} s, of which {secs}, "
           f"launches={counts}")
     return counts, inputs, figs
 
@@ -4383,6 +4870,9 @@ def main():
                 dispatch, census, captured, card, tmp, args.seed, walks)
             counts.update(c2)
             inputs.update(i2)
+        # training: gemma3-1b trained, checkpointed and resumed
+        counts["TRAIN"], inputs["TRAIN"], train = run_train_phase(
+            dispatch, census, captured, card, tmp, args.seed, walks)
     counts.update(c)
     inputs.update(i)
     del nyx, q_mean
@@ -4429,6 +4919,7 @@ def main():
               f"median of {t.get('decompress_samples', 3)}) of f32 input")
     thr["SERVE"] = serve
     thr.update(serve_new)
+    thr["TRAIN"] = train
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"throughput": thr, "card": card}))
     print(json.dumps({"wire": wire_stats, "card": card}))

@@ -1,1 +1,2 @@
-"""SDRBench-proxy field generators (copy of the reference's)."""
+"""SDRBench-proxy field generators and the synthetic training data (copies
+of the reference's)."""

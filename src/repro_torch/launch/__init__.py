@@ -1,1 +1,2 @@
-"""Launch helpers of the port: device meshes."""
+"""Launch helpers of the port: device meshes, the serving and the training
+entry points."""

@@ -18,9 +18,11 @@ Here: GQA/MQA attention with sliding windows, qk-norm, partial RoPE
 and M-RoPE, cross-attention, MLA (DeepSeek-V2's latent attention, its
 decode absorbed into the compressed cache), the dense MLP, the MoE
 (token-choice top-k with static capacity, on one device; routing and
-combine exact and in a fixed order on any device) and the embedding.
-The MoE's expert parallelism, the flash backward and ``chunked_xent``
-come with training and placement over several cards (ROADMAP Queue 1
+combine exact and in a fixed order on any device), the embedding and
+the loss: flash attention's backward recomputes its score blocks
+(``_Flash``) and ``chunked_xent`` its chunks' logits, so training keeps
+neither (S, S) scores nor (B, S, V) logits. The MoE's expert
+parallelism comes with placement over several cards (ROADMAP Queue 1
 item 5c).
 """
 from __future__ import annotations
@@ -32,6 +34,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..runtime.sharding import ShardingPlan
 
@@ -139,7 +142,7 @@ def apply_mrope(x, positions3, inv_freqs, sections: Tuple[int, int, int]):
 
 
 # ---------------------------------------------------------------------------
-# flash attention (chunked double loop, forward)
+# flash attention (chunked double loop, forward and backward)
 # ---------------------------------------------------------------------------
 
 def _block_scores(qblk, kblk, cfg, qi, kj):
@@ -198,14 +201,85 @@ def _flash_fwd(cfg, q, k, v):
     return out.transpose(1, 2), torch.cat(lses, 2)
 
 
+def _bf(x):
+    """x rounded to bf16, held in f32: a product of two such values is
+    exact in f32, so an f32 einsum of them is the reference's bf16
+    product with ``preferred_element_type=f32``."""
+    return x.to(torch.bfloat16).float()
+
+
+def _flash_bwd(cfg, q, k, v, out, lse, do):
+    """The reference's ``_flash_bwd_rule``: every (bq, bk) score block
+    recomputed from q, k and lse, an outer loop over kv blocks and an
+    inner one over q blocks; p and do, do and v, ds * scale rounded to
+    bf16 where the reference rounds them, the products summed in f32.
+    -> (dq, dk, dv) in q's, k's and v's dtypes."""
+    causal, window, q_offset, bq, bk, scale, Sk_real = cfg
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    G = H // K
+    nq, nk = Sq // bq, Sk // bk
+    delta = torch.einsum("bqhd,bqhd->bhq", do.float(), out.float())
+    dq = [torch.zeros((B, bq, H, D), dtype=torch.float32, device=q.device)
+          for _ in range(nq)]
+    dks, dvs = [], []
+    for kj in range(nk):
+        kblk = k[:, kj * bk:(kj + 1) * bk]
+        kb = _bf(kblk)
+        vb = _bf(v[:, kj * bk:(kj + 1) * bk])
+        dk_a = torch.zeros((B, bk, K, D), dtype=torch.float32,
+                           device=q.device)
+        dv_a = torch.zeros((B, bk, K, Dv), dtype=torch.float32,
+                           device=q.device)
+        for qi in range(nq):
+            sl = slice(qi * bq, (qi + 1) * bq)
+            qblk = q[:, sl]
+            s = _block_scores(qblk, kblk, cfg, qi, kj)        # (B,H,bq,bk)
+            p = torch.exp(s - lse[:, :, sl, None]).reshape(B, K, G, bq, bk)
+            dog = _bf(do[:, sl].reshape(B, bq, K, G, Dv))
+            dv_a = dv_a + torch.einsum("bkgqs,bqkgd->bskd", _bf(p), dog)
+            dp = torch.einsum("bqkgd,bskd->bkgqs", dog, vb)
+            ds = p * (dp - delta[:, :, sl].reshape(B, K, G, bq)[..., None])
+            ds = _bf(ds * scale)
+            dq[qi] = dq[qi] + torch.einsum("bkgqs,bskd->bqkgd", ds,
+                                           kb).reshape(B, bq, H, D)
+            dk_a = dk_a + torch.einsum(
+                "bkgqs,bqkgd->bskd", ds, _bf(qblk.reshape(B, bq, K, G, D)))
+        dks.append(dk_a)
+        dvs.append(dv_a)
+    return (torch.cat(dq, 1).to(q.dtype), torch.cat(dks, 1).to(k.dtype),
+            torch.cat(dvs, 1).to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """The reference's ``jax.custom_vjp`` flash: the backward recomputes
+    the score blocks, so only q, k, v, out and the (B, H, Sq) lse are
+    saved and nothing (Sq, Sk)-sized outlives the forward (a backward
+    through the forward's loops would keep every block's scores)."""
+
+    @staticmethod
+    def forward(ctx, cfg, q, k, v):
+        out, lse = _flash_fwd(cfg, q, k, v)
+        ctx.cfg = cfg
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        return (None,) + _flash_bwd(ctx.cfg, *ctx.saved_tensors, do)
+
+
 def flash_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
                     q_offset: int = 0, bq: int = 512, bk: int = 1024,
                     scale: Optional[float] = None):
     """q: (B, Sq, H, D); k/v: (B, Sk, K, D) with H % K == 0 (GQA).
 
     Returns (B, Sq, H, D). Never materializes more than (B, H, bq, bk)
-    scores. Masking is positional: query i attends keys j with
-    j <= i + q_offset (causal), j > i + q_offset - window.
+    scores in either direction: the backward (:class:`_Flash`)
+    recomputes score blocks instead of saving them. Masking is
+    positional: query i attends keys j with j <= i + q_offset (causal),
+    j > i + q_offset - window.
     """
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
@@ -222,8 +296,7 @@ def flash_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
         k = F.pad(k, (0, 0, 0, 0, 0, pk))
         v = F.pad(v, (0, 0, 0, 0, 0, pk))
     cfg = (causal, window, q_offset, bq, bk, scale, Sk)
-    out, _ = _flash_fwd(cfg, q, k, v)
-    return out[:, :Sq]
+    return _Flash.apply(cfg, q, k, v)[:, :Sq]
 
 
 # ---------------------------------------------------------------------------
@@ -642,7 +715,7 @@ def moe_apply(p, cfg: MoEConfig, x, plan: ShardingPlan):
 
 
 # ---------------------------------------------------------------------------
-# embedding
+# embedding + chunked softmax cross-entropy
 # ---------------------------------------------------------------------------
 
 def embed_init(key, vocab: int, d_model: int):
@@ -677,3 +750,31 @@ def unembed_logits(p, h, plan: ShardingPlan, softcap: Optional[float] = None):
     if softcap is not None:
         logits = torch.tanh(logits / softcap) * softcap
     return plan.logits_btv(logits)
+
+
+def _xent_chunk(p, h, labels, plan, softcap):
+    """sum(logsumexp - gold) of one chunk's f32 logits."""
+    logits = unembed_logits(p, h, plan, softcap).float()
+    logz = torch.logsumexp(logits, -1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.sum(logz - gold)
+
+
+def chunked_xent(p, h, labels, plan: ShardingPlan,
+                 softcap: Optional[float] = None, chunk: int = 512):
+    """Mean cross-entropy of h (B, S, d) against labels (B, S) without
+    (B, S, V) logits at once: the chunks of the largest divisor of S at
+    most `chunk`, their sums added in order from 0, over B S. Under
+    autograd each chunk runs under ``checkpoint``: its logits are
+    recomputed in the backward, so one chunk's are live at a time."""
+    B, S, _ = h.shape
+    chunk = min(chunk, S)
+    while S % chunk:                 # largest divisor of S at most `chunk`
+        chunk -= 1
+    grad = torch.is_grad_enabled()
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, S, chunk):
+        args = (p, h[:, i:i + chunk], labels[:, i:i + chunk], plan, softcap)
+        total = total + (checkpoint(_xent_chunk, *args, use_reentrant=False)
+                         if grad else _xent_chunk(*args))
+    return total / (B * S)

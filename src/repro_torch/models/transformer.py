@@ -5,9 +5,12 @@ A model is a sequence of UNITS; each unit is a pattern of blocks repeated
 R times, each parameter leaf stacked on a leading repeat axis (the
 reference's scan-over-layers layout, so checkpoint paths and sharding
 rules are the same). The layer loop is a Python loop over that axis
-taking views of the stacked leaves, no copies; rematerialization has
-nothing to do at inference. Heterogeneous schedules (gemma3's 5 local :
-1 global) put the whole repeating pattern inside one unit.
+taking views of the stacked leaves, no copies. With ``remat='block'``
+and grad enabled each repeat runs under ``torch.utils.checkpoint``
+(the reference's ``jax.checkpoint`` of the scan body with
+``nothing_saveable``): the backward keeps one repeat's input and
+recomputes the rest. Heterogeneous schedules (gemma3's 5 local : 1
+global) put the whole repeating pattern inside one unit.
 
 Block kinds: 'attn' (GQA/MQA, optional sliding window / qk-norm /
 M-RoPE / cross-attention), 'mla' (DeepSeek latent attention, decoding
@@ -27,6 +30,7 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..runtime.fused import target_device
 from ..runtime.sharding import ShardingPlan
@@ -192,7 +196,7 @@ def init_params(key, cfg: ModelConfig, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
-# forward (prefill)
+# forward (training / prefill)
 # ---------------------------------------------------------------------------
 
 def _block_apply(bp, b: BlockSpec, h, positions, plan, aux, memory,
@@ -234,11 +238,19 @@ def _block_apply(bp, b: BlockSpec, h, positions, plan, aux, memory,
 
 def _unit_scan(uparams, unit: UnitSpec, cfg: ModelConfig, h, positions,
                plan, aux, shared_params, memory):
-    for r in range(unit.repeat):
-        pslice = _index(uparams, r)
+    def body(hh, ax, pslice):
         for bi, b in enumerate(unit.blocks):
             bp = shared_params if b.use_shared else pslice[f"b{bi}"]
-            h, aux = _block_apply(bp, b, h, positions, plan, aux, memory)
+            hh, ax = _block_apply(bp, b, hh, positions, plan, ax, memory)
+        return hh, ax
+
+    remat = cfg.remat == "block" and torch.is_grad_enabled()
+    for r in range(unit.repeat):
+        pslice = _index(uparams, r)
+        if remat:
+            h, aux = checkpoint(body, h, aux, pslice, use_reentrant=False)
+        else:
+            h, aux = body(h, aux, pslice)
     return h, aux
 
 
@@ -280,6 +292,21 @@ def forward_hidden(params, cfg: ModelConfig, tokens, plan: ShardingPlan,
                             plan, aux, params.get("shared"), memory)
     h = mod.norm_apply(params["final_norm"], h)
     return h, aux, offset
+
+
+def lm_loss(params, cfg: ModelConfig, batch, plan: ShardingPlan,
+            aux_weight: float = 0.01):
+    """Next-token loss of `batch` ({"tokens", "labels"}, and "positions"
+    or "frontend" where the arch takes them) -> (loss + aux_weight aux,
+    {"xent", "aux"}); a vision prefix is sliced off before the loss."""
+    h, aux, off = forward_hidden(params, cfg, batch["tokens"], plan,
+                                 positions=batch.get("positions"),
+                                 frontend=batch.get("frontend"))
+    if off:
+        h = h[:, off:]
+    loss = mod.chunked_xent(params, h, batch["labels"], plan,
+                            softcap=cfg.final_softcap)
+    return loss + aux_weight * aux, {"xent": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

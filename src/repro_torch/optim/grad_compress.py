@@ -45,10 +45,12 @@ Tree = Dict[str, torch.Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class CompressionConfig:
-    """The reference's config less ``axis`` and ``enabled``: the pod axis
-    is the ``group`` argument (or the leaves' leading axis), and the
-    training step that reads ``enabled`` is not ported."""
+    """The reference's config less ``axis``: the pod axis is the
+    ``group`` argument (or the leaves' leading axis). ``enabled`` is read
+    by the train step (``launch/train.py``): with a pod axis it asks for
+    the compressed exchange."""
     bits: int = 8                  # code width (2|4|8|16)
+    enabled: bool = True
     error_feedback: bool = True    # False: the residual passes unchanged
 
 

@@ -1340,3 +1340,90 @@ def test_reduced_ssm_serving_on_card_matches_cpu(dev, arch):
     for k, v in tree_items(gc):
         close(v, want[k])
     assert gc["pos"].tolist() == [32, 32]
+
+
+def _rel_l2(a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+
+@pytest.mark.parametrize("window", [None, 40])
+def test_flash_backward_on_card_matches_cpu(dev, window):
+    """The flash backward (several q and kv blocks, MQA, bf16) on the card
+    against the port on the CPU: dq, dk, dv within one bf16 rounding in
+    relative L2 (the f32 sums' order differs, so a bf16 rounding of p or
+    ds can flip)."""
+    from repro_torch.models import modules as M
+    g = torch.Generator().manual_seed(3)
+    q, k, v, do = (torch.randn(s, generator=g).to(torch.bfloat16)
+                   for s in ((2, 300, 4, 32), (2, 300, 1, 32),
+                             (2, 300, 1, 32), (2, 300, 4, 32)))
+
+    def grads(device):
+        t = [x.to(device).requires_grad_(True) for x in (q, k, v)]
+        out = M.flash_attention(*t, causal=True, window=window, bq=64,
+                                bk=128)
+        return torch.autograd.grad(out, t, do.to(device))
+    for a, b in zip(grads(dev), grads("cpu")):
+        assert a.is_cuda and a.dtype == b.dtype == torch.bfloat16
+        assert _rel_l2(a, b) <= 2.0 ** -7
+
+
+def test_reduced_train_step_on_card_matches_cpu(dev):
+    """One train step of the reduced gemma3-1b on the card against the CPU,
+    the compute dtype f32 on both sides: loss rtol 1e-5, the grad norm and
+    every leaf's first moment (0.1 of its clipped gradient, in bf16)
+    within 2^-7."""
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import map_tree, tree_items
+    from repro_torch.data.synthetic import DataConfig, batch_for_step
+    from repro_torch.launch import train as TR
+    from repro_torch.models import modules as M
+    from repro_torch.runtime.sharding import ShardingPlan
+    cfg, plan = get_arch("gemma3-1b").reduced(), ShardingPlan(mesh=None)
+    tc = TR.TrainConfig()
+    state = TR.init_state(0, cfg, tc, plan, device="cpu")
+    batch = batch_for_step(DataConfig(vocab_size=cfg.vocab_size,
+                                      global_batch=2, seq_len=48), 0)
+    old, M.COMPUTE_DTYPE = M.COMPUTE_DTYPE, torch.float32
+    try:
+        out = {d: TR.make_train_step(cfg, tc, plan, device=d)(
+            map_tree(lambda _p, x: x.to(d), state), TR.batch_on(batch, d))
+            for d in (dev, "cpu")}
+    finally:
+        M.COMPUTE_DTYPE = old
+    (gs, gm), (cs, cm) = out[dev], out["cpu"]
+    np.testing.assert_allclose(float(gm["loss"]), float(cm["loss"]),
+                               rtol=1e-5)
+    assert abs(float(gm["grad_norm"]) / float(cm["grad_norm"]) - 1) \
+        <= 2.0 ** -7
+    assert all(v.is_cuda for _, v in tree_items(gs["params"]))
+    mu = dict(tree_items(cs["opt"]["mu"]))
+    for k, v in tree_items(gs["opt"]["mu"]):
+        assert v.is_cuda and _rel_l2(v, mu[k]) <= 2.0 ** -7, k
+
+
+def test_training_checkpoint_on_card_restores_on_cpu(dev, tmp_path):
+    """A training state saved on the card (f32 params, bf16 moments, the
+    step) restores on the CPU to the card's own restore, bit for bit."""
+    from repro_torch.checkpoint import ckpt as C
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import tree_items
+    from repro_torch.launch import train as TR
+    from repro_torch.runtime.sharding import ShardingPlan
+    cfg, plan = get_arch("gemma3-1b").reduced(), ShardingPlan(mesh=None)
+    state = TR.init_state(0, cfg, TR.TrainConfig(), plan, device=dev)
+    C.save_checkpoint(str(tmp_path), state, 1, extra={"data": {"step": 1}})
+    card, meta = C.restore_checkpoint(str(tmp_path))
+    cpu, meta2 = C.restore_checkpoint(str(tmp_path), device="cpu")
+    assert meta == meta2 == {"step": 1, "data": {"step": 1}}
+    cpu = dict(tree_items(cpu))
+    for k, v in tree_items(card):
+        w = cpu[k]
+        a = v if isinstance(v, torch.Tensor) else torch.from_numpy(v)
+        b = w if isinstance(w, torch.Tensor) else torch.from_numpy(w)
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        assert torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8)), k
+    restored, _ = TR.restore_state(str(tmp_path), plan, dev)
+    assert all(v.is_cuda for _, v in tree_items(restored))

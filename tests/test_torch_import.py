@@ -32,7 +32,8 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.checkpoint.ckpt, repro_torch.serve, "
             "repro_torch.serve.paging, repro_torch.models.modules, "
             "repro_torch.models.transformer, repro_torch.configs, "
-            "repro_torch.launch.serve\n"
+            "repro_torch.launch.serve, repro_torch.launch.train, "
+            "repro_torch.data.synthetic\n"
             # the staged route and compress_batch import lazily: run them
             "import numpy as np\n"
             "from repro_torch.core import CEAZ\n"
@@ -96,6 +97,11 @@ def test_import_leaves_jax_and_reference_out():
             "    logits, _ = T.serve_decode(p, cfg, torch.zeros(2, "
             "dtype=torch.int32), T.init_cache(cfg, 2, 8, device='cpu'), "
             "ShardingPlan())\n"
+            # training: a reduced step, checkpointed
+            "from repro_torch.launch import train as TR\n"
+            "TR.main(['--arch', 'gemma3-1b', '--reduced', '--steps', '1', "
+            "'--batch', '2', '--seq', '16', '--device', 'cpu', "
+            "'--ckpt-dir', os.path.join(d, 't')])\n"
             "from repro_torch.core import compress, decompress, dequantize\n"
             "assert decompress(compress(x, device='cpu'), device='cpu').shape "
             "== x.shape\n"
@@ -137,7 +143,7 @@ def test_no_source_imports_jax_or_reference():
                 "configs/gemma_7b.py", "configs/glm4_9b.py",
                 "configs/qwen2_vl_7b.py", "configs/whisper_base.py",
                 "configs/deepseek_v2_236b.py", "configs/phi35_moe_42b.py",
-                "launch/serve.py"):
+                "launch/serve.py", "launch/train.py", "data/synthetic.py"):
         assert os.path.join(PORT, new) in files, new
     for path in files:
         tree = ast.parse(open(path).read(), path)

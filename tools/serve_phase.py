@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's serving phases alone, with the same instruments, on one
-NVIDIA GPU: a quicker run of the serving path than the whole script.
+"""chip_smoke.py's serving and training phases alone, with the same
+instruments, on one NVIDIA GPU: a quicker run of those paths than the
+whole script.
 
-    python3 tools/serve_phase.py [--seed S] [--phases SERVE,SERVE.MOE,SERVE.ZOO,SERVE.SSM]
+    python3 tools/serve_phase.py [--seed S] [--phases SERVE,SERVE.MOE,SERVE.ZOO,SERVE.SSM,TRAIN]
 
 It builds the kernels, installs the census and capture hooks as
 ``chip_smoke.main`` does (``install_recorders``: the phases after SERVE
@@ -14,9 +15,11 @@ bf16 limits with their controls), ``run_moe_phase`` (phi3.5-moe's first
 layer saved, restored and served; deepseek-v2's dense and first MoE
 layers served; both held layer by layer against the CPU) and
 ``run_zoo_phase`` (five attention archs' full-vocabulary tables saved
-and restored, then served a few steps) and ``run_ssm_phase`` (rwkv6-1.6b
-whole and zamba2-7b's first repeat saved, restored and held against the
-CPU; the whole zamba2-7b drawn as bf16 and served). Then
+and restored, then served a few steps) and ``run_ssm_phase`` (rwkv6-1.6b's
+first 4 layers and zamba2-7b's first repeat saved, restored and held
+against the CPU; the whole zamba2-7b drawn as bf16 and served) and
+``run_train_phase`` (gemma3-1b trained 6 steps at B 2 x S 2048,
+checkpointed and resumed from step 3; its card-against-CPU holds). Then
 ``serve_kernel_rows`` and
 ``zoo_kernel_rows`` on the calls the phases kept (each a row of its own
 here: no earlier phase made the rows). Prints the card's name and power
@@ -39,7 +42,7 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default="SERVE",
                     help="comma-separated: SERVE, SERVE.MOE, SERVE.ZOO, "
-                         "SERVE.SSM")
+                         "SERVE.SSM, TRAIN")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -54,7 +57,8 @@ def main():
     census, captured = CS.install_recorders(dispatch)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     runs = {"SERVE": CS.run_serve_phase, "SERVE.MOE": CS.run_moe_phase,
-            "SERVE.ZOO": CS.run_zoo_phase, "SERVE.SSM": CS.run_ssm_phase}
+            "SERVE.ZOO": CS.run_zoo_phase, "SERVE.SSM": CS.run_ssm_phase,
+            "TRAIN": CS.run_train_phase}
     phases = args.phases.split(",")
     inputs, figs, walks, secs = {}, {}, {}, {}
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
