@@ -17,7 +17,10 @@ Fault-tolerance contract:
     previous step.
   * ELASTIC: tensors are stored in LOGICAL (unsharded) space with the
     tree structure in the manifest, so a restore does not depend on
-    where the state was saved from.
+    where the state was saved from. A state sharded over a rank mesh
+    (``launch/mesh.py``) is gathered leaf by leaf to rank 0, which writes
+    the one stream; a restore onto a rank mesh of any size places each
+    rank's shard of every leaf as it decodes.
   * ASYNC: ``save_checkpoint(..., background=True)`` snapshots to the
     host at call time, then writes off the caller's thread.
 
@@ -45,7 +48,8 @@ import numpy as np
 from ..convert import dtype_name, host_leaf, tree_items
 from ..core import CEAZ, CEAZConfig
 from ..io import engine as E
-from ..runtime.sharding import ShardingPlan, leaf_sharding, plan_device
+from ..runtime.sharding import (ShardingPlan, gather_leaf, is_rank_plan,
+                                leaf_sharding, param_shardings, plan_device)
 from ..runtime.sharding import place as place_leaf
 
 LATEST = "LATEST"
@@ -126,10 +130,28 @@ def _decode_leaf(payload: bytes, meta: Dict, comp: CEAZ):
     return arr
 
 
+def _gathered(state, plan: ShardingPlan, shapes) -> Dict[str, Any]:
+    """Rank 0's host snapshot of a state whose leaves are this rank's
+    shards of leaves of `shapes` (every rank takes part in each leaf's
+    gather; the others get an empty dict)."""
+    import torch
+    shd = param_shardings(state, plan, shapes=shapes)
+    lead = plan.mesh.rank == 0
+    flat = {}
+    for key, leaf in tree_items(state):
+        whole = gather_leaf(torch.as_tensor(leaf), shd[key])
+        if lead:
+            flat[key] = host_leaf(whole)
+        del whole
+    return flat
+
+
 def save_checkpoint(directory: str, state: Any, step: int,
                     extra: Optional[Dict] = None,
                     cfg: Optional[CheckpointConfig] = None,
-                    background: bool = False, device="cuda") -> str:
+                    background: bool = False, device="cuda",
+                    plan: Optional[ShardingPlan] = None,
+                    shapes: Optional[Dict[str, tuple]] = None) -> str:
     """Write state atomically as <directory>/step_<step>/ and update LATEST.
 
     `state`: a nested dict/list/tuple tree or the port's flat {path:
@@ -137,10 +159,26 @@ def save_checkpoint(directory: str, state: Any, step: int,
     `device` (the card unless the caller asks for the CPU). Returns the
     (future) checkpoint path. With background=True the host snapshot
     happens NOW and the file writes on a worker thread
-    (:func:`wait_for_pending` joins them, e.g. before process exit)."""
+    (:func:`wait_for_pending` joins them, e.g. before process exit).
+
+    With a rank `plan` (a mesh of several processes) `state` holds this
+    rank's shards of the leaves whose whole shapes `shapes` gives ({path:
+    shape}, ``tree_items`` paths): every rank takes part in gathering
+    each leaf to rank 0, which writes the stream; the others wait at a
+    barrier until it is written (with `background`, until the snapshot
+    is taken)."""
     cfg = cfg or CheckpointConfig()
-    flat = _flatten(state)                      # host snapshot (sync)
+    ranks = is_rank_plan(plan)
     treedef = treedef_str(state)
+    if ranks:
+        from ..runtime.dist import barrier
+        world = plan.mesh.group(plan.mesh.axis_names)
+        flat = _gathered(state, plan, shapes)
+        if plan.mesh.rank != 0:
+            barrier(world)
+            return os.path.join(directory, f"step_{step:08d}")
+    else:
+        flat = _flatten(state)                  # host snapshot (sync)
     comp = _compressor(cfg, device)
 
     def _write():
@@ -199,8 +237,12 @@ def save_checkpoint(directory: str, state: Any, step: int,
             _EXEC = futures.ThreadPoolExecutor(max_workers=1)
         fut = _EXEC.submit(_write)
         _PENDING.append(fut)
-        return os.path.join(directory, f"step_{step:08d}")
-    return _write()
+        done = os.path.join(directory, f"step_{step:08d}")
+    else:
+        done = _write()
+    if ranks:
+        barrier(world)
+    return done
 
 
 def wait_for_pending():
@@ -236,8 +278,9 @@ def restore_checkpoint(directory: str, step: Optional[int] = None,
     mesh in `plan` the leaves are host arrays (numpy; CPU tensors for
     bfloat16 and float8), as in the reference. With one, every leaf is
     placed by its PARAM_RULES :func:`leaf_sharding` as soon as it
-    decodes (a mesh over several devices raises NotImplementedError,
-    ROADMAP Queue 1 item 5).
+    decodes: on a rank mesh each rank keeps its own shard of every leaf
+    (every rank reads and decodes the stream), so a state saved from a
+    mesh of any size restores onto a mesh of any other.
 
     `leaf_transform(key, arr) -> arr` runs on each decoded host leaf
     BEFORE placement, so a serving-dtype cast happens while only that

@@ -34,8 +34,9 @@ torch inverse passes; streams those routes do not take (any stream when
 16) take the staged host decoder, as in the reference.
 
 The work runs on ``CEAZConfig.device`` — the card unless the caller
-asks for the CPU. A batch over a sharding plan whose mesh spans several
-devices raises ``NotImplementedError`` naming ROADMAP Queue 1 item 5.
+asks for the CPU. A batch over a sharding plan of several ranks is
+compressed a block of shards a batch position, on that position's rank
+(``compress_batch``).
 """
 from __future__ import annotations
 
@@ -527,14 +528,19 @@ class CEAZ:
         shard's own :meth:`compress`.
 
         ``plan``: None, or a ``runtime/sharding.py::ShardingPlan``. With
-        a mesh that spans one device the batched passes run there, and
-        the streams are those of ``plan=None``; a mesh over several
-        devices raises NotImplementedError (ROADMAP Queue 1 item 5).
-        Raises otherwise as :meth:`compress`.
+        a rank mesh (several processes) each batch position's rank
+        compresses its contiguous block of shards and every rank returns
+        the whole list (``runtime/sharding.py::distribute``); with a
+        logical mesh the batched passes run on the device it names. The
+        streams are those of ``plan=None`` either way. Raises otherwise
+        as :meth:`compress`.
         """
         from ..runtime import fused
-        from ..runtime.sharding import plan_device
+        from ..runtime.sharding import distribute, is_rank_plan, plan_device
         plan_device(plan, "compress_batch")
+        if is_rank_plan(plan):
+            return distribute(list(shards), plan,
+                              lambda blk: self.compress_batch(blk))
         shards = [np.asarray(s) for s in shards]
         out: List[Optional[CEAZCompressed]] = [None] * len(shards)
         preds: dict = {}               # probe once; leftovers reuse it

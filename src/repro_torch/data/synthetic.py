@@ -62,15 +62,30 @@ def batch_for_step(cfg: DataConfig, step: int, shard: int = 0,
     return out
 
 
+def batch_rows(batch: dict, index: int, count: int) -> dict:
+    """Rows [index B/count, (index+1) B/count) of every array of a global
+    batch: the block the batch position `index` of `count` holds, as the
+    reference shards ``batch_for_step(cfg, step)`` over its batch axes
+    (``batch_for_step(..., shard, num_shards)`` draws other tokens)."""
+    n = next(iter(batch.values())).shape[0]
+    if n % count:
+        raise ValueError(f"a global batch of {n} over {count} positions")
+    per = n // count
+    return {k: v[index * per:(index + 1) * per] for k, v in batch.items()}
+
+
 class ShardedDataset:
-    """Iterator facade with exact resume (state = step counter only)."""
+    """Iterator facade with exact resume (state = step counter only).
+    With `block` = (index, count) each batch is that block of rows of the
+    global batch (:func:`batch_rows`): a rank's rows on a mesh."""
 
     def __init__(self, cfg: DataConfig, shard: int = 0, num_shards: int = 1,
-                 start_step: int = 0):
+                 start_step: int = 0, block=None):
         self.cfg = cfg
         self.shard = shard
         self.num_shards = num_shards
         self.step = start_step
+        self.block = block
 
     def __iter__(self) -> Iterator[dict]:
         return self
@@ -78,6 +93,8 @@ class ShardedDataset:
     def __next__(self) -> dict:
         batch = batch_for_step(self.cfg, self.step, self.shard,
                                self.num_shards)
+        if self.block is not None:
+            batch = batch_rows(batch, *self.block)
         self.step += 1
         return batch
 

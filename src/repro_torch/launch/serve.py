@@ -6,9 +6,11 @@ Decode-time placement (the reference's specs): KV/cache SEQUENCE dims
 are sharded over the model axis (context parallelism), batch over the
 DP axes; SSM states shard heads over model. For a batch smaller than
 the DP size the cache sequence shards over (data, model) jointly and
-batch stays replicated. The port places
-on a mesh that spans one device; a mesh over several raises
-NotImplementedError (ROADMAP Queue 1 item 5c).
+batch stays replicated. The port serves on one device (a logical mesh
+on it); serving over several devices — a rank mesh of several
+processes, cache placement by ``cache_shardings``, the restore and the
+pager onto it — raises NotImplementedError (ROADMAP Queue 1 item 5c;
+training over several devices is ported, ``launch/train.py``).
 
 The callables are plain eager functions: no ``torch.compile`` and no
 CUDA graph. Argument structs are meta tensors, standing where the
@@ -28,7 +30,7 @@ from ..convert import map_tree
 from ..models import transformer as T
 from ..runtime.fused import target_device
 from ..runtime.sharding import NamedSharding, PartitionSpec as P
-from ..runtime.sharding import ShardingPlan
+from ..runtime.sharding import ShardingPlan, serving_device
 
 
 def _seq_axes(plan: ShardingPlan, wide: bool):
@@ -140,7 +142,8 @@ def restore_serving_params(directory: str, plan: ShardingPlan,
     placement.
 
     Every leaf is placed as it decodes: by its PARAM_RULES sharding on
-    the plan's mesh (one device; several raise NotImplementedError), or
+    the plan's mesh (one device; several raise NotImplementedError,
+    ROADMAP Queue 1 item 5c), or
     on `device` without a mesh (the card unless the caller asks for the
     CPU), so the serving tree never exists in f32 on the device.
 
@@ -154,6 +157,7 @@ def restore_serving_params(directory: str, plan: ShardingPlan,
                                    ckpt_cfg=ckpt_cfg, dtype=dtype,
                                    device=device, **paged_kw)
     from ..checkpoint import ckpt as C
+    serving_device(plan, "restore_serving_params")
     dev = target_device(device)
     cast = _serving_cast(dtype)
     if plan.mesh is None:

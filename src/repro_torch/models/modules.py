@@ -17,13 +17,15 @@ Design rules (the reference's):
 Here: GQA/MQA attention with sliding windows, qk-norm, partial RoPE
 and M-RoPE, cross-attention, MLA (DeepSeek-V2's latent attention, its
 decode absorbed into the compressed cache), the dense MLP, the MoE
-(token-choice top-k with static capacity, on one device; routing and
-combine exact and in a fixed order on any device), the embedding and
+(token-choice top-k with static capacity; routing and combine exact
+and in a fixed order on any device), the embedding and
 the loss: flash attention's backward recomputes its score blocks
 (``_Flash``) and ``chunked_xent`` its chunks' logits, so training keeps
-neither (S, S) scores nor (B, S, V) logits. The MoE's expert
-parallelism comes with placement over several cards (ROADMAP Queue 1
-item 5c).
+neither (S, S) scores nor (B, S, V) logits. The MoE runs expert-parallel
+over a model axis of several ranks (each rank its experts, the outputs
+summed over the model group in rank order: ``moe_apply``); one process
+on a logical mesh computes the same shards in turn
+(``moe_block_by_shards``).
 """
 from __future__ import annotations
 
@@ -655,13 +657,15 @@ def _combine(y_pairs, order, T: int, top_k: int):
     return y
 
 
-def moe_local_math(x2d, mp, cfg: MoEConfig, first_expert, n_local, capacity):
+def moe_local_math(x2d, mp, cfg: MoEConfig, first_expert, n_local, capacity,
+                   with_route: bool = False):
     """Token-choice top-k with static capacity on ONE expert shard.
 
     x2d: (T, d) tokens. Computes only experts [first_expert, first_expert
     + n_local); the caller sums across shards. Scatter/gather based: no
     (T, E, C) one-hot dispatch tensor is built. -> (y (T, d) in x2d's
-    dtype, the load-balance aux)."""
+    dtype, the load-balance aux), and :func:`moe_route`'s dict with
+    `with_route`."""
     T, d = x2d.shape
     dt = x2d.dtype
     logits = torch.einsum("td,de->te", x2d, mp["router"].to(dt))
@@ -690,24 +694,117 @@ def moe_local_math(x2d, mp, cfg: MoEConfig, first_expert, n_local, capacity):
     counts = r["counts"]
     ce = counts.float() / torch.clamp(counts.sum(), min=1).float()
     aux = cfg.n_experts * torch.sum(me * ce)
+    if with_route:
+        return y.to(dt), aux, r
     return y.to(dt), aux
 
 
+def _expert_slice(mp, first: int, n_local: int):
+    """The router and experts [first, first + n_local) of an MoE leaf
+    dict."""
+    sl = slice(first, first + n_local)
+    return {"router": mp["router"], "wi": mp["wi"][sl],
+            "wg": mp["wg"][sl], "wo": mp["wo"][sl]}
+
+
+def _experts_per_shard(cfg: MoEConfig, ms: int) -> int:
+    if cfg.n_experts % ms:
+        raise ValueError(f"experts must divide model axis: {cfg.n_experts} "
+                         f"experts over a model axis of {ms}")
+    return cfg.n_experts // ms
+
+
+def moe_block_by_shards(x2d, mp, cfg: MoEConfig, n_shards: int,
+                        capacity: int, with_routes: bool = False):
+    """Expert parallelism over `n_shards` model shards in ONE process:
+    shard m's :func:`moe_local_math` over experts [m E/n, (m+1) E/n) at
+    `capacity`, the shards' outputs summed in f32 from 0 in shard order
+    and cast back, as a rank's model group sums them (``moe_apply``) and
+    the reference's ``psum`` does. -> (y (T, d) in x2d's dtype, shard 0's
+    aux; with `with_routes`, each shard's :func:`moe_route` dict)."""
+    nl = _experts_per_shard(cfg, n_shards)
+    acc = torch.zeros(x2d.shape, dtype=torch.float32, device=x2d.device)
+    routes, aux0 = [], None
+    for m in range(n_shards):
+        y, aux, r = moe_local_math(x2d, _expert_slice(mp, m * nl, nl), cfg,
+                                   m * nl, nl, capacity, with_route=True)
+        acc = acc + y.float()
+        routes.append(r)
+        aux0 = aux if aux0 is None else aux0
+    y = acc.to(x2d.dtype)
+    return (y, aux0, routes) if with_routes else (y, aux0)
+
+
+def _moe_ep_ranks(x2d, mp, cfg: MoEConfig, plan: ShardingPlan, cap: int):
+    """Expert parallelism on a rank mesh: this rank's experts over its
+    batch rows, the f32 outputs summed over the model group in rank
+    order. The tokens and the MoE leaves every model rank holds alike
+    enter through ``group_copy`` (their cotangents summed over the group
+    in the backward), the output leaves through ``group_sum`` (its
+    cotangent passed to every member); the aux, alike on every model
+    rank, carries its gradient on model rank 0 only, so the sum counts
+    it once — the reference's gradients (one-device ones, unscaled)."""
+    from ..runtime.dist import group_copy, group_mean, group_sum
+    mg = plan.mesh.group(plan.model_axis)
+    nl = _experts_per_shard(cfg, mg.size)
+    first = mg.index * nl
+    mp_loc = _expert_slice({k: group_copy(v, mg) for k, v in mp.items()
+                            if k in ("router", "wi", "wg", "wo")}, first, nl)
+    y_loc, aux = moe_local_math(group_copy(x2d, mg), mp_loc, cfg, first, nl,
+                                cap)
+    y = group_sum(y_loc.float(), mg).to(x2d.dtype)
+    if mg.index != 0:
+        aux = aux.detach()
+    return y, group_mean(aux, plan.batch_group())
+
+
 def moe_apply(p, cfg: MoEConfig, x, plan: ShardingPlan):
-    """x: (B, S, d) -> (y, aux_loss): the local path, all experts on one
-    device. Expert parallelism over a model axis of several devices (the
-    reference's shard_map) raises NotImplementedError (ROADMAP Queue 1
-    item 5c)."""
+    """x: (B, S, d) -> (y, aux_loss).
+
+    Without a model axis (or of size 1) all experts run at once over the
+    whole batch (on a rank mesh with a batch axis the rows are gathered
+    over the batch group first, as the reference routes its global
+    batch). Over a model axis of several positions each shard takes
+    E / model experts at the capacity of the rows of one batch position
+    (the reference's shard_map): on a rank mesh every rank its own shard
+    (:func:`_moe_ep_ranks`); on a logical mesh one process each batch
+    block's shards in turn (:func:`moe_block_by_shards`), the aux
+    averaged over the batch blocks."""
+    from ..runtime.sharding import is_rank_plan
     B, S, d = x.shape
     x2d = x.reshape(B * S, d)
-    if plan.mesh is not None and plan.model_size != 1:
-        raise NotImplementedError(
-            "MoE expert parallelism over a model axis of "
-            f"{plan.model_size} is not ported to repro_torch yet (ROADMAP "
-            "Queue 1 item 5c: the reference's shard_map, "
-            "models/modules.py:661-721)")
-    cap = _moe_capacity(B * S, cfg, cfg.n_experts)
-    y, aux = moe_local_math(x2d, p["moe"], cfg, 0, cfg.n_experts, cap)
+    mp = p["moe"]
+    ranks = is_rank_plan(plan)
+    if plan.mesh is None or plan.model_size == 1:
+        if ranks and plan.batch_group().size > 1:
+            from ..runtime.dist import gather_rows
+            g = plan.batch_group()
+            xa = gather_rows(x2d, g)
+            cap = _moe_capacity(xa.shape[0], cfg, cfg.n_experts)
+            ya, aux = moe_local_math(xa, mp, cfg, 0, cfg.n_experts, cap)
+            y = ya[g.index * B * S:(g.index + 1) * B * S]
+        else:
+            cap = _moe_capacity(B * S, cfg, cfg.n_experts)
+            y, aux = moe_local_math(x2d, mp, cfg, 0, cfg.n_experts, cap)
+    elif ranks:
+        # the rank holds its batch position's rows: B is already B / dp
+        ms = plan.model_size
+        cap = _moe_capacity(B * S, cfg, _experts_per_shard(cfg, ms))
+        y, aux = _moe_ep_ranks(x2d, mp, cfg, plan, cap)
+    else:
+        ms = plan.model_size
+        dp = int(np.prod([plan.axis_size(a) for a in plan.batch_axes]))
+        cap = _moe_capacity(B * S // dp, cfg, _experts_per_shard(cfg, ms))
+        ys, auxes = [], []
+        for blk in x2d.chunk(dp):
+            yb, ab = moe_block_by_shards(blk, mp, cfg, ms, cap)
+            ys.append(yb)
+            auxes.append(ab)
+        y = torch.cat(ys)
+        aux = auxes[0]
+        for a in auxes[1:]:
+            aux = aux + a
+        aux = aux / dp
     y = y.reshape(B, S, d)
     if "shared" in p:
         y = y + mlp_apply({"mlp": p["shared"]["mlp"]}, x, plan, act=cfg.act)

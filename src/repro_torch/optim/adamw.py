@@ -80,8 +80,9 @@ def global_norm(tree: Tree) -> torch.Tensor:
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
-def _scalars(grads: Tree, step: torch.Tensor, cfg: AdamWConfig):
-    gn = global_norm(grads)
+def _scalars(grads: Tree, step: torch.Tensor, cfg: AdamWConfig,
+             grad_norm=None):
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
     sf = step.to(torch.float32)
     return dict(gn=gn, clip=clip, lr=_schedule(cfg, step),
@@ -89,13 +90,20 @@ def _scalars(grads: Tree, step: torch.Tensor, cfg: AdamWConfig):
 
 
 def adamw_update(params: Tree, grads: Tree, opt_state: Dict,
-                 cfg: AdamWConfig, device="cuda"
+                 cfg: AdamWConfig, device="cuda", grad_norm=None
                  ) -> Tuple[Tree, Dict, Dict]:
     """One step -> (params, opt state, {"grad_norm", "lr"}). Runs on
-    ``device`` (the card unless ``device='cpu'``)."""
+    ``device`` (the card unless ``device='cpu'``). `grad_norm`: the
+    global norm of the whole gradients when `params`, `grads` and the
+    moments are one rank's shards of them (the update is elementwise
+    given the norm: a shard's update is the slice of the whole one's);
+    by default :func:`global_norm` of `grads`."""
     dev = target_device(device)
     step = opt_state["step"].to(dev) + 1
-    s = _scalars({k: g.to(dev) for k, g in grads.items()}, step, cfg)
+    if grad_norm is not None:
+        grad_norm = grad_norm.to(dev)
+    s = _scalars({k: g.to(dev) for k, g in grads.items()}, step, cfg,
+                 grad_norm)
     b1, b2 = cfg.b1, cfg.b2
     new_p, new_mu, new_nu = {}, {}, {}
     for k, p in params.items():

@@ -19,8 +19,11 @@ of every leaf:
     in row p. The pods are packed and unpacked together (one launch of
     each a leaf) and the mean is taken over the rows. This is the form one
     card runs.
-  * a group: each process holds its own pod's (*shape) leaves and
-    all-gathers its words and scale, as the reference's ``all_gather``.
+  * a group (a ``runtime/dist.py::RankGroup`` of a rank mesh, or a
+    ``torch.distributed`` group): each process holds its own pod's
+    (*shape) leaves and all-gathers its words and scale, as the
+    reference's ``all_gather`` (``launch/train.py`` runs it inside the
+    train step over the pod axis of a rank mesh).
 
 Both give the bits of the reference: the words, scales, residuals and
 the pod mean (summed in pod order from 0.0, then divided by P, as XLA
@@ -68,12 +71,33 @@ def _half(bits: int) -> int:
 _TINY = float(np.float32(1e-30))
 
 
+# fma_f32 works in blocks of this many values along the last dimension:
+# its float64 temporaries of a whole 3e8-value leaf would take ~15 GB
+_FMA_BLOCK = 1 << 24
+
+
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
     """a * b + c for f32 operands, rounded to f32 once: the FMA that XLA
     on the CPU contracts a multiply and an add into. The product of two
     f32 values is exact in float64; TwoSum gives the float64 sum s and its
     exact remainder e; s rounds to f32 as the exact sum does unless s lies
-    on an f32 midpoint, where e (if not 0) decides the side."""
+    on an f32 midpoint, where e (if not 0) decides the side. Elementwise,
+    so a large operand is taken in blocks of its last dimension (the same
+    bits, bounded temporaries)."""
+    c = torch.as_tensor(c, dtype=torch.float32, device=a.device)
+    shape = torch.broadcast_shapes(a.shape, b.shape, c.shape)
+    n = shape[-1] if shape else 1
+    if n <= _FMA_BLOCK:
+        return _fma_f32(a, b, c)
+    a, b, c = (t.expand(shape) for t in (a, b, c))
+    out = torch.empty(shape, dtype=torch.float32, device=a.device)
+    for i in range(0, n, _FMA_BLOCK):
+        j = min(n, i + _FMA_BLOCK)
+        out[..., i:j] = _fma_f32(a[..., i:j], b[..., i:j], c[..., i:j])
+    return out
+
+
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
     p = a.to(torch.float64) * b.to(torch.float64)
     c = torch.as_tensor(c, dtype=torch.float32, device=p.device).to(
         torch.float64)
@@ -140,12 +164,25 @@ def compress_decompress_leaf(g: torch.Tensor, bits: int):
 
 
 def gather_ranks(t: torch.Tensor, group) -> torch.Tensor:
-    """(world, *t.shape): every process's t in rank order."""
+    """(world, *t.shape): every process's t in rank order. `group`: a
+    ``runtime/dist.py::RankGroup`` (its exchange staged through the host,
+    so CUDA tensors cross a gloo group) or a ``torch.distributed`` group."""
+    from ..runtime.dist import RankGroup, all_gather
+    if isinstance(group, RankGroup):
+        return torch.stack(all_gather(t.contiguous(), group))
     import torch.distributed as dist
     parts = [torch.empty_like(t)
              for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t.contiguous(), group=group)
     return torch.stack(parts)
+
+
+def _group_rank(group) -> int:
+    from ..runtime.dist import RankGroup
+    if isinstance(group, RankGroup):
+        return group.index
+    import torch.distributed as dist
+    return dist.get_rank(group)
 
 
 def pod_mean(q2: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
@@ -179,10 +216,9 @@ def _leaf(g: torch.Tensor, r: torch.Tensor, cfg: CompressionConfig, group):
     mean = pod_mean(q2, scale)[:n].reshape(shape).to(g.dtype)
     if not cfg.error_feedback:
         return mean, r
-    if group is not None:
-        import torch.distributed as dist
-        rank = dist.get_rank(group)
-        q2, scale = q2[rank:rank + 1], scale[rank:rank + 1]
+    if group is not None:       # this pod's row alone stays alive
+        rank = _group_rank(group)
+        q2, scale = q2[rank:rank + 1].clone(), scale[rank:rank + 1]
     # flat - dequant: XLA contracts the product into the subtraction
     new_r = fma_f32(-q2, scale[:, None], flat)[:, :n].reshape(g.shape)
     return mean, new_r

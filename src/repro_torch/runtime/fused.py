@@ -921,17 +921,26 @@ def batch_compress(shards, eb_rel: float, chunk_values: int, block_size: int,
     shard keeps its own AdaptiveCoder stream, and ONE `hufenc` pack
     covers every shard's chunks. Each result equals the shard's own
     ``compress_error_bounded`` bit for bit (the reference's
-    ``runtime/fused.py::batch_compress``). A `plan` whose mesh spans one
-    device runs the passes there; a mesh over several devices raises
-    NotImplementedError (ROADMAP Queue 1 item 5).
+    ``runtime/fused.py::batch_compress``). With a rank plan (a mesh of
+    several processes) each batch position's rank runs the passes for
+    its contiguous block of shards on its device and every rank returns
+    the whole list, ``plan=None``'s bit for bit
+    (``runtime/sharding.py::distribute``); a logical mesh runs them on
+    the device it names.
     """
     from ..core.ceaz import CEAZCompressed
-    from .sharding import plan_device
+    from .sharding import distribute, is_rank_plan, plan_device
     if len({s.shape for s in shards}) != 1:
         raise ValueError("batch_compress requires same-shape shards")
     if len({s.dtype for s in shards}) != 1:
         raise ValueError("batch_compress requires same-dtype shards")
     dev = target_device(plan_device(plan, "batch_compress") or device)
+    if is_rank_plan(plan):
+        return distribute(list(shards), plan, lambda blk: batch_compress(
+            blk, eb_rel, chunk_values, block_size, offline, mode=mode,
+            device=dev, stats_on_device=stats_on_device, tau0=tau0,
+            tau1=tau1, adaptive=adaptive, exact_build=exact_build,
+            kernel_impl=kernel_impl, predictor=predictor))
     if stats_on_device is None:
         stats_on_device = dev.type != "cpu"
     ebs = [eb_rel * core_dq.value_range(s) if mode == "rel" else eb_rel

@@ -11,14 +11,38 @@ Axes convention (the production mesh of launch/mesh.py):
 
 The rules (:data:`PARAM_RULES`, :func:`spec_for_path`,
 :func:`leaf_sharding`) are the reference's, over the port's flat
-``dict[str, Tensor]`` trees keyed by '/'-joined paths. Placement runs on a
-mesh that spans ONE device (every axis of size 1, or a logical mesh that
-names one device on every position): :func:`place` moves a leaf there,
-:func:`shard_compress` and ``CEAZ.compress_batch`` run their passes
-there. A mesh over several devices raises NotImplementedError:
-placement across cards comes with training and ``torch.distributed``
-(ROADMAP Queue 1 item 5). A plan with mesh=None makes every helper a
-no-op.
+``dict[str, Tensor]`` trees keyed by '/'-joined paths, with its
+divisibility guard.
+
+Placement follows the mesh (``launch/mesh.py``):
+
+  * a RANK mesh (built inside a ``torch.distributed`` world, one process
+    a position): :func:`place` keeps the rank's local shard of a leaf —
+    the slice its mesh coordinates select along every dimension the spec
+    names — on the rank's device, and :func:`gather_leaf` all-gathers the
+    shards back to the whole leaf (``runtime/dist.py``, gloo, staged
+    through the host). :func:`shard_compress`, ``fused.batch_compress``
+    and ``CEAZ.compress_batch`` compress the shards at each batch
+    position on that position's rank and all-gather the streams as
+    objects, so every rank returns ``plan=None``'s list bit for bit;
+  * a LOGICAL mesh (one process, every position naming one device):
+    whole leaves on that device, the passes there;
+  * ``mesh=None``: every helper a no-op.
+
+One process cannot drive a mesh whose positions name several devices:
+:func:`mesh_device` raises ValueError for it.
+
+Compute on the model axis is gather on use. The reference's model code
+fixes where each leaf lives, not how the model axis splits the
+arithmetic (XLA decides that). The port's train step gathers every
+stored shard to the whole leaf and computes exactly the one-device step
+on its batch rows; the arithmetic is split only where the reference
+splits it by hand: MoE expert parallelism (``models/modules.py::
+moe_apply``) and the pod exchange (``optim/grad_compress.py``).
+Megatron-style split matmuls would change the order of every sum for no
+check that can be made against the reference. Serving over several
+devices is not ported yet (ROADMAP Queue 1 item 5c): its entry points
+raise NotImplementedError (:func:`serving_device`).
 """
 from __future__ import annotations
 
@@ -48,27 +72,49 @@ class NamedSharding:
     spec: PartitionSpec
 
 
-def _multi_device(what: str, mesh: Mesh):
-    raise NotImplementedError(
-        f"{what} over a mesh of {len(mesh.device_set)} devices "
-        f"({list(mesh.device_set)}) is not ported to repro_torch yet "
-        "(ROADMAP Queue 1 item 5: placement across cards comes with "
-        "training and torch.distributed)")
-
-
 def mesh_device(mesh: Mesh, what: str = "placement") -> torch.device:
-    """The one device a mesh spans; NotImplementedError naming Queue 1
-    item 5 for a mesh over several devices."""
+    """The device this process computes on for `mesh`: the rank's own on
+    a rank mesh, the one device a logical mesh names. A mesh whose
+    positions name several devices in one process raises ValueError:
+    the port runs one process a position."""
+    if mesh.is_rank_mesh:
+        return mesh.local_device
     devs = mesh.device_set
     if len(devs) != 1:
-        _multi_device(what, mesh)
+        raise ValueError(
+            f"{what} over a mesh of {len(devs)} devices ({list(devs)}) in "
+            "one process: the port runs one process a position — build the "
+            "mesh inside a torch.distributed world (launch/mesh.py; "
+            "runtime/dist.py::launch)")
     return devs[0]
 
 
 def plan_device(plan, what: str) -> Optional[torch.device]:
-    """The device a plan's mesh spans, or None without a plan or mesh."""
+    """The device a plan's mesh computes on, or None without a plan or
+    mesh."""
     mesh = getattr(plan, "mesh", None) if plan is not None else None
     return None if mesh is None else mesh_device(mesh, what)
+
+
+def is_rank_plan(plan) -> bool:
+    """Whether `plan` carries a rank mesh of several processes."""
+    mesh = getattr(plan, "mesh", None) if plan is not None else None
+    return mesh is not None and mesh.is_rank_mesh and mesh.size > 1
+
+
+def serving_device(plan, what: str) -> Optional[torch.device]:
+    """:func:`plan_device` for the serving paths, which place on one
+    device only: a plan over several devices or ranks raises
+    NotImplementedError naming ROADMAP Queue 1 item 5c."""
+    mesh = getattr(plan, "mesh", None) if plan is not None else None
+    if mesh is not None and (mesh.is_rank_mesh and mesh.size > 1
+                             or len(mesh.device_set) > 1):
+        raise NotImplementedError(
+            f"{what} over a mesh of {mesh.size} positions "
+            f"({mesh.shape}) is not ported to repro_torch yet (ROADMAP "
+            "Queue 1 item 5c: serving over several devices — cache "
+            "placement, the restore and the pager onto a rank mesh)")
+    return plan_device(plan, what)
 
 
 @dataclasses.dataclass
@@ -110,11 +156,22 @@ class ShardingPlan:
         return P(*parts)
 
     def cs(self, x, *parts):
-        """The sharding constraint: the identity without a mesh or on a
-        mesh that spans one device."""
+        """The sharding constraint: the identity. A rank holds its own
+        batch rows, and gather on use leaves every other dimension whole
+        (module docstring); a mesh one process cannot drive raises."""
         if self.mesh is not None:
             mesh_device(self.mesh, "a sharding constraint")
         return x
+
+    def batch_group(self):
+        """The rank group of the batch axes."""
+        return self.mesh.group(self.batch_axes)
+
+    def batch_index(self) -> Tuple[int, int]:
+        """(this rank's row-major position on the batch axes, their
+        size): which block of the global batch it holds."""
+        g = self.batch_group()
+        return g.index, g.size
 
     def named(self, *parts) -> Optional[NamedSharding]:
         if self.mesh is None:
@@ -141,6 +198,26 @@ class ShardingPlan:
         return self.cs(x, self.batch, None, self.model_axis)
 
 
+def distribute(items, plan: "ShardingPlan", fn):
+    """fn(block) -> one result an item, run for contiguous blocks of
+    `items` (one a batch position of a rank plan, on that position's rank
+    whose other coordinates are all 0), the results all-gathered as
+    objects -> every rank's list in item order."""
+    from .dist import all_gather_object
+    mesh = plan.mesh
+    g = plan.batch_group()
+    blocks = np.array_split(np.arange(len(items)), g.size)
+    others = [a for a in mesh.axis_names if a not in plan.batch_axes]
+    lead = all(mesh.coords[a] == 0 for a in others)
+    mine = list(blocks[g.index]) if lead else []
+    out = fn([items[i] for i in mine]) if mine else []
+    got = {}
+    for idx, res in all_gather_object((mine, out), mesh.group(
+            mesh.axis_names)):
+        got.update(zip(idx, res))
+    return [got[i] for i in range(len(items))]
+
+
 def shard_compress(x: np.ndarray, plan: ShardingPlan,
                    eb_rel: float = 1e-4, chunk_values: int = 1 << 20,
                    block_size: int = 4096, device="cuda"):
@@ -151,9 +228,10 @@ def shard_compress(x: np.ndarray, plan: ShardingPlan,
     through one pair of fused passes — each shard an independent CEAZ
     stream. Returns (compressed_list, shard_len), shard_len being the
     leading-axis extent of every shard but possibly the last; a ragged
-    tail takes its own pass. The passes run on the device the plan's
-    mesh spans, else on `device` (the card unless the caller asks for
-    the CPU); a mesh over several devices raises NotImplementedError.
+    tail takes its own pass. On a rank mesh each batch position's rank
+    compresses its shard on its device and every rank returns the whole
+    list; on a logical mesh the passes run on the device it names, else
+    on `device` (the card unless the caller asks for the CPU).
     """
     from ..core.codebook import default_offline_codebook
     from . import fused
@@ -168,7 +246,10 @@ def shard_compress(x: np.ndarray, plan: ShardingPlan,
     off = default_offline_codebook()
     run = lambda grp: fused.batch_compress(grp, eb_rel, chunk_values,
                                            block_size, off, device=dev)
-    if len({s.shape for s in shards}) > 1:      # ragged tail: pad-free split
+    if is_rank_plan(plan):
+        comps = distribute(shards, plan,
+                           lambda blk: [c for s in blk for c in run([s])])
+    elif len({s.shape for s in shards}) > 1:    # ragged tail: pad-free split
         comps = run(shards[:-1]) + run(shards[-1:])
     else:
         comps = run(shards)
@@ -279,22 +360,74 @@ def leaf_sharding(path: str, shape,
     return NamedSharding(plan.mesh, P(*parts))
 
 
-def param_shardings(params, plan: ShardingPlan):
+def param_shardings(params, plan: ShardingPlan, shapes=None):
     """{path: NamedSharding or None} for a flat or nested tree (paths in
-    ``convert.tree_items`` order)."""
+    ``convert.tree_items`` order). `shapes`: {path: whole shape} when the
+    leaves are one rank's shards (a shard's shape does not tell whether
+    the guard replicated a dimension)."""
     from ..convert import tree_items
-    return {k: leaf_sharding(k, tuple(getattr(v, "shape", ())), plan)
+    return {k: leaf_sharding(k, tuple(shapes[k]) if shapes is not None
+                             else tuple(getattr(v, "shape", ())), plan)
             for k, v in tree_items(params)}
 
 
+def _dim_axes(part):
+    return () if part is None else (part if isinstance(part, tuple)
+                                    else (part,))
+
+
+def shard_slices(shape, sharding: NamedSharding,
+                 coords=None) -> Tuple[slice, ...]:
+    """The block of a leaf of `shape` that the mesh position `coords`
+    ({axis: coordinate}; default this rank's) holds: along each dimension
+    its spec names, the block those coordinates select (row-major over
+    the axes in the spec's order)."""
+    mesh = sharding.mesh
+    coords = mesh.coords if coords is None else coords
+    sizes = mesh.shape
+    out = []
+    for i, n in enumerate(shape):
+        axes = _dim_axes(sharding.spec[i] if i < len(sharding.spec)
+                         else None)
+        idx, tot = 0, 1
+        for a in axes:
+            idx, tot = idx * sizes[a] + coords[a], tot * sizes[a]
+        if n % tot:
+            raise ValueError(f"dimension {i} of {tuple(shape)} does not "
+                             f"divide over {axes} ({tot})")
+        step = n // tot
+        out.append(slice(idx * step, (idx + 1) * step))
+    return tuple(out)
+
+
 def place(arr, sharding: Optional[NamedSharding]):
-    """A host leaf (numpy array or tensor) as a tensor on the device its
-    sharding's mesh spans; with no sharding, the leaf unchanged. A mesh
-    over several devices raises NotImplementedError (Queue 1 item 5)."""
+    """A host leaf (numpy array or tensor) placed by its sharding: on a
+    rank mesh, this rank's shard (:func:`shard_slices`) as a tensor of its
+    own on the rank's device; on a logical mesh, the whole leaf on the
+    device it names. With no sharding, the leaf unchanged."""
     from .fused import target_device
     if sharding is None:
         return arr
     dev = target_device(mesh_device(sharding.mesh, "placement"))
     if isinstance(arr, np.ndarray):
         arr = torch.from_numpy(np.asarray(arr, order="C"))
-    return torch.as_tensor(arr).to(dev)
+    arr = torch.as_tensor(arr)
+    if sharding.mesh.is_rank_mesh:       # a copy: the whole leaf can go
+        return arr[shard_slices(arr.shape, sharding)].to(
+            dev, copy=True, memory_format=torch.contiguous_format)
+    return arr.to(dev)
+
+
+def gather_leaf(t: torch.Tensor, sharding: Optional[NamedSharding]):
+    """The inverse of :func:`place`: a rank's shard all-gathered over the
+    axes of its spec, dimension by dimension (the innermost axis of a
+    dimension first), to the whole leaf on the rank's device. Without a
+    sharding or a rank mesh, `t` unchanged."""
+    from .dist import gather_cat
+    if sharding is None or not sharding.mesh.is_rank_mesh:
+        return t
+    mesh = sharding.mesh
+    for i, part in enumerate(sharding.spec):
+        for a in reversed(_dim_axes(part)):
+            t = gather_cat(t.contiguous(), mesh.group(a), i)
+    return t

@@ -41,7 +41,8 @@ from ..io import engine as E
 from ..obs import metrics as om
 from ..obs import trace as ot
 from ..runtime.fused import target_device
-from ..runtime.sharding import ShardingPlan, leaf_sharding, place
+from ..runtime.sharding import (ShardingPlan, leaf_sharding, place,
+                                serving_device)
 
 __all__ = ["PagedParamStore", "PinnedParams"]
 
@@ -138,8 +139,8 @@ class PagedParamStore:
         ``leaves.ceazs`` — fully validated at open).
       plan: serve-mesh sharding plan; decoded leaves are placed by their
         PARAM_RULES :func:`leaf_sharding` as they decode (a mesh that
-        spans one device; several raise NotImplementedError, ROADMAP
-        Queue 1 item 5). With ``plan=None`` (or a mesh-less plan) leaves
+        spans one device; a mesh over several devices or ranks raises
+        NotImplementedError, ROADMAP Queue 1 item 5c). With ``plan=None`` (or a mesh-less plan) leaves
         land on `device`.
       dtype: torch dtype float leaves are cast to on the host BEFORE
         placement (``torch.bfloat16`` by default), so peak device memory
@@ -389,6 +390,7 @@ class PagedParamStore:
                 and t.is_floating_point()):
             t = t.to(self._dtype)
         if self._plan is not None and self._plan.mesh is not None:
+            serving_device(self._plan, "the pager's placement")
             return place(t, leaf_sharding(key, tuple(t.shape), self._plan))
         return t.to(self._device)
 

@@ -105,8 +105,9 @@ def test_group_runs_one_pass_pair():
 
 def test_mesh_plan_raises_and_batch_checks_shapes():
     """A plan over a one-device mesh batches there with plan=None's
-    streams (the batched pass included); one over two devices raises
-    naming ROADMAP Queue 1 item 5."""
+    streams (the batched pass included); one process cannot drive a mesh
+    over two devices (a rank mesh of processes does:
+    tests/test_torch_dist.py)."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.runtime.sharding import make_plan
     port = TC.CEAZ(TC.CEAZConfig(device="cpu"), offline_codebook=PORT_OFF)
@@ -116,13 +117,13 @@ def test_mesh_plan_raises_and_batch_checks_shapes():
     for a, b in zip(port.compress_batch(shards, plan=one),
                     port.compress_batch(shards)):
         assert_streams_bit_identical(a, b)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(ValueError, match="one process a position"):
         port.compress_batch(shards, plan=two)
     from repro_torch.runtime import fused
     with pytest.raises(ValueError, match="same-shape"):
         fused.batch_compress(_shards("ragged"), 1e-4, 4096, 1024, PORT_OFF,
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(ValueError, match="one process a position"):
         fused.batch_compress(shards, 1e-4, 4096, 1024, PORT_OFF,
                              device="cpu", plan=two)
     assert port.compress_batch([]) == []

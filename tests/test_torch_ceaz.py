@@ -182,8 +182,8 @@ def test_facade_runs_on_the_card_unless_asked_for_cpu():
 
 def _mesh_plans():
     """(a plan over a one-device mesh, a plan over two devices): the
-    sharding plan of ROADMAP Queue 1 item 3; placement over several
-    devices is item 5."""
+    sharding plan of ROADMAP Queue 1 item 3; one process cannot drive the
+    second (a rank mesh of processes does: tests/test_torch_dist.py)."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.runtime.sharding import make_plan
     return (make_plan(make_mesh((1, 1), ("data", "model"), ["cpu"])),
@@ -200,7 +200,7 @@ def test_unported_routes_raise(kw, item):
     """The staged routes run (tests/test_torch_staged.py holds them to
     the reference), and so does a batch over a mesh plan (ROADMAP
     `item`, the sharding plan) that spans one device: its streams are
-    plan=None's. A mesh over two devices raises naming item 5."""
+    plan=None's. One process cannot drive a mesh over two devices."""
     x = np.linspace(-1, 1, 64, dtype=np.float32)
     comp = _port(**kw)
     c = comp.compress(x)
@@ -211,7 +211,7 @@ def test_unported_routes_raise(kw, item):
     for a, b in zip(comp.compress_batch([x, x], plan=one),
                     comp.compress_batch([x, x])):
         assert_streams_bit_identical(a, b)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(ValueError, match="one process a position"):
         comp.compress_batch([x, x], plan=two)
 
 
@@ -236,15 +236,15 @@ def test_unported_decode_and_batch_routes_raise():
     # the split route is ported: same bytes as the megakernel route
     assert _port(decode_megakernel="split").decompress(c).tobytes() \
         == _port().decompress(c).tobytes()
-    # compress_batch is ported, over a one-device mesh plan too; a mesh
-    # over two devices raises naming Queue 1 item 5
+    # compress_batch is ported, over a one-device mesh plan too; one
+    # process cannot drive a mesh over two devices
     ones = [np.ones(8, np.float32)] * 2
     one, two = _mesh_plans()
     assert len(_port().compress_batch(ones)) == 2
     for a, b in zip(_port().compress_batch(ones, plan=one),
                     _port().compress_batch(ones)):
         assert_streams_bit_identical(a, b)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(ValueError, match="one process a position"):
         _port().compress_batch(ones, plan=two)
     with pytest.raises(ValueError, match="backend"):
         _port(use_fused=False, backend="jax").compress(

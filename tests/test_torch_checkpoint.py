@@ -250,5 +250,5 @@ def test_leaf_transform_runs_before_placement(tmp_path):
         assert b.dtype == ref.dtype and torch.equal(b, ref)
     two = S.make_plan(LM.make_mesh((2, 1), ("data", "model"),
                                    devices=["cuda:0", "cuda:1"]))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(ValueError, match="one process a position"):
         _restore(tmp_path, plan=two)

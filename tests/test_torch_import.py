@@ -33,7 +33,8 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.serve.paging, repro_torch.models.modules, "
             "repro_torch.models.transformer, repro_torch.configs, "
             "repro_torch.launch.serve, repro_torch.launch.train, "
-            "repro_torch.data.synthetic\n"
+            "repro_torch.data.synthetic, repro_torch.runtime.dist, "
+            "repro_torch.runtime.pipeline\n"
             # the staged route and compress_batch import lazily: run them
             "import numpy as np\n"
             "from repro_torch.core import CEAZ\n"
@@ -143,7 +144,8 @@ def test_no_source_imports_jax_or_reference():
                 "configs/gemma_7b.py", "configs/glm4_9b.py",
                 "configs/qwen2_vl_7b.py", "configs/whisper_base.py",
                 "configs/deepseek_v2_236b.py", "configs/phi35_moe_42b.py",
-                "launch/serve.py", "launch/train.py", "data/synthetic.py"):
+                "launch/serve.py", "launch/train.py", "data/synthetic.py",
+                "runtime/dist.py", "runtime/pipeline.py"):
         assert os.path.join(PORT, new) in files, new
     for path in files:
         tree = ast.parse(open(path).read(), path)

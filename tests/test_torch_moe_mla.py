@@ -216,14 +216,30 @@ def test_moe_apply_matches_reference(rng, arch):
 
 
 def test_moe_expert_parallelism_raises():
+    """Expert parallelism over a logical (2, 2) mesh runs in one process:
+    each batch block's expert shards in turn, summed in shard order
+    (``moe_block_by_shards``), the aux averaged over the blocks. An
+    expert count the model axis does not divide raises, as in the
+    reference (its ``assert``); rank meshes are held in
+    tests/test_torch_dist.py."""
     cfg = get_arch("phi3.5-moe-42b-a6.6b").reduced()
     blk = cfg.units[0].blocks[0]
     p = M.moe_init(torch.Generator().manual_seed(0), blk.moe)
     plan = SH.make_plan(LM.make_mesh((2, 2), ("data", "model"),
                                      devices=["cpu"] * 4))
-    x = torch.zeros((2, 4, blk.moe.d_model), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5c"):
-        M.moe_apply(p, blk.moe, x, plan)
+    x = torch.randn((2, 4, blk.moe.d_model),
+                    generator=torch.Generator().manual_seed(1)) \
+        .to(torch.bfloat16)
+    y, aux = M.moe_apply(p, blk.moe, x, plan)
+    cap = M._moe_capacity(4, blk.moe, blk.moe.n_experts // 2)
+    ys, auxes = zip(*(M.moe_block_by_shards(xb.reshape(4, -1), p["moe"],
+                                            blk.moe, 2, cap) for xb in x))
+    assert torch.equal(y, torch.stack(ys))
+    assert torch.equal(aux, (auxes[0] + auxes[1]) / 2)
+    three = SH.make_plan(LM.make_mesh((1, 3), ("data", "model"),
+                                      devices=["cpu"] * 3))
+    with pytest.raises(ValueError, match="experts must divide model axis"):
+        M.moe_apply(p, blk.moe, x, three)
     one = SH.make_plan(LM.make_mesh((1, 1), ("data", "model"),
                                     devices=["cpu"]))
     y, _ = M.moe_apply(p, blk.moe, x, one)       # model axis of 1: local

@@ -5,8 +5,9 @@ The reference's specs, plans and ``shard_compress`` streams over real
 (2,2), (2,2,2) and (1,2) meshes come from one subprocess with 8 host
 devices. The port's meshes here are logical: they name the CPU on every
 position, which is all the spec rules read; a mesh that spans one device
-runs the batched passes there, and a mesh over two devices raises
-naming ROADMAP Queue 1 item 5.
+runs the batched passes there, and one process cannot drive a mesh over
+two devices (ValueError; rank meshes of processes are held in
+tests/test_torch_dist.py).
 """
 import pickle
 
@@ -169,7 +170,7 @@ def test_one_device_mesh_runs_and_two_devices_raise():
              lambda: S.shard_compress(leaf, two, device="cpu"),
              lambda: two.act_btd(leaf)]
     for call in calls:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        with pytest.raises(ValueError, match="one process a position"):
             call()
     # the spec rules need no placement: a two-device mesh still answers
     assert tuple(S.leaf_sharding("mlp/wo", (4, 3), two).spec) == \

@@ -309,17 +309,29 @@ def test_main_needs_a_card_unless_asked_for_the_cpu():
 
 
 def test_pod_axis_exchange_is_not_ported():
-    """A pod axis asks for the compressed exchange inside the step: the
-    state gets its residual, the step raises naming Queue 1 item 5c."""
-    with pytest.raises(NotImplementedError, match="item 5c"):
-        TR.main(ARGS + ["--steps", "1", "--mesh", "2x1x1"])
+    """A pod axis asks for the compressed exchange inside the step. It is
+    ported now: ``main --mesh 2x1x1`` starts two gloo processes that
+    train over the pod axis; a logical pod mesh in one process gives the
+    state its residual, one a pod (stacked), and emulates the exchange;
+    a MoE arch exchanges uncompressed, as in the reference."""
+    _, hist = TR.main(ARGS + ["--steps", "1", "--mesh", "2x1x1"])
+    assert [i for i, _ in hist] == [0] and np.isfinite(hist[0][1])
     from repro_torch.launch import mesh as LM
     mesh = LM.make_mesh((2, 1, 1), ("pod", "data", "model"),
                         devices=["cpu"] * 2)
-    plan = TR.make_plan_for(get_arch(ARCH).reduced(), mesh)
-    state = TR.init_state(0, get_arch(ARCH).reduced(), TR.TrainConfig(),
-                          plan, device="cpu")
+    cfg = get_arch(ARCH).reduced()
+    plan = TR.make_plan_for(cfg, mesh)
+    state = TR.init_state(0, cfg, TR.TrainConfig(), plan, device="cpu")
     assert sorted(state) == ["opt", "params", "residual"]
+    wq = "units/0/b0/attn/wq"
+    res = dict(CV.tree_items(state["residual"]))[wq]
+    assert res.shape == (2,) + dict(CV.tree_items(state["params"]))[wq].shape
+    batch = TR.batch_on(S.batch_for_step(S.DataConfig(
+        vocab_size=cfg.vocab_size, global_batch=2, seq_len=32), 0), "cpu")
+    new, m = TR.make_train_step(cfg, TR.TrainConfig(), plan,
+                                device="cpu")(state, batch)
+    assert np.isfinite(float(m["loss"]))
+    assert float(dict(CV.tree_items(new["residual"]))[wq].abs().max()) > 0
     # a MoE arch exchanges uncompressed, as in the reference
     moe = get_arch("phi3.5-moe-42b-a6.6b").reduced()
     assert TR.has_moe(moe) and not TR.has_moe(get_arch(ARCH).reduced())

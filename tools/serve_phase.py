@@ -3,7 +3,7 @@
 instruments, on one NVIDIA GPU: a quicker run of those paths than the
 whole script.
 
-    python3 tools/serve_phase.py [--seed S] [--phases SERVE,SERVE.MOE,SERVE.ZOO,SERVE.SSM,TRAIN]
+    python3 tools/serve_phase.py [--seed S] [--phases SERVE,SERVE.MOE,SERVE.ZOO,SERVE.SSM,TRAIN,TRAIN.DIST]
 
 It builds the kernels, installs the census and capture hooks as
 ``chip_smoke.main`` does (``install_recorders``: the phases after SERVE
@@ -19,7 +19,10 @@ and restored, then served a few steps) and ``run_ssm_phase`` (rwkv6-1.6b's
 first 4 layers and zamba2-7b's first repeat saved, restored and held
 against the CPU; the whole zamba2-7b drawn as bf16 and served) and
 ``run_train_phase`` (gemma3-1b trained 6 steps at B 2 x S 2048,
-checkpointed and resumed from step 3; its card-against-CPU holds). Then
+checkpointed and resumed from step 3; its card-against-CPU holds) and
+``run_dist_phase`` (TRAIN.DIST: gemma3-1b's first repeat trained over 4
+gloo processes on the card, the pod exchange, the sharded save and the
+restore onto 2, the pipeline and the MoE's expert parallelism). Then
 ``serve_kernel_rows`` and
 ``zoo_kernel_rows`` on the calls the phases kept (each a row of its own
 here: no earlier phase made the rows). Prints the card's name and power
@@ -42,7 +45,7 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default="SERVE",
                     help="comma-separated: SERVE, SERVE.MOE, SERVE.ZOO, "
-                         "SERVE.SSM, TRAIN")
+                         "SERVE.SSM, TRAIN, TRAIN.DIST")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -58,7 +61,10 @@ def main():
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     runs = {"SERVE": CS.run_serve_phase, "SERVE.MOE": CS.run_moe_phase,
             "SERVE.ZOO": CS.run_zoo_phase, "SERVE.SSM": CS.run_ssm_phase,
-            "TRAIN": CS.run_train_phase}
+            "TRAIN": CS.run_train_phase,
+            "TRAIN.DIST": lambda dispatch, census, captured, card, d, seed,
+            *_: (None, {}, CS.run_dist_phase(dispatch, card, d, seed,
+                                             captured=captured)[1])}
     phases = args.phases.split(",")
     inputs, figs, walks, secs = {}, {}, {}, {}
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
