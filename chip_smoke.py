@@ -4708,6 +4708,45 @@ DIST_KERNELS = {
 }
 
 
+@contextlib.contextmanager
+def wire_held(dispatch, tally):
+    """Every CUDA pack_words / unpack_words call inside the block held
+    bitwise against its plain version on the same card inputs; a pack of
+    several pods' codes also row by row, the codes each pod's rank packs
+    (the ranks unpack the gathered words, the same words). `tally` gets
+    the held calls and the largest value count."""
+    import torch
+    fns = {op: dispatch.resolve(op, "cuda", "cuda") for op in WIRE_OPS}
+    plains = {op: dispatch.resolve(op, "torch", "cuda") for op in WIRE_OPS}
+
+    def hold(op, a):
+        got = fns[op](*a)
+        check(torch.equal(got, plains[op](*a)),
+              f"phase TRAIN.DIST (b): {op} at {tuple(a[0].shape)} differs "
+              f"from its plain version")
+        tally[op] = tally.get(op, 0) + 1
+        tally["values"] = max(tally.get("values", 0),
+                              a[1] if op == "unpack_words" else a[0].numel())
+        return got
+
+    def pack(q, bits):
+        out = hold("pack_words", (q, bits))
+        if q.dim() == 2 and q.shape[0] > 1:
+            for row in q.split(1):
+                hold("pack_words", (row, bits))
+        return out
+
+    def unpack(words, n, bits):
+        return hold("unpack_words", (words, n, bits))
+    for op, fn in (("pack_words", pack), ("unpack_words", unpack)):
+        dispatch.register(op, "cuda", lambda _f=fn: _f)
+    try:
+        yield
+    finally:
+        for op, fn in fns.items():
+            dispatch.register(op, "cuda", lambda _f=fn: _f)
+
+
 def dist_config(reduced=False):
     """gemma3-1b at its published widths and full vocabulary, its first
     repeat (6 of 26 layers: four replicas of the whole model's training
@@ -5025,7 +5064,9 @@ def run_dist_phase(dispatch, card, tmp, seed, dev="cuda", reduced=False,
       DIST_BITS bits, without and with the compressed exchange: every
       step's loss and every rank's shards bitwise the parent's
       one-process emulation on a logical mesh, the compressed losses
-      within 0.05 of the uncompressed, rows 15-16 launched in the step;
+      within 0.05 of the uncompressed, rows 15-16 launched in the step,
+      and every pack and unpack of the compressed emulation on the card
+      bitwise their plain versions on the same inputs (wire_held);
       (c) the uncompressed run's state (params and moments, 2.8 GB)
       saved compressed from the 4 ranks (rank 0 writes); (d) the pipeline, 4 stages of one block, DIST_PIPE_M
       microbatches of (1, DIST_PIPE_SEQ, 1152) f32: bitwise the parent's
@@ -5096,7 +5137,7 @@ def run_dist_phase(dispatch, card, tmp, seed, dev="cuda", reduced=False,
     del state, whole, step
     b_shape, b_axes = (2, 1, 2), ("pod", "data", "model")
     b_plan = logical(b_shape, b_axes)
-    want_b = {}
+    want_b, wire = {}, {}
     for comp in (False, True):
         tc = TR.TrainConfig(comp=CompressionConfig(bits=DIST_BITS,
                                                    enabled=comp))
@@ -5104,7 +5145,12 @@ def run_dist_phase(dispatch, card, tmp, seed, dev="cuda", reduced=False,
         step = TR.make_train_step(cfg, tc, b_plan, device=dev)
         want_b[comp] = {"losses": [], "after": []}
         for b in batches:
-            state, m = step(state, b)
+            # the compressed emulation's every pack and unpack (rows
+            # 15-16 at the leaves' whole lengths, the table's 302 M
+            # values a pod the largest) held against the plain versions
+            with wire_held(dispatch, wire) if comp else \
+                    contextlib.nullcontext():
+                state, m = step(state, b)
             want_b[comp]["losses"].append(float(m["loss"]))
             p = dict(tree_items(state["params"]))
             want_b[comp]["after"].append(
@@ -5113,6 +5159,13 @@ def run_dist_phase(dispatch, card, tmp, seed, dev="cuda", reduced=False,
             del m, p
         del state, step
     torch.use_deterministic_algorithms(False)
+    if torch_type(dev) == "cuda":
+        check(wire.get("pack_words", 0) > 0
+              and wire.get("unpack_words", 0) > 0,
+              f"phase TRAIN.DIST (b): the emulation's exchange held {wire}")
+    print(f"dist phase TRAIN.DIST (b): the emulation's pack_words and "
+          f"unpack_words calls bitwise their plain versions on {dev}: "
+          f"{wire}", flush=True)
     stacked, mbs, stage_fn = pipe_inputs(cfg, dev, seed)
     with compute_dtype(torch.float32):
         want_pipe = digest(sequential_reference(stage_fn, stacked, mbs))
@@ -5247,7 +5300,7 @@ def run_dist_phase(dispatch, card, tmp, seed, dev="cuda", reduced=False,
     share = lambda rec, key: [x / (ms / 1e3) for x, ms in
                               zip(rec[key], rec["ms"])]
     figs = dict(params=n_params, one_process_losses=one_losses,
-                grad_rel=grad_rel, seconds=secs,
+                grad_rel=grad_rel, seconds=secs, wire_held=wire,
                 emulated_losses={str(c): want_b[c]["losses"]
                                  for c in want_b})
     for name, recs in (("a", [res["a"] for res in r4]),

@@ -33,8 +33,9 @@ exchange uncompressed and run expert-parallel over the model axis, as in
 the reference. On a logical mesh (one process) the same step is
 emulated position by position: each batch position's gradients on its
 rows, the same means and exchange (``group=None``, the pods stacked on a
-leading axis, the residual too), the same update. Serving over several
-devices is still ROADMAP Queue 1 item 5c.
+leading axis, the residual too), the same update; an MoE arch without
+a model axis takes the global batch at once, as its ranks route it.
+Serving over several devices is still ROADMAP Queue 1 item 5c.
 """
 from __future__ import annotations
 
@@ -244,7 +245,10 @@ def make_train_step(model_cfg, train_cfg: TrainConfig, plan: ShardingPlan,
         return _rank_train_step(model_cfg, train_cfg, plan, dev, use_comp,
                                 keep_grads)
     n_pos = _logical_positions(plan)
-    if n_pos > 1:
+    # an MoE arch without a model axis routes its global batch at once on
+    # the ranks (moe_apply's gather_rows), as the reference does: one
+    # process takes that batch whole, not position by position
+    if n_pos > 1 and not (plan.model_size == 1 and has_moe(model_cfg)):
         return _emulated_train_step(model_cfg, train_cfg, plan, dev,
                                     use_comp, n_pos, keep_grads)
 

@@ -21,6 +21,13 @@ shared expert), B 2 x S 16 tokens.
   and 1e-5 in f32.
 * Without a model axis, a data axis of 2 ranks routes the global batch
   as the reference does (its capacity over every row).
+* The train step of the reduced archs on a logical (data=2, model=1)
+  mesh (one process) against the same step on 2 ranks, each on its
+  rows of the global batch: the loss and the aux within 1e-5 in f32,
+  the whole gradients within 2^-7 relative L2 a leaf (the bound of the
+  port's rank steps against one process: the flash backward rounds its
+  blocks to bf16). The ranks route the global batch, so the one process
+  takes it whole, not position by position.
 * An expert count the model axis does not divide raises.
 """
 import pickle
@@ -31,7 +38,9 @@ import torch
 
 from conftest import run_with_devices
 from repro_torch.configs import get_arch
+from repro_torch.data import synthetic as SYN
 from repro_torch.launch import mesh as LM
+from repro_torch.launch import train as TR
 from repro_torch.models import modules as M
 from repro_torch.runtime import dist as D
 from repro_torch.runtime import sharding as S
@@ -156,6 +165,38 @@ def dp_ranks(rank):
         out[(arch, dt, case)] = {"y": y.detach(), "aux": float(aux),
                                  "grads": {"x": got[0],
                                            **dict(zip(leaves, got[1:]))}}
+    return out
+
+
+def _train_data(cfg):
+    return SYN.DataConfig(vocab_size=cfg.vocab_size, global_batch=4,
+                          seq_len=32)
+
+
+def _train_step(cfg, plan, batch):
+    """One f32 train step from seed 0 -> (loss, aux, whole gradients)."""
+    old, M.COMPUTE_DTYPE = M.COMPUTE_DTYPE, torch.float32
+    try:
+        state = TR.init_state(0, cfg, TR.TrainConfig(), plan, device="cpu")
+        step = TR.make_train_step(cfg, TR.TrainConfig(), plan, device="cpu",
+                                  keep_grads=True)
+        _, m = step(state, TR.batch_on(batch, "cpu"))
+    finally:
+        M.COMPUTE_DTYPE = old
+    return float(m["loss"]), float(m["aux"]), m["grads"]
+
+
+def train_dp_ranks(rank):
+    """The reduced archs' train step on a (data=2, model=1) rank mesh,
+    each rank on its rows of the global batch."""
+    out = {}
+    for arch in ARCHS:
+        cfg = get_arch(arch).reduced()
+        plan = TR.make_plan_for(cfg, LM.make_mesh(
+            (2, 1), ("data", "model"), devices=["cpu"] * 2))
+        rows = SYN.batch_rows(SYN.batch_for_step(_train_data(cfg), 0),
+                              *plan.batch_index())
+        out[arch] = _train_step(cfg, plan, rows)
     return out
 
 
@@ -341,6 +382,31 @@ def test_data_axis_routes_the_global_batch(reference, dp, key):
             continue
         total = dp[0][key]["grads"][k] + dp[1][key]["grads"][k]
         assert _rel_l2(total.numpy(), ref["grads"][k]) <= GRAD_REL["f32"], k
+
+
+@pytest.fixture(scope="module")
+def train_dp():
+    return [r.result for r in D.launch(train_dp_ranks, 2, timeout=180,
+                                       threads=1)]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_logical_data_mesh_trains_as_the_ranks(train_dp, arch):
+    """A logical (data=2, model=1) mesh's step routes the global batch
+    at once, as its ranks do: per-position routing would take each
+    position's capacity and aux."""
+    cfg = get_arch(arch).reduced()
+    plan = TR.make_plan_for(cfg, LM.make_mesh((2, 1), ("data", "model"),
+                                              devices=["cpu"] * 2))
+    loss, aux, grads = _train_step(
+        cfg, plan, SYN.batch_for_step(_train_data(cfg), 0))
+    for got in train_dp:
+        r_loss, r_aux, r_grads = got[arch]
+        assert abs(r_loss - loss) <= GRAD_REL["f32"] * abs(loss)
+        assert abs(r_aux - aux) <= GRAD_REL["f32"] * abs(aux)
+        assert sorted(r_grads) == sorted(grads)
+        worst = max((_rel_l2(r_grads[k], grads[k]), k) for k in grads)
+        assert worst[0] <= GRAD_REL["bf16"], worst
 
 
 def test_indivisible_expert_count_raises(ranks):
