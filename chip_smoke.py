@@ -292,6 +292,28 @@ through the public facade, at rel eb 1e-4 unless said otherwise:
            the gloo staging's, the gloo exchange's and the compressed
            exchange's shares of a step, each rank's peak, the save and
            restore seconds.
+  SERVE.DIST  serving over the ranks of TRAIN.DIST's two worlds, after
+           their training work (no CUDA init of its own), gemma3-1b's
+           first repeat in bf16: the world of 2 restores the (c)
+           checkpoint for serving on (data=1, model=2), in full and paged
+           (every rank's shards bitwise the slices of the parent's bf16
+           restore, the paged leaves bitwise the full ones, the tiled
+           walk launched by both), then serves B 2 x 252 prompt tokens
+           and 8 greedy steps into 512-slot caches through the paged
+           store's collective pins; the world of 4 serves weights drawn
+           from the seed on (data=2, model=2), B 4 (2 rows a rank) and B
+           1 under decode_wide, 60 + 8 tokens into 128 slots. The
+           prompt's cache is ingested by a one-process decode over the
+           weights gathered once and placed by ``place_cache``; prefill
+           and decode are the rank-aware callables. Every prefill and
+           step logit, the placed and final cache slices of every rank
+           bitwise the parent's one-process run over the same rows on
+           the card, decode writing into exactly the slices that hold
+           its positions; B 4 also within the bound of the parent's
+           whole batch. Prints prefill ms, decode ms a step, its gloo
+           and staging seconds and bytes, the restore and paged
+           seconds and each rank's peak (counted with the children's
+           launches as SERVE.DIST).
 
 Each phase is run with the kernels' launch counts set to 0 just before
 and read just after, and must launch every kernel of its path. Phases P
@@ -4906,13 +4928,399 @@ def dist_train(rank, plan, cfg, tc, dev, seed, params0=None, grads0=None):
     return state, rec
 
 
+# ---------------------------------------------------------------------------
+# phase SERVE.DIST: serving over the ranks of TRAIN.DIST's two worlds
+# ---------------------------------------------------------------------------
+
+# the world of 2 on (data=1, model=2): B 2, a 252-token prompt, 8 greedy
+# steps into 512-slot caches, so positions 252-259 write into both model
+# ranks' halves (slots 0-255 and 256-511) of every layer's cache. The
+# world of 4 on (data=2, model=2): B 4 (2 rows a rank) and B 1 under
+# decode_wide (the sequence over all 4 ranks), a 60-token prompt and 8
+# steps into 128 slots (positions 60-67 cross the slices at 64, and the
+# wide slices at 64 too)
+SDIST_B2, SDIST_PROMPT2, SDIST_CACHE2 = 2, 252, 512
+SDIST_B4, SDIST_PROMPT4, SDIST_CACHE4 = 4, 60, 128
+SDIST_GEN = 8
+SDIST_KERNELS = ("hufdec_tiles",)    # the world of 2's restores' walk
+
+
+def sdist_prompt(cfg, B, P, seed, dev):
+    """B x P prompt tokens from a generator of the seed on `dev`."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed + 67 + B)
+    return torch.randint(0, cfg.vocab_size, (B, P), generator=g,
+                         device=dev, dtype=torch.int32)
+
+
+def sdist_ingest(cfg, whole, prompt, cache_len, dev):
+    """The prompt's decode cache: the prompt teacher-forced through the
+    one-process decode over the whole weights `whole`. (A rank gathers
+    its weights once for it: P gathered decode steps of the full
+    vocabulary's table would take most of the run's time.)"""
+    from repro_torch.launch import serve as S
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.sharding import ShardingPlan
+    B, P = prompt.shape
+    dec = S.make_decode_fn(cfg, ShardingPlan(mesh=None), B, cache_len)[0]
+    cache = T.init_cache(cfg, B, cache_len, device=dev)
+    for t in range(P):
+        _, cache = dec(whole, prompt[:, t], cache)
+    return cache
+
+
+def sdist_serve(pre, dec, params, prompt, cache, dev, tokens=None,
+                keep=False):
+    """Prefill `prompt`, then SDIST_GEN greedy decode steps from `cache`
+    (the steps' inputs `tokens` when given), each call timed between
+    syncs with dist.STATS on -> (the record: prefill and step logits'
+    digests, the steps' input tokens, ms, gloo and staging seconds and
+    bytes staged a call, with `keep` the logits themselves; the final
+    cache). `params()` gives the weights a call uses."""
+    import torch
+    from repro_torch.runtime import dist as D
+    rec = {"steps": [], "tokens": [], "ms": [], "gloo_s": [],
+           "staging_s": [], "sent": [], "logits": []}
+
+    def call(fn):
+        D.collect_stats(True)
+        out, s = dsynced(fn, dev)
+        rec["ms"].append(s * 1e3)
+        rec["gloo_s"].append(D.STATS["exchange_s"])
+        rec["staging_s"].append(D.STATS["staging_s"])
+        rec["sent"].append(D.STATS["bytes"])
+        D.collect_stats(False)
+        return out
+    with torch.no_grad():
+        logits = call(lambda: pre(params(), prompt))
+        rec["prefill"] = digest(logits)
+        if keep:
+            rec["logits"].append(logits)
+        for i in range(SDIST_GEN):
+            tok = (logits.argmax(-1).to(torch.int32) if tokens is None
+                   else tokens[i])
+            rec["tokens"].append(tok)
+            logits, cache = call(lambda: dec(params(), tok, cache))
+            rec["steps"].append(digest(logits))
+            if keep:
+                rec["logits"].append(logits)
+    return rec, cache
+
+
+def sdist_rows(cache, rows):
+    """Rows `rows` of a decode cache (the unit leaves' batch dimension
+    follows their repeat axis)."""
+    from repro_torch.convert import map_tree
+    return map_tree(lambda k, v: v[:, rows] if k.startswith("units/")
+                    else v[rows], cache)
+
+
+def sdist_cat(caches):
+    """Decode caches of consecutive row blocks joined along the batch."""
+    import torch
+    from repro_torch.convert import map_tree, tree_items
+    flat = [dict(tree_items(c)) for c in caches]
+    return map_tree(lambda k, _v: torch.cat(
+        [f[k] for f in flat], dim=1 if k.startswith("units/") else 0),
+        caches[0])
+
+
+def sdist_cache_slices(cache, cfg, shape, B, cache_len, dev):
+    """{coords key: {path: digest}} of the slice of `cache` (whole, B
+    rows) each rank of a (data, model) mesh of `shape` holds by
+    ``cache_shardings`` (a logical plan of the shape: the specs read only
+    the mesh's shape)."""
+    import numpy as np
+    from repro_torch.convert import tree_items
+    from repro_torch.launch import mesh as LM
+    from repro_torch.launch import serve as S
+    from repro_torch.runtime import sharding as SH
+    plan = SH.make_plan(LM.make_mesh(shape, ("data", "model"), devices=[
+        dev] * int(np.prod(shape))))
+    shd = dict(tree_items(S.make_decode_fn(cfg, plan, B, cache_len)[3][1]))
+    return {str(c): {k: digest(v[SH.shard_slices(tuple(v.shape), shd[k],
+                                                  coords=c)])
+                     for k, v in tree_items(cache)}
+            for c in mesh_coords(shape, ("data", "model"))}
+
+
+def sdist_rank(plan, cfg, params, shards, prompt, cache_len, dev,
+               keep=False):
+    """One rank's request: its weights gathered once for the prompt's
+    ingest (sdist_ingest, the whole batch), the cache placed as the
+    rank's slices (``place_cache``), then the rank-aware prefill and
+    greedy decode with `params()` (the rank's shards `shards`) gathered
+    on use -> the record with the ingested, placed and final caches'
+    digests."""
+    from repro_torch.convert import map_tree
+    from repro_torch.launch import serve as S
+    from repro_torch.launch.train import param_shapes
+    from repro_torch.runtime import sharding as SH
+    B, P = prompt.shape
+    shd = SH.param_shardings(shards, plan, shapes=param_shapes(cfg))
+    whole = map_tree(lambda k, v: SH.gather_leaf(v, shd[k]), shards)
+    cache0 = sdist_ingest(cfg, whole, prompt, cache_len, dev)
+    del whole
+    dec, _, _, (_, cs) = S.make_decode_fn(cfg, plan, B, cache_len)
+    pre = S.make_prefill_fn(cfg, plan, B, P)[0]
+    ingest = digests(cache0)
+    cache = SH.place_cache(cache0, cs)
+    del cache0
+    start = digests(cache)
+    rec, cache = sdist_serve(pre, dec, params, prompt, cache, dev,
+                             keep=keep)
+    rec.update(ingest=ingest, start=start, final=digests(cache),
+               coords=str(plan.mesh.coords),
+               logits=[x.float().cpu() for x in rec["logits"]],
+               tokens=[t.cpu() for t in rec["tokens"]])
+    return rec
+
+
+def sdist_reference(cfg, whole, prompt, cache_len, shape, dev, blocks=1,
+                    tokens=None, keep=False):
+    """The parent's one-process serving of `prompt` over `whole`: the
+    ingest of the whole batch, then prefill and greedy decode over each
+    of `blocks` row blocks from its rows of that cache (`tokens`: the
+    steps' inputs) -> the record of the blocks joined: the global
+    logits' digests (with `keep`, the f32 logits on the host), the
+    steps' tokens, the ingested cache's digests and the slices of the
+    ingested and final caches each rank of a mesh of `shape` holds."""
+    import torch
+    from repro_torch.launch import serve as S
+    from repro_torch.runtime.sharding import ShardingPlan
+    B, P = prompt.shape
+    plan = ShardingPlan(mesh=None)
+    cache0 = sdist_ingest(cfg, whole, prompt, cache_len, dev)
+    per = B // blocks
+    recs, finals = [], []
+    for i in range(blocks):
+        rows = slice(i * per, (i + 1) * per)
+        dec = S.make_decode_fn(cfg, plan, per, cache_len)[0]
+        pre = S.make_prefill_fn(cfg, plan, per, P)[0]
+        rec, final = sdist_serve(
+            pre, dec, lambda: whole, prompt[rows], sdist_rows(cache0, rows),
+            dev, None if tokens is None else [t[rows] for t in tokens],
+            keep=True)
+        recs.append(rec)
+        finals.append(final)
+    logits = [torch.cat([r["logits"][i] for r in recs])
+              for i in range(SDIST_GEN + 1)]
+    out = {"prefill": digest(logits[0]),
+           "steps": [digest(x) for x in logits[1:]],
+           "tokens": [torch.cat([r["tokens"][i] for r in recs])
+                      for i in range(SDIST_GEN)],
+           "ingest": digests(cache0),
+           "start": sdist_cache_slices(cache0, cfg, shape, B, cache_len,
+                                       dev),
+           "final": sdist_cache_slices(sdist_cat(finals), cfg, shape, B,
+                                       cache_len, dev)}
+    if keep:
+        out["logits"] = [x.float().cpu() for x in logits]
+    return out
+
+
+def sdist_world2(rank, job, plan, cfg, dev):
+    """Phase SERVE.DIST in the world of 2, on its (data=1, model=2)
+    `plan`: the checkpoint of TRAIN.DIST (c) restored for serving, full
+    and paged (both bf16, each rank its shards), then the B 2 request
+    served through the paged store's pins (a collective pin a call)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import serve as S
+    out = {"launches": {}}
+    peak_reset(dev)
+    first = dispatch.launches()
+    (full, meta), out["restore_s"] = dsynced(
+        lambda: S.restore_serving_params(job["ckpt"], plan, device=dev), dev)
+    out["launches"]["restore"] = launch_diff(first, dispatch.launches())
+    out["meta"], out["full"] = meta, digests(full)
+    del full
+    before = dispatch.launches()
+
+    def paged():
+        store, _ = S.restore_serving_params(job["ckpt"], plan, paged=True,
+                                            device=dev, cache_bytes=8 << 30)
+        with store.pin() as pin:
+            return store, pin.params()
+    (store, shards), out["paged_s"] = dsynced(paged, dev)
+    out["launches"]["paged"] = launch_diff(before, dispatch.launches())
+    out["paged"] = digests(shards)
+    out["restore_peak"] = peak_read(dev)
+
+    def pinned():
+        with store.pin() as pin:
+            return pin.params()
+    prompt = sdist_prompt(cfg, SDIST_B2, SDIST_PROMPT2, job["seed"], dev)
+    try:
+        out["run"] = sdist_rank(plan, cfg, pinned, shards, prompt,
+                                SDIST_CACHE2, dev)
+    finally:
+        store.close()
+    out["launches"]["serve"] = launch_diff(first, dispatch.launches())
+    out["peak"] = peak_read(dev)
+    return out
+
+
+def sdist_world4(rank, job, cfg, dev):
+    """Phase SERVE.DIST in the world of 4, on (data=2, model=2): weights
+    drawn from the seed, each rank keeping its shards in bf16; the B 4 request (2 rows a
+    rank, its logits kept) and the B 1 one under decode_wide."""
+    import torch
+    from repro_torch.convert import map_tree
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import train as TR
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import sharding as SH
+    plan = TR.make_plan_for(cfg, dist_mesh((2, 2), ("data", "model"), dev))
+    out = {}
+    peak_reset(dev)
+    before = dispatch.launches()
+    whole = T.init_params(job["seed"] + 61, cfg, device=dev)
+    shd = SH.param_shardings(whole, plan)
+    shards = map_tree(lambda k, v: SH.place(v.to(torch.bfloat16), shd[k]),
+                      whole)
+    del whole
+    for B in (SDIST_B4, 1):
+        prompt = sdist_prompt(cfg, B, SDIST_PROMPT4, job["seed"], dev)
+        out[B] = sdist_rank(plan, cfg, lambda: shards, shards, prompt,
+                            SDIST_CACHE4, dev, keep=B > 1 and rank == 0)
+    out["launches"] = launch_diff(before, dispatch.launches())
+    out["peak"] = peak_read(dev)
+    return out
+
+
+def sdist_world4_references(cfg, dev, seed):
+    """The parent's references of the world of 4 on the card (taken
+    beside the world of 2): the weights drawn as the ranks draw them, in
+    bf16; B 4 over
+    the two ranks' 2-row blocks (bitwise), then the whole batch fed the
+    blocks' tokens (the bound); B 1 whole (bitwise, decode_wide)."""
+    import torch
+    from repro_torch.convert import map_tree
+    from repro_torch.models import transformer as T
+    whole = map_tree(lambda _k, v: v.to(torch.bfloat16),
+                     T.init_params(seed + 61, cfg, device=dev))
+    p4 = sdist_prompt(cfg, SDIST_B4, SDIST_PROMPT4, seed, dev)
+    blocks = sdist_reference(cfg, whole, p4, SDIST_CACHE4, (2, 2), dev,
+                             blocks=2)
+    batch = sdist_reference(cfg, whole, p4, SDIST_CACHE4, (1, 1), dev,
+                            tokens=[t.to(dev) for t in blocks["tokens"]],
+                            keep=True)
+    wide = sdist_reference(cfg, whole, sdist_prompt(
+        cfg, 1, SDIST_PROMPT4, seed, dev), SDIST_CACHE4, (2, 2), dev)
+    return {SDIST_B4: blocks, "batch": batch, 1: wide}
+
+
+def sdist_check(name, got, want, coords, steps, index, blocks):
+    """A rank's request record against the parent's: every logit digest,
+    the ingested cache, the rank's placed and final cache slices; and
+    that decode changed the rank's slice of a K or V leaf exactly where
+    it holds a slot the positions `steps` wrote (its slice the index-th
+    of `blocks` along the sequence; a ring's slot is pos % L)."""
+    tag = f"phase SERVE.DIST ({name}), rank {coords}"
+    check(got["ingest"] == want["ingest"],
+          f"{tag}: the ingested prompt cache differs from the parent's")
+    check(got["start"] == want["start"][coords],
+          f"{tag}: the placed cache slices are not the parent's slices")
+    check(got["prefill"] == want["prefill"],
+          f"{tag}: the prefill logits differ from the one-process run's")
+    bad = [i for i, (g, w) in enumerate(zip(got["steps"], want["steps"]))
+           if g != w]
+    check(len(got["steps"]) == SDIST_GEN and not bad,
+          f"{tag}: decode steps {bad} differ from the one-process run's")
+    bad = [k for k, v in want["final"][coords].items()
+           if got["final"].get(k) != v]
+    check(sorted(got["final"]) == sorted(want["final"][coords]) and not bad,
+          f"{tag}: final cache slices {bad[:4]} differ from the parent's")
+    kv = [k for k in got["final"] if k.endswith(("/k", "/v"))]
+    check(bool(kv), f"{tag}: no K or V leaf")
+    for k in kv:
+        n = got["final"][k][1][2]           # (R, B, slots, K, D)
+        mine = any(index * n <= p % (n * blocks) < (index + 1) * n
+                   for p in steps)
+        check((got["final"][k] != got["start"][k]) == mine,
+              f"{tag}: decode {'left' if mine else 'wrote into'} {k}'s "
+              f"slice, slots [{index * n}, {(index + 1) * n})")
+
+
+def sdist_holds(r4, r2, want4, want2, want_full2, card, on_card):
+    """Phase SERVE.DIST's holds on the worlds' records against the
+    parent's references, and its figures (printed)."""
+    w2c = mesh_coords((1, 2), ("data", "model"))
+    w4c = mesh_coords((2, 2), ("data", "model"))
+    for r, res in enumerate(r2):
+        got, coords = res["serve"], str(w2c[r])
+        tag = f"phase SERVE.DIST (world of 2), rank {coords}"
+        check(got["meta"]["step"] == DIST_STEPS, f"{tag}: {got['meta']}")
+        bad = [k for k, v in want_full2[r].items() if got["full"].get(k) != v]
+        check(sorted(got["full"]) == sorted(want_full2[r]) and not bad,
+              f"{tag}: restored shards {bad[:4]} are not the slices of the "
+              f"parent's bf16 restore")
+        check(got["paged"] == got["full"],
+              f"{tag}: the paged leaves differ from the full restore's")
+        for what in ("restore", "paged"):
+            n = got["launches"][what]
+            check(not on_card or all(n.get(k, 0) > 0 for k in SDIST_KERNELS),
+                  f"{tag}: the {what} launched {n}")
+        sdist_check("world of 2, B 2", got["run"], want2, coords,
+                    range(SDIST_PROMPT2, SDIST_PROMPT2 + SDIST_GEN),
+                    w2c[r]["model"], 2)
+    steps = range(SDIST_PROMPT4, SDIST_PROMPT4 + SDIST_GEN)
+    for r, res in enumerate(r4):
+        coords, c = str(w4c[r]), w4c[r]
+        sdist_check("world of 4, B 4", res["serve"][SDIST_B4],
+                    want4[SDIST_B4], coords, steps, c["model"], 2)
+        # decode_wide: the sequence over (data, model), row-major
+        sdist_check("world of 4, B 1, decode_wide", res["serve"][1],
+                    want4[1], coords, steps, 2 * c["data"] + c["model"], 4)
+    kept = r4[0]["serve"][SDIST_B4]["logits"]
+    bound = logit_stats(list(zip(kept, want4["batch"]["logits"])))
+    check(len(kept) == SDIST_GEN + 1 and bound["ratio"] <= 1.0,
+          f"phase SERVE.DIST (world of 4, B 4): the ranks' logits against "
+          f"the parent's whole batch {bound}")
+    med = lambda xs: statistics.median(xs) if xs else None
+    runs = {"world2 B 2": [res["serve"]["run"] for res in r2],
+            "world4 B 4": [res["serve"][SDIST_B4] for res in r4],
+            "world4 B 1 wide": [res["serve"][1] for res in r4]}
+    figs = {"whole_batch_vs_blocks": bound}
+    for name, recs in runs.items():
+        figs[name] = dict(
+            prefill_ms=[rec["ms"][0] for rec in recs],
+            decode_ms=[med(rec["ms"][1:]) for rec in recs],
+            gloo_s=[med(rec["gloo_s"][1:]) for rec in recs],
+            staging_s=[med(rec["staging_s"][1:]) for rec in recs],
+            sent_bytes=[med(rec["sent"][1:]) for rec in recs],
+            prefill_gloo_s=[rec["gloo_s"][0] for rec in recs],
+            prefill_staging_s=[rec["staging_s"][0] for rec in recs])
+    figs["world2"] = dict(restore_s=[res["serve"]["restore_s"] for res in r2],
+                          paged_s=[res["serve"]["paged_s"] for res in r2],
+                          restore_peak=[res["serve"]["restore_peak"]
+                                        for res in r2],
+                          peak=[res["serve"]["peak"] for res in r2])
+    figs["world4"] = dict(peak=[res["serve"]["peak"] for res in r4])
+    for name in runs:
+        f = figs[name]
+        print(f"dist phase SERVE.DIST ({name}) [{card}]: prefill ms by rank "
+              f"{f['prefill_ms']}, decode ms a step (median) "
+              f"{f['decode_ms']}; a decode step's gloo s {f['gloo_s']}, "
+              f"staging s {f['staging_s']}, bytes staged "
+              f"{f['sent_bytes']}; the prefill's gloo s "
+              f"{f['prefill_gloo_s']}, staging s {f['prefill_staging_s']}")
+    print(f"dist phase SERVE.DIST (world2) [{card}]: serving restore s "
+          f"{figs['world2']['restore_s']}, paged s "
+          f"{figs['world2']['paged_s']}, peak by rank "
+          f"{figs['world2']['peak']} B (restores {figs['world2']['restore_peak']}"
+          f" B); (world4) peak by rank {figs['world4']['peak']} B; B 4 "
+          f"against the whole batch {bound}")
+    return figs
+
+
 def dist_world4(rank, job):
     """The 4-rank world of phase TRAIN.DIST: (a) (data=2, model=2) from
     the seed, step 0's gradients against the parent's; (b) (pod=2,
     data=1, model=2) without and with the compressed exchange; (c) the
     uncompressed run's state saved (compressed, the checkpoint's default
     mode) to job["ckpt"]; (d) the pipeline over 4 stages of one gemma3-1b
-    block each."""
+    block each; then phase SERVE.DIST's world of 4 (sdist_world4)."""
     import torch
     from repro_torch.checkpoint import ckpt as C
     from repro_torch.kernels import dispatch
@@ -4964,6 +5372,12 @@ def dist_world4(rank, job):
         got, s = dsynced(lambda: pipeline_apply(stage_fn, stacked, mbs,
                                                 mesh, "stage"), dev)
     out["pipe"] = {"digest": digest(got), "s": s}
+    del stacked, mbs, got
+    # SERVE.DIST: serving over the same ranks
+    t1 = time.perf_counter()
+    out["serve"] = sdist_world4(rank, job, cfg, dev)
+    out["serve"]["s"] = time.perf_counter() - t1
+    print(f"rank {rank}: SERVE.DIST {out['serve']['s']:.1f} s", flush=True)
     return out
 
 
@@ -5010,7 +5424,8 @@ def moe_inputs(dev, seed, reduced=False):
 
 def dist_world2(rank, job):
     """The 2-rank world of phase TRAIN.DIST: (c) the 4-rank save restored
-    onto (data=1, model=2); (e) the MoE expert-parallel over model=2."""
+    onto (data=1, model=2); (e) the MoE expert-parallel over model=2;
+    then phase SERVE.DIST's world of 2 (sdist_world2)."""
     import torch
     from repro_torch.checkpoint import ckpt as C
     from repro_torch.kernels import dispatch
@@ -5043,6 +5458,12 @@ def dist_world2(rank, job):
                   "route": {k: digest(r[k]) for k in sorted(r)},
                   "kept": int(r["valid"].sum()),
                   "dropped": int((r["pos"] >= cap).sum())}
+    del p, x, y, r
+    # SERVE.DIST: the checkpoint served over the same ranks
+    t1 = time.perf_counter()
+    out["serve"] = sdist_world2(rank, job, plan, cfg, dev)
+    out["serve"]["s"] = time.perf_counter() - t1
+    print(f"rank {rank}: SERVE.DIST {out['serve']['s']:.1f} s", flush=True)
     return out
 
 
@@ -5087,7 +5508,7 @@ def run_dist_phase(dispatch, card, tmp, seed, dev="cuda", reduced=False,
     import numpy as np
     import torch
     from repro_torch.checkpoint import ckpt as C
-    from repro_torch.convert import tree_items
+    from repro_torch.convert import map_tree, tree_items
     from repro_torch.data.synthetic import DataConfig, batch_for_step
     from repro_torch.launch import mesh as LM
     from repro_torch.launch import train as TR
@@ -5204,7 +5625,23 @@ def run_dist_phase(dispatch, card, tmp, seed, dev="cuda", reduced=False,
     want_c = [slice_digests({k: v.to(dev) for k, v in rest.items()},
                             c_plan, c)
               for c in mesh_coords((1, 2), ("data", "model"))]
+    # SERVE.DIST's references of the world of 2: the restored params cast
+    # to bf16 on the host leaf by leaf, as the serving restore casts them
+    t1 = time.perf_counter()
+    params2 = map_tree(lambda k, _v: rest[k].to(torch.bfloat16).to(dev),
+                       restored["params"], "params/")
     del restored, rest
+    want_full2 = [slice_digests(dict(tree_items(params2)), c_plan, c)
+                  for c in mesh_coords((1, 2), ("data", "model"))]
+    want_s2 = sdist_reference(cfg, params2, sdist_prompt(
+        cfg, SDIST_B2, SDIST_PROMPT2, seed, dev), SDIST_CACHE2, (1, 2), dev)
+    del params2
+    secs["serve_references2"] = time.perf_counter() - t1
+    # ... and of the world of 4 (the world of 2 takes longer than the
+    # parent's work beside it)
+    t1 = time.perf_counter()
+    want_s4 = sdist_world4_references(cfg, dev, seed)
+    secs["serve_references4"] = time.perf_counter() - t1
     mcfg, p, x = moe_inputs(dev, seed, reduced)
     cap = M._moe_capacity(x.shape[0] * x.shape[1], mcfg,
                           mcfg.n_experts // 2)
@@ -5277,10 +5714,18 @@ def run_dist_phase(dispatch, card, tmp, seed, dev="cuda", reduced=False,
               f"one-process sum of the shards")
         check(e["route"] == want_e["routes"][r] and e["cap"] == cap,
               f"phase TRAIN.DIST (e): rank {r}'s routing differs")
-    counts = {}
+    serve_figs = sdist_holds(r4, r2, want_s4, want_s2, want_full2, card,
+                             torch_type(dev) == "cuda")
+    # the children's counts: SERVE.DIST's own, TRAIN.DIST the rest
+    counts, serve_counts = {}, {}
     for res in [r.launches for r in w4 + w2]:
         for k, n in res.items():
             counts[k] = counts.get(k, 0) + n
+    for got in [res["serve"]["launches"] for res in r4] + \
+            [res["serve"]["launches"]["serve"] for res in r2]:
+        for k, n in got.items():
+            serve_counts[k] = serve_counts.get(k, 0) + n
+            counts[k] -= n
     for res in r4:
         pod = res["launches"]["b.True"]
         check(all(pod.get(k, 0) > 0 for k in DIST_KERNELS["pod"]),
@@ -5346,7 +5791,16 @@ def run_dist_phase(dispatch, card, tmp, seed, dev="cuda", reduced=False,
           f"max allocated {figs['max_memory']} B, seconds "
           f"{figs['child_s']}; phase {figs['phase_s']:.1f} s, of which "
           f"{secs}, launches={counts}")
-    return counts, figs
+    figs["SERVE.DIST"] = serve_figs
+    serve_figs["launches"] = serve_counts
+    serve_figs["seconds"] = {
+        "world4": [res["serve"]["s"] for res in r4],
+        "world2": [res["serve"]["s"] for res in r2],
+        "references": {k: secs[k] for k in ("serve_references4",
+                                            "serve_references2")}}
+    print(f"dist phase SERVE.DIST [{card}]: seconds "
+          f"{serve_figs['seconds']}, launches={serve_counts}")
+    return {"TRAIN.DIST": counts, "SERVE.DIST": serve_counts}, figs
 
 
 def zoo_kernel_rows(timed, rows):
@@ -5594,7 +6048,7 @@ def main():
             dispatch, census, captured, card, tmp, args.seed, walks)
     counts.update(c)
     inputs.update(i)
-    counts["TRAIN.DIST"] = dist_counts
+    counts.update(dist_counts)         # TRAIN.DIST and SERVE.DIST
     del nyx, q_mean
     for p in [n for n, _, _ in GATHER_PHASES] + ["Q"]:
         check(all(op in inputs[p] for op in WIRE_OPS),
@@ -5625,11 +6079,12 @@ def main():
     print(f"first-sight holds of the serving phases after SERVE (bitwise "
           f"against the plain versions), kernel -> [phase, wrapper, key]: "
           f"{SIGHT.by_kernel}; {SIGHT.seconds} s")
-    # the censuses cover the parent's counted runs; phase TRAIN.DIST's
-    # launches are its children's
+    # the censuses cover the parent's counted runs; phases TRAIN.DIST's
+    # and SERVE.DIST's launches are their children's
     for name, cen in (("gather_pack_tiled", census.pack),
                       ("dq_center", census.center), ("hufenc", census.flat)):
-        check(rows[name]["launches"] - dist_counts.get(name, 0)
+        check(rows[name]["launches"]
+              - sum(c.get(name, 0) for c in dist_counts.values())
               == sum(cen.totals().values()),
               f"{name} launched outside the phases its census covers")
     for name, t in thr.items():
@@ -5643,6 +6098,7 @@ def main():
     thr["SERVE"] = serve
     thr.update(serve_new)
     thr["TRAIN"] = train
+    thr["SERVE.DIST"] = dist_figs.pop("SERVE.DIST")
     thr["TRAIN.DIST"] = dist_figs
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"throughput": thr, "card": card}))

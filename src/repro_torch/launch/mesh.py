@@ -20,9 +20,9 @@ must equal the mesh's), each rank keeps its own device (``devices[rank]``
 when given, e.g. ``["cpu"] * n`` on the CPU; else ``cuda:rank`` modulo
 the cards present: ``cuda:0`` for every rank on a one-card machine), and
 the process group of every slice of every set of axes is built once,
-collectively, at construction (:meth:`Mesh.group`). Training runs over
-such meshes (``launch/train.py``, ``runtime/sharding.py``); serving over
-several devices is not ported yet (ROADMAP Queue 1 item 5c).
+collectively, at construction (:meth:`Mesh.group`). Training and serving
+run over such meshes (``launch/train.py``, ``launch/serve.py``,
+``runtime/sharding.py``).
 
 Outside a world a mesh is LOGICAL: every position may name one device
 (``devices=["cpu"] * n``), and placement there keeps whole leaves on it;

@@ -35,7 +35,7 @@ emulated position by position: each batch position's gradients on its
 rows, the same means and exchange (``group=None``, the pods stacked on a
 leading axis, the residual too), the same update; an MoE arch without
 a model axis takes the global batch at once, as its ranks route it.
-Serving over several devices is still ROADMAP Queue 1 item 5c.
+Serving over the same rank meshes: ``launch/serve.py``.
 """
 from __future__ import annotations
 

@@ -776,7 +776,8 @@ def moe_apply(p, cfg: MoEConfig, x, plan: ShardingPlan):
     mp = p["moe"]
     ranks = is_rank_plan(plan)
     if plan.mesh is None or plan.model_size == 1:
-        if ranks and plan.batch_group().size > 1:
+        # a decode_wide rank holds the whole batch already
+        if ranks and plan.batch_group().size > 1 and not plan.decode_wide:
             from ..runtime.dist import gather_rows
             g = plan.batch_group()
             xa = gather_rows(x2d, g)
@@ -788,6 +789,7 @@ def moe_apply(p, cfg: MoEConfig, x, plan: ShardingPlan):
             y, aux = moe_local_math(x2d, mp, cfg, 0, cfg.n_experts, cap)
     elif ranks:
         # the rank holds its batch position's rows: B is already B / dp
+        # (in serving with decode_wide, the whole batch on every rank)
         ms = plan.model_size
         cap = _moe_capacity(B * S, cfg, _experts_per_shard(cfg, ms))
         y, aux = _moe_ep_ranks(x2d, mp, cfg, plan, cap)

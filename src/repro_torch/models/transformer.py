@@ -23,6 +23,13 @@ Decode caches: windowed attention layers use RING buffers (window
 slots, not context slots), taken only when the cache was sized to the
 window; the SSM blocks keep a fixed-size state (mamba's conv window and
 SSD state, rwkv's token shifts and WKV state), new tensors every step.
+
+Over a rank mesh the serving functions take `shards` (``launch/serve.py::
+ServeShards``): the parameters are the rank's shards and the cache the
+rank's slices, and each unit's parameters and cache leaves are gathered
+whole as the unit runs (the top-level leaves once a call), the
+one-device arithmetic runs on the rank's rows, and the rank keeps its
+slice of each updated cache leaf.
 """
 from __future__ import annotations
 
@@ -268,15 +275,39 @@ def encode_frontend(params, cfg: ModelConfig, frames, plan):
     return mod.norm_apply(params["encoder"]["norm"], h)
 
 
+_TOP = ("embed", "final_norm", "shared", "encoder")
+
+
+def _whole_top(params, shards, keys=_TOP):
+    """The top-level leaves under `keys` (those present): as they are, or
+    gathered whole from the rank's shards."""
+    return {k: params[k] if shards is None else shards.params(params[k], k)
+            for k in keys if k in params}
+
+
+def _whole_unit(params, ui: int, shards):
+    up = params["units"][ui]
+    return up if shards is None else shards.params(up, f"units/{ui}")
+
+
 def forward_hidden(params, cfg: ModelConfig, tokens, plan: ShardingPlan,
                    positions=None, frontend=None):
     """tokens: (B, S_text). Returns (hidden (B,S,d), aux, text_offset)."""
-    h = mod.embed_apply(params, tokens, plan,
+    return _forward(params, cfg, tokens, plan, positions, frontend)[:3]
+
+
+def _forward(params, cfg: ModelConfig, tokens, plan: ShardingPlan,
+             positions=None, frontend=None, shards=None):
+    """forward_hidden's (hidden, aux, text_offset) and the whole
+    top-level leaves it used; `shards`: gather on use over a rank mesh
+    (module docstring)."""
+    top = _whole_top(params, shards)
+    h = mod.embed_apply(top, tokens, plan,
                         scale=cfg.d_model ** 0.5 if cfg.embed_scale else None)
     memory = None
     offset = 0
     if cfg.encoder is not None and frontend is not None:
-        memory = encode_frontend(params, cfg, frontend, plan)
+        memory = encode_frontend(top, cfg, frontend, plan)
     elif cfg.frontend == "vision" and frontend is not None:
         h = torch.cat([frontend.to(h.dtype), h], dim=1)
         offset = frontend.shape[1]
@@ -288,10 +319,10 @@ def forward_hidden(params, cfg: ModelConfig, tokens, plan: ShardingPlan,
             positions = positions.expand((3,) + (h.shape[0], S))
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for ui, unit in enumerate(cfg.units):
-        h, aux = _unit_scan(params["units"][ui], unit, cfg, h, positions,
-                            plan, aux, params.get("shared"), memory)
-    h = mod.norm_apply(params["final_norm"], h)
-    return h, aux, offset
+        h, aux = _unit_scan(_whole_unit(params, ui, shards), unit, cfg, h,
+                            positions, plan, aux, top.get("shared"), memory)
+    h = mod.norm_apply(top["final_norm"], h)
+    return h, aux, offset, top
 
 
 def lm_loss(params, cfg: ModelConfig, batch, plan: ShardingPlan,
@@ -457,36 +488,49 @@ def _block_decode(bp, b: BlockSpec, h, pos, cache, plan):
 
 
 def serve_decode(params, cfg: ModelConfig, token, cache,
-                 plan: ShardingPlan):
+                 plan: ShardingPlan, shards=None):
     """One decode step. token: (B,) int32; cache from init_cache.
 
-    Returns (logits (B, vocab), new_cache); `cache` is left as it was."""
+    Returns (logits (B, vocab), new_cache); `cache` is left as it was.
+    With `shards` (module docstring) `token`, the logits and ``pos`` are
+    the rank's rows, and the cache's unit leaves the rank's slices."""
     pos = cache["pos"]
-    h = mod.embed_apply(params, token[:, None], plan,
+    top = _whole_top(params, shards, ("embed", "final_norm", "shared"))
+    h = mod.embed_apply(top, token[:, None], plan,
                         scale=cfg.d_model ** 0.5 if cfg.embed_scale else None)
     new_units = []
     for ui, unit in enumerate(cfg.units):
+        uparams = _whole_unit(params, ui, shards)
+        ucache = cache["units"][ui]
+        if shards is not None:
+            ucache = shards.cache(ucache, f"units/{ui}")
         per_repeat = []
         for r in range(unit.repeat):
-            pslice = _index(params["units"][ui], r)
-            cslice = _index(cache["units"][ui], r)
+            pslice = _index(uparams, r)
+            cslice = _index(ucache, r)
             ncs = {}
             for bi, b in enumerate(unit.blocks):
-                bp = params["shared"] if b.use_shared else pslice[f"b{bi}"]
+                bp = top["shared"] if b.use_shared else pslice[f"b{bi}"]
                 h, ncs[f"b{bi}"] = _block_decode(bp, b, h, pos,
                                                  cslice[f"b{bi}"], plan)
             per_repeat.append(ncs)
-        new_units.append(_stack(per_repeat))
-    h = mod.norm_apply(params["final_norm"], h)
-    logits = mod.unembed_logits(params, h, plan, cfg.final_softcap)[:, 0]
+        new = _stack(per_repeat)
+        del uparams, ucache
+        new_units.append(new if shards is None
+                         else shards.keep(new, f"units/{ui}"))
+    h = mod.norm_apply(top["final_norm"], h)
+    logits = mod.unembed_logits(top, h, plan, cfg.final_softcap)[:, 0]
     new_cache = {**cache, "units": new_units, "pos": pos + 1}
     return logits, new_cache
 
 
 def serve_prefill(params, cfg: ModelConfig, tokens, plan: ShardingPlan,
-                  frontend=None):
+                  frontend=None, shards=None):
     """Prefill: full forward returning last-position logits (cache writing
-    is elided, as in the reference: the prefill compute path alone)."""
-    h, _, off = forward_hidden(params, cfg, tokens, plan, frontend=frontend)
-    logits = mod.unembed_logits(params, h[:, -1:], plan, cfg.final_softcap)
+    is elided, as in the reference: the prefill compute path alone).
+    With `shards` (module docstring) `tokens` and the logits are the
+    rank's rows."""
+    h, _, _, top = _forward(params, cfg, tokens, plan, frontend=frontend,
+                            shards=shards)
+    logits = mod.unembed_logits(top, h[:, -1:], plan, cfg.final_softcap)
     return logits[:, 0]

@@ -40,9 +40,16 @@ on its batch rows; the arithmetic is split only where the reference
 splits it by hand: MoE expert parallelism (``models/modules.py::
 moe_apply``) and the pod exchange (``optim/grad_compress.py``).
 Megatron-style split matmuls would change the order of every sum for no
-check that can be made against the reference. Serving over several
-devices is not ported yet (ROADMAP Queue 1 item 5c): its entry points
-raise NotImplementedError (:func:`serving_device`).
+check that can be made against the reference.
+
+Serving over a rank mesh follows the same rule (``launch/serve.py``):
+parameters rest as shards, and each decode cache leaf as the rank's
+slice by ``cache_shardings`` (:func:`place_cache`; the sequence of a
+``decode_wide`` cache over two axes at once). Prefill and decode gather
+a unit's parameters and its cache leaves whole on use (a cache over
+every dimension but its batch rows: :func:`gather_leaf` with `dims`),
+compute the one-device step on the rank's rows and keep the rank's
+slice of each updated leaf (:func:`shard_slices` with `dims`).
 """
 from __future__ import annotations
 
@@ -100,21 +107,6 @@ def is_rank_plan(plan) -> bool:
     """Whether `plan` carries a rank mesh of several processes."""
     mesh = getattr(plan, "mesh", None) if plan is not None else None
     return mesh is not None and mesh.is_rank_mesh and mesh.size > 1
-
-
-def serving_device(plan, what: str) -> Optional[torch.device]:
-    """:func:`plan_device` for the serving paths, which place on one
-    device only: a plan over several devices or ranks raises
-    NotImplementedError naming ROADMAP Queue 1 item 5c."""
-    mesh = getattr(plan, "mesh", None) if plan is not None else None
-    if mesh is not None and (mesh.is_rank_mesh and mesh.size > 1
-                             or len(mesh.device_set) > 1):
-        raise NotImplementedError(
-            f"{what} over a mesh of {mesh.size} positions "
-            f"({mesh.shape}) is not ported to repro_torch yet (ROADMAP "
-            "Queue 1 item 5c: serving over several devices — cache "
-            "placement, the restore and the pager onto a rank mesh)")
-    return plan_device(plan, what)
 
 
 @dataclasses.dataclass
@@ -376,19 +368,20 @@ def _dim_axes(part):
                                     else (part,))
 
 
-def shard_slices(shape, sharding: NamedSharding,
-                 coords=None) -> Tuple[slice, ...]:
+def shard_slices(shape, sharding: NamedSharding, coords=None,
+                 dims=None) -> Tuple[slice, ...]:
     """The block of a leaf of `shape` that the mesh position `coords`
     ({axis: coordinate}; default this rank's) holds: along each dimension
     its spec names, the block those coordinates select (row-major over
-    the axes in the spec's order)."""
+    the axes in the spec's order). `dims`: slice only these dimensions
+    (the others whole)."""
     mesh = sharding.mesh
     coords = mesh.coords if coords is None else coords
     sizes = mesh.shape
     out = []
     for i, n in enumerate(shape):
         axes = _dim_axes(sharding.spec[i] if i < len(sharding.spec)
-                         else None)
+                         and (dims is None or i in dims) else None)
         idx, tot = 0, 1
         for a in axes:
             idx, tot = idx * sizes[a] + coords[a], tot * sizes[a]
@@ -418,16 +411,39 @@ def place(arr, sharding: Optional[NamedSharding]):
     return arr.to(dev)
 
 
-def gather_leaf(t: torch.Tensor, sharding: Optional[NamedSharding]):
+def gather_leaf(t: torch.Tensor, sharding: Optional[NamedSharding],
+                dims=None):
     """The inverse of :func:`place`: a rank's shard all-gathered over the
     axes of its spec, dimension by dimension (the innermost axis of a
-    dimension first), to the whole leaf on the rank's device. Without a
-    sharding or a rank mesh, `t` unchanged."""
+    dimension first, so a dimension split over (data, model) comes back
+    in the spec's row-major order), to the whole leaf on the rank's
+    device. `dims`: gather only these dimensions (the others stay the
+    rank's block). Without a sharding or a rank mesh, `t` unchanged."""
     from .dist import gather_cat
     if sharding is None or not sharding.mesh.is_rank_mesh:
         return t
     mesh = sharding.mesh
     for i, part in enumerate(sharding.spec):
+        if dims is not None and i not in dims:
+            continue
         for a in reversed(_dim_axes(part)):
             t = gather_cat(t.contiguous(), mesh.group(a), i)
     return t
+
+
+def place_cache(cache, shardings):
+    """A decode cache (whole leaves, host or device) placed by the tree of
+    NamedShardings ``launch/serve.py::cache_shardings`` gives for it: on
+    a rank mesh every leaf the rank's slice (:func:`place`), a
+    ``decode_wide`` sequence cut over the batch axes and model at once."""
+    from ..convert import map_tree, tree_items
+    shd = dict(tree_items(shardings))
+    return map_tree(lambda k, v: place(v, shd[k]), cache)
+
+
+def gather_cache(cache, shardings):
+    """The inverse of :func:`place_cache`: every leaf of a rank's cache
+    slices gathered whole (:func:`gather_leaf`)."""
+    from ..convert import map_tree, tree_items
+    shd = dict(tree_items(shardings))
+    return map_tree(lambda k, v: gather_leaf(v, shd[k]), cache)

@@ -22,6 +22,18 @@ generation captured at pin time, so a decode step never observes a
 mixed-generation tree. Old generations stay readable until their last
 pin releases, then their reader closes and their cache entries drop.
 
+Over a rank mesh (one process a position) every rank opens its own store
+and keeps its PARAM_RULES shard of each leaf it pages in; the LRU budget
+counts those shard-sized bytes. ``pin`` and ``swap`` are then collective
+over the mesh's ranks, every rank calling them in the same order (pins
+from one thread a rank): a swap opens and warms the new stream on every
+rank, agrees that all succeeded, and stages the generation; each pin
+agrees on the newest generation every rank has staged and flips to it
+first. So a pin taken after a swap returned, on any rank, sees the new
+generation, one taken before keeps the old one on every rank, and no
+step mixes generations across ranks, even with the swap on a thread of
+its own (its agreement runs on a process group of its own).
+
 Observability: ``serve.page``/``serve.swap`` spans,
 ``ceaz_page_{hits,misses,evictions}_total`` counters and the
 ``ceaz_page_cache_bytes`` resident gauge.
@@ -41,8 +53,8 @@ from ..io import engine as E
 from ..obs import metrics as om
 from ..obs import trace as ot
 from ..runtime.fused import target_device
-from ..runtime.sharding import (ShardingPlan, leaf_sharding, place,
-                                serving_device)
+from ..runtime.sharding import (ShardingPlan, is_rank_plan, leaf_sharding,
+                                place, plan_device)
 
 __all__ = ["PagedParamStore", "PinnedParams"]
 
@@ -138,10 +150,11 @@ class PagedParamStore:
       path: the ``.ceazs`` stream to serve from (a checkpoint
         ``leaves.ceazs`` — fully validated at open).
       plan: serve-mesh sharding plan; decoded leaves are placed by their
-        PARAM_RULES :func:`leaf_sharding` as they decode (a mesh that
-        spans one device; a mesh over several devices or ranks raises
-        NotImplementedError, ROADMAP Queue 1 item 5c). With ``plan=None`` (or a mesh-less plan) leaves
-        land on `device`.
+        PARAM_RULES :func:`leaf_sharding` as they decode: whole on the one
+        device of a logical mesh, the rank's shard on a rank mesh (module
+        docstring); one process cannot drive a mesh whose positions name
+        several devices (ValueError at placement). With ``plan=None``
+        (or a mesh-less plan) leaves land on `device`.
       dtype: torch dtype float leaves are cast to on the host BEFORE
         placement (``torch.bfloat16`` by default), so peak device memory
         during a page-in is the serving footprint, never f32+bf16.
@@ -158,7 +171,8 @@ class PagedParamStore:
         serves every record.
       device: where leaves land without a mesh, and where the default
         facade decodes (the card unless the caller asks for the CPU;
-        RuntimeError for ``'cuda'`` without a card).
+        RuntimeError for ``'cuda'`` without a card); a rank's own device
+        on a rank mesh.
 
     Raises:
       StreamCorruptionError: from open/swap on any validation failure
@@ -171,6 +185,8 @@ class PagedParamStore:
                  prefix: Optional[str] = None, device="cuda"):
         self._plan = plan
         self._dtype = dtype
+        if is_rank_plan(plan):             # each rank decodes on its own
+            device = plan.mesh.local_device
         self._device = target_device(device)
         self._budget = int(cache_bytes)
         self._group = max(1, group)
@@ -183,6 +199,18 @@ class PagedParamStore:
             OrderedDict()
         self._bytes = 0
         self._live: Dict[int, _Generation] = {}
+        # over a rank mesh: the groups pins and swaps agree on, and the
+        # generations swapped in but not yet flipped to, oldest first
+        self._pins = self._swaps = None
+        self._staged: List[_Generation] = []
+        if is_rank_plan(plan):
+            from ..runtime.dist import RankGroup
+            import torch.distributed as dist
+            mesh = plan.mesh
+            self._pins = mesh.group(mesh.axis_names)
+            ranks = tuple(int(r) for r in mesh.ranks.flat)
+            self._swaps = RankGroup((dist.new_group(list(ranks)),), ranks,
+                                    self._pins.index)
         self._gen = self._open_generation(path, comp)
 
     # -- generation lifecycle ------------------------------------------------
@@ -204,7 +232,7 @@ class PagedParamStore:
     def _release(self, gen: _Generation):
         with self._lock:
             gen.refs -= 1
-            dead = (gen.refs == 0
+            dead = (gen.refs == 0 and gen not in self._staged
                     and (gen is not self._gen or self._closed))
             if dead:
                 self._live.pop(gen.id, None)
@@ -221,13 +249,31 @@ class PagedParamStore:
     def pin(self) -> PinnedParams:
         """Take a generation-consistent read handle (see
         :class:`PinnedParams`). Pins taken before a ``swap`` keep
-        resolving against the old stream until released."""
+        resolving against the old stream until released. Collective over
+        a rank mesh (module docstring)."""
+        if self._pins is not None:
+            self._agree_on_generation()
         with self._lock:
             if self._closed:
                 raise RuntimeError("PagedParamStore is closed")
             gen = self._gen
             gen.refs += 1
         return PinnedParams(self, gen)
+
+    def _agree_on_generation(self):
+        """Flip, in order, to every staged generation that every rank has
+        staged (the ranks number their generations alike)."""
+        from ..runtime.dist import all_gather_object
+        with self._lock:
+            newest = self._staged[-1].id if self._staged else self._gen.id
+        agreed = min(all_gather_object(newest, self._pins))
+        olds = []
+        with self._lock:
+            while self._staged and self._staged[0].id <= agreed:
+                olds.append(self._gen)
+                self._gen = self._staged.pop(0)
+        for old in olds:
+            self._release(old)              # store's ref on the old epoch
 
     def swap(self, path: str, *, comp=None,
              warm: Any = True) -> int:
@@ -242,10 +288,17 @@ class PagedParamStore:
         a pin sees entirely-old or entirely-new, never a mix. The old
         generation's reader closes when its last pin releases.
 
-        Returns the new generation id."""
+        Returns the new generation id.
+
+        Over a rank mesh every rank calls it (collective; module
+        docstring): when all ranks opened and warmed their stream, the
+        generation is staged and the next pin on every rank flips to it;
+        if any rank failed, every rank drops its new generation and
+        raises."""
         with ot.span("serve.swap", path=path, warm=bool(warm)):
-            new = self._open_generation(path, comp)
+            new, failed = None, None
             try:
+                new = self._open_generation(path, comp)
                 if warm is True:
                     warm_keys = self._servable_keys(new)
                 elif warm:
@@ -257,12 +310,27 @@ class PagedParamStore:
                 # land, readers never block on the bulk decode
                 for s in range(0, len(warm_keys), self._group):
                     self._get_many(new, warm_keys[s:s + self._group])
-            except BaseException:
-                self._release(new)          # drop the store ref: closes
-                raise
+            except BaseException as e:      # raised below, after the
+                failed = e                  # ranks agree
+            if self._swaps is not None:
+                from ..runtime.dist import all_gather_object
+                got = all_gather_object((failed is None, self._next_gen),
+                                        self._swaps)
+                with self._lock:            # ids stay alike on every rank
+                    self._next_gen = max(n for _, n in got)
+                bad = [r for r, (ok, _) in enumerate(got) if not ok]
+                if bad and failed is None:
+                    failed = RuntimeError(f"swap failed on ranks {bad}")
+            if failed is not None:
+                if new is not None:
+                    self._release(new)      # drop the store ref: closes
+                raise failed
             with self._lock:
                 if self._closed:
                     raise RuntimeError("PagedParamStore is closed")
+                if self._swaps is not None:
+                    self._staged.append(new)
+                    return new.id
                 old, self._gen = self._gen, new
         self._release(old)                  # store's ref on the old epoch
         return new.id
@@ -275,7 +343,9 @@ class PagedParamStore:
                 return
             self._closed = True
             gen = self._gen
-        self._release(gen)
+            staged, self._staged = self._staged, []
+        for g in [gen] + staged:
+            self._release(g)
 
     def __enter__(self) -> "PagedParamStore":
         return self
@@ -390,7 +460,7 @@ class PagedParamStore:
                 and t.is_floating_point()):
             t = t.to(self._dtype)
         if self._plan is not None and self._plan.mesh is not None:
-            serving_device(self._plan, "the pager's placement")
+            plan_device(self._plan, "the pager's placement")
             return place(t, leaf_sharding(key, tuple(t.shape), self._plan))
         return t.to(self._device)
 

@@ -116,7 +116,7 @@ def test_placement_dtype_and_device(streams):
     two = S.make_plan(LM.make_mesh((2, 1), ("data", "model"),
                                    devices=["cuda:0", "cuda:1"]))
     with _store(s1, plan=two) as st, st.pin() as pin:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        with pytest.raises(ValueError, match="one process a position"):
             pin.get("params/norm")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

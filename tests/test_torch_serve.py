@@ -226,9 +226,11 @@ def test_paged_and_mesh_restores_match_full(ckpts):
         _same_bits(pin.params(), full)
     placed, _ = S.restore_serving_params(d_ref, one, device="cpu")
     _same_bits(placed, full)
+    # one process cannot drive a mesh whose positions name two devices
+    # (serving over ranks: tests/test_torch_serve_dist.py)
     two = SH.make_plan(LM.make_mesh((2, 1), ("data", "model"),
                                     devices=["cuda:0", "cuda:1"]))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(ValueError, match="one process a position"):
         S.restore_serving_params(d_ref, two, device="cpu")
 
 

@@ -22,7 +22,8 @@ against the CPU; the whole zamba2-7b drawn as bf16 and served) and
 checkpointed and resumed from step 3; its card-against-CPU holds) and
 ``run_dist_phase`` (TRAIN.DIST: gemma3-1b's first repeat trained over 4
 gloo processes on the card, the pod exchange, the sharded save and the
-restore onto 2, the pipeline and the MoE's expert parallelism). Then
+restore onto 2, the pipeline and the MoE's expert parallelism; then
+SERVE.DIST, serving over the same two worlds' ranks). Then
 ``serve_kernel_rows`` and
 ``zoo_kernel_rows`` on the calls the phases kept (each a row of its own
 here: no earlier phase made the rows). Prints the card's name and power
